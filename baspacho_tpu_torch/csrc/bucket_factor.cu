@@ -15,7 +15,9 @@
 //     (the layout of _embed_inv);
 //   * overwrites the below block with x = below . Linv^T;
 //   * writes the products x . x^T, (rp x rp) per panel, into the level's
-//     product buffer at prod_base + i * rp * rp (zero on padded rows).
+//     product buffer at prod_base + i * rp * rp (zero on padded rows),
+//     unless prod is null: a dense level's update (dense_level.cu) reads
+//     x from the data instead.
 //
 // Three kernels, launched back to back on the current stream:
 //   chol_inv  one CTA per (panel, batch item): right-looking Cholesky
@@ -166,12 +168,14 @@ int launch(void* data, int64_t data_bstride, void* prod,
     below_kernel<T><<<dim3((unsigned)B, (rp + rb - 1) / rb, batch), 256,
                       rb * cp * sizeof(T), stream>>>(d, data_bstride, off,
                                                      rows, cols, cp, rb);
-    int64_t tiles = ((int64_t)rp * rp + 255) / 256;
-    if (tiles > 65535) tiles = 65535;
-    prod_kernel<T><<<dim3((unsigned)B, (unsigned)tiles, batch), 256, 0,
-                     stream>>>(d, data_bstride, static_cast<T*>(prod),
-                               prod_bstride, prod_base, off, rows, cols, cp,
-                               rp);
+    if (prod != nullptr) {
+      int64_t tiles = ((int64_t)rp * rp + 255) / 256;
+      if (tiles > 65535) tiles = 65535;
+      prod_kernel<T><<<dim3((unsigned)B, (unsigned)tiles, batch), 256, 0,
+                       stream>>>(d, data_bstride, static_cast<T*>(prod),
+                                 prod_bstride, prod_base, off, rows, cols,
+                                 cp, rp);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,19 @@
-"""The port's three hand-written CUDA kernels, their plain twins and
-their launch counters.
+"""The port's hand-written CUDA kernels, their plain twins and their
+launch counters.
 
-  K1 bucket_factor       csrc/bucket_factor.cu
+  K1 bucket_factor       csrc/bucket_factor.cu       panels cp <= 512
+  K1-wide wide_factor    csrc/wide_factor.cu         panels cp > 512
   K2 segmented_subtract  csrc/segmented_subtract.cu
-  K3 bucket_solve        csrc/bucket_solve.cu
+  K3 bucket_solve        csrc/bucket_solve.cu        panels cp <= 512
+  K3-wide wide_solve     csrc/wide_solve.cu          panels cp > 512
+  K4 dense_update        csrc/dense_level.cu         dense levels
 
 Each wrapper takes the same arguments on either device. For a tensor on
 the CPU it runs the plain PyTorch twin beside it; for a CUDA tensor it
 launches the kernel or raises — there is no fallback. The kernels are
-compiled for sm_90a with nvcc into one plain-C shared library at first
-use (`build/` at the repository root) and bound with ctypes.
+compiled for sm_90a with nvcc (one process per source, in parallel) and
+linked into one plain-C shared library at first use (`build/` at the
+repository root), bound with ctypes.
 
 Data conventions (all tensors contiguous):
   data  (batch, data_size)   flat padded factor buffer, updated in place
@@ -35,22 +39,25 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
-SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu")
+SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu",
+           "wide_factor.cu", "wide_solve.cu", "dense_level.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu)
 
 
 @dataclass
 class LaunchCount:
     launches: int = 0    # wrapper calls that launched the kernel
     grid_launches: int = 0  # __global__ launches among them (K1 launches
-    #                         three grids per call on panels with below rows)
+    #                         up to three grids per call, K1-wide two per
+    #                         diagonal tile)
     twin_calls: int = 0  # calls of the plain twin (any device)
 
 
-COUNTS = {"bucket_factor": LaunchCount(),
-          "segmented_subtract": LaunchCount(),
-          "bucket_solve": LaunchCount()}
+COUNTS = {name: LaunchCount() for name in (
+    "bucket_factor", "wide_factor", "segmented_subtract", "bucket_solve",
+    "wide_solve", "dense_update")}
 
 
 def reset_counts() -> None:
@@ -86,20 +93,35 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libbaspacho_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Runs the commands in parallel; raises with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for cmd, (out, rc) in zip(cmds, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
-    """Compile the kernels if the library for these sources is missing;
-    returns its path. Raises with nvcc's output when the build fails."""
+    """Compile the kernels if the library for these sources is missing
+    (one nvcc per source, all at once, then one link); returns its path.
+    Raises with nvcc's output when the build fails."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{os.path.basename(so)[:-3]}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{tag}.{s[:-3]}.o") for s in SOURCES]
+    nvcc = _nvcc()
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+              for s, o in zip(SOURCES, objs)])
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}"
-                           f"\n{res.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, so)
     return so
 
@@ -109,16 +131,30 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = ctypes.CDLL(build())
         i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-        lib.bs_bucket_factor.restype = i32
-        lib.bs_bucket_factor.argtypes = [
-            i32, vp, i64, vp, i64, i64, vp, vp, vp, i64, i32, i32, i32, vp]
-        lib.bs_segmented_subtract.restype = i32
-        lib.bs_segmented_subtract.argtypes = [
-            i32, vp, i64, vp, i64, vp, vp, vp, i64, i64, i32, vp]
-        lib.bs_bucket_solve.restype = i32
-        lib.bs_bucket_solve.argtypes = [
-            i32, i32, vp, i64, vp, i64, vp, i64, i64, vp, vp, vp, vp, vp,
-            i64, i64, i32, i32, i32, i32, vp]
+        sigs = {
+            "bs_bucket_factor": [i32, vp, i64, vp, i64, i64, vp, vp, vp, i64,
+                                 i32, i32, i32, vp],
+            "bs_segmented_subtract": [i32, vp, i64, vp, i64, vp, vp, vp, i64,
+                                      i64, i32, vp],
+            "bs_bucket_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
+                                vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                                vp],
+            "bs_wide_tile": [i32, vp, i64, vp, vp, vp, i64, i32, i32, i32,
+                             i32, vp],
+            "bs_wide_trsm": [i32, vp, i64, vp, vp, vp, i64, i32, i32, i32,
+                             i32, i32, vp],
+            "bs_wide_embed": [i32, vp, i64, vp, vp, i64, i32, i32, vp],
+            "bs_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
+                              vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
+                              i32, vp],
+            "bs_dense_update": [i32, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp,
+                                vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
+                                vp],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = args
         _lib_handle = lib
     return _lib_handle
 
@@ -168,27 +204,27 @@ def _raise_on(name: str, err: int) -> None:
 # ----------------------------------------------------------------------
 def bucket_factor(data, prod, off, rows, cols, cp: int, rp: int,
                   prod_base: int) -> None:
-    """Factor the bucket's panels in place in `data` and, when rp > 0,
-    write their products x . x^T into prod[:, prod_base:]."""
-    _check_batch("bucket_factor", data, prod if rp else None)
+    """Factor the bucket's panels in place in `data` (x = below . Linv^T
+    overwrites the below rows) and, when rp > 0 and `prod` is given,
+    write their products x . x^T into prod[:, prod_base:]. Dense levels
+    pass prod None: their update reads x from the data (K4)."""
+    with_prod = rp > 0 and prod is not None
+    _check_batch("bucket_factor", data, prod if with_prod else None)
     if data.device.type == "cpu":
         return bucket_factor_twin(data, prod, off, rows, cols, cp, rp,
                                   prod_base)
-    floats = [data] if rp == 0 else [data, prod]
-    _check_cuda("bucket_factor", floats, [off, rows, cols])
-    if cp > 512:
-        raise ValueError("bucket_factor: cp > 512 needs the blocked wide "
-                         "path, which is not ported")
+    _check_cuda("bucket_factor", [data, prod] if with_prod else [data],
+                [off, rows, cols])
     batch = data.shape[0]
-    prod_ptr = prod.data_ptr() if rp else None
-    prod_bstride = prod.shape[1] if rp else 0
     err = _lib().bs_bucket_factor(
-        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1], prod_ptr,
-        prod_bstride, prod_base, off.data_ptr(), rows.data_ptr(),
-        cols.data_ptr(), off.shape[0], cp, rp, batch, _stream(data))
+        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+        prod.data_ptr() if with_prod else None,
+        prod.shape[1] if with_prod else 0, prod_base, off.data_ptr(),
+        rows.data_ptr(), cols.data_ptr(), off.shape[0], cp, rp, batch,
+        _stream(data))
     COUNTS["bucket_factor"].launches += 1
-    # chol_inv, then below and prod when the panels have below rows
-    COUNTS["bucket_factor"].grid_launches += 3 if rp else 1
+    # chol_inv, then below when the panels have below rows, then prod
+    COUNTS["bucket_factor"].grid_launches += 1 + (rp > 0) + with_prod
     _raise_on("bucket_factor", err)
 
 
@@ -213,9 +249,172 @@ def bucket_factor_twin(data, prod, off, rows, cols, cp: int, rp: int,
     if rp > 0:
         x = torch.einsum("zbrk,zbjk->zbrj", panels[:, :, cp:], Linv)
         store = torch.cat([store, x], dim=2)
-        pr = torch.einsum("zbrk,zbsk->zbrs", x, x)
-        prod[:, prod_base:prod_base + B * rp * rp] = pr.reshape(batch, -1)
+        if prod is not None:
+            pr = torch.einsum("zbrk,zbsk->zbrs", x, x)
+            prod[:, prod_base:prod_base + B * rp * rp] = \
+                pr.reshape(batch, -1)
     data[:, idx] = store.reshape(batch, B, h * cp)
+
+
+# ----------------------------------------------------------------------
+# K1-wide wide_factor
+# ----------------------------------------------------------------------
+def wide_factor(data, off, rows, cols, cp: int, rp: int, off_h,
+                cols_h) -> None:
+    """Blocked factor of a bucket of wide panels (cp > 512, a multiple of
+    WIDE_TILE), in place in the layout bucket_factor writes: L on and
+    below the diagonal, the full Linv^T strictly above, x = below . L^-T
+    below; no product. off_h / cols_h are host copies of off / cols (the
+    per-panel views of the large matrix products need them)."""
+    if data.device.type == "cpu":
+        return wide_factor_twin(data, off, rows, cols, cp, rp, off_h,
+                                cols_h)
+    _check_cuda("wide_factor", [data], [off, rows, cols])
+    COUNTS["wide_factor"].launches += 1
+    _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h,
+                    _WideKernelSteps)
+
+
+def wide_factor_twin(data, off, rows, cols, cp: int, rp: int, off_h,
+                     cols_h) -> None:
+    """Plain twin of K1-wide: the same blocked schedule with the three
+    hand-written steps in plain torch."""
+    COUNTS["wide_factor"].twin_calls += 1
+    _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h,
+                    _WideTwinSteps)
+
+
+def _panel_view(data, o: int, cp: int, r: int, c: int, nr: int, nc: int):
+    """(batch, nr, nc) view of a panel at flat offset o (row stride cp)
+    from row r, column c; rows >= cp run into the below block."""
+    return data.as_strided((data.shape[0], nr, nc), (data.stride(0), cp, 1),
+                           data.storage_offset() + o + r * cp + c)
+
+
+def _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h, steps):
+    """Right-looking blocked Cholesky (PlannedBackend._blocked_factor) and
+    blocked inverse (_blocked_lower_inv), embedded as _embed_inv does.
+
+    Per diagonal tile k (WIDE_TILE wide): `steps.tile` factors and
+    inverts it (hand-written), `steps.trsm` multiplies the rows below it
+    by the tile's inverse (hand-written), and one matrix product per
+    panel updates the trailing diagonal and below rows. Then the block
+    rows of Linv^T are swept with two products each (Xt holds Linv^T, its
+    diagonal tiles written by `steps.tile`), and `steps.embed` copies Xt's
+    strict upper into the panels. The products run per batch item, so a
+    batch item gets the same matrix-product kernels, hence the same bits,
+    as a single run."""
+    nb = WIDE_TILE
+    if cp % nb:
+        raise ValueError(f"wide_factor: cp {cp} is not a multiple of {nb}")
+    batch = data.shape[0]
+    xt = data.new_zeros((batch, len(off_h), cp, cp))
+    for k0 in range(0, cp, nb):
+        k1 = k0 + nb
+        steps.tile(data, xt, off, cols, cp, k0, off_h, cols_h)
+        if cp + rp > k1:
+            steps.trsm(data, xt, off, rows, cols, cp, rp, k0, off_h,
+                       cols_h)
+        if cp > k1:
+            for o in off_h:
+                x = _panel_view(data, o, cp, k1, k0, cp + rp - k1, nb)
+                c = _panel_view(data, o, cp, k1, k1, cp + rp - k1, cp - k1)
+                for z in range(batch):
+                    c[z].addmm_(x[z], x[z, :cp - k1].mT, alpha=-1)
+    for i, o in enumerate(off_h):
+        for z in range(batch):
+            X = xt[z, i]
+            for r0 in range(nb, cp, nb):
+                # Linv[r, :r] = -Dinv_r L[r, :r] Linv[:r, :r], transposed
+                st = torch.matmul(
+                    X[:r0, :r0], _panel_view(data, o, cp, r0, 0, nb, r0)[z].mT)
+                X[:r0, r0:r0 + nb] = -torch.matmul(
+                    st, X[r0:r0 + nb, r0:r0 + nb])
+    steps.embed(data, xt, off, cp, off_h)
+
+
+class _WideKernelSteps:
+    """The hand-written steps of K1-wide (csrc/wide_factor.cu)."""
+
+    @staticmethod
+    def tile(data, xt, off, cols, cp, k0, off_h, cols_h):
+        err = _lib().bs_wide_tile(
+            _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+            xt.data_ptr(), off.data_ptr(), cols.data_ptr(), off.shape[0],
+            cp, k0, WIDE_TILE, data.shape[0], _stream(data))
+        COUNTS["wide_factor"].grid_launches += 1
+        _raise_on("wide_factor (tile)", err)
+
+    @staticmethod
+    def trsm(data, xt, off, rows, cols, cp, rp, k0, off_h, cols_h):
+        err = _lib().bs_wide_trsm(
+            _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+            xt.data_ptr(), off.data_ptr(), rows.data_ptr(), off.shape[0],
+            cp, rp, k0, WIDE_TILE, data.shape[0], _stream(data))
+        COUNTS["wide_factor"].grid_launches += 1
+        _raise_on("wide_factor (trsm)", err)
+
+    @staticmethod
+    def embed(data, xt, off, cp, off_h):
+        err = _lib().bs_wide_embed(
+            _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+            xt.data_ptr(), off.data_ptr(), off.shape[0], cp, data.shape[0],
+            _stream(data))
+        COUNTS["wide_factor"].grid_launches += 1
+        _raise_on("wide_factor (embed)", err)
+
+
+def _tile_linv(t: torch.Tensor, w: int) -> torch.Tensor:
+    """Linv of a stored (.., w, w) diagonal tile: strict upper transposed
+    and 1 / diagonal (PlannedBackend._tri_stored)."""
+    ar = torch.arange(w, device=t.device)
+    ii, jj = ar[:, None], ar[None, :]
+    dinv = 1.0 / torch.diagonal(t, dim1=-2, dim2=-1)
+    return torch.where(ii > jj, t.mT,
+                       torch.where(ii == jj, dinv[..., :, None], 0.0))
+
+
+class _WideTwinSteps:
+    """Plain torch versions of the three hand-written K1-wide steps."""
+
+    @staticmethod
+    def tile(data, xt, off, cols, cp, k0, off_h, cols_h):
+        nb = WIDE_TILE
+        for i, (o, n) in enumerate(zip(off_h, cols_h)):
+            w = max(0, min(nb, n - k0))
+            t = _panel_view(data, o, cp, k0, k0, nb, nb)
+            new = torch.zeros_like(t)
+            xt[:, i, k0:k0 + nb, k0:k0 + nb] = 0
+            if w:
+                a = t[:, :w, :w]
+                L, _ = torch.linalg.cholesky_ex(torch.tril(a) +
+                                                torch.tril(a, -1).mT)
+                eye = torch.eye(w, dtype=t.dtype, device=t.device)
+                linv = torch.linalg.solve_triangular(
+                    L, eye.expand_as(L), upper=False)
+                new[:, :w, :w] = torch.tril(L) + torch.triu(linv.mT, 1)
+                xt[:, i, k0:k0 + w, k0:k0 + w] = torch.triu(linv.mT)
+            t.copy_(new)
+
+    @staticmethod
+    def trsm(data, xt, off, rows, cols, cp, rp, k0, off_h, cols_h):
+        nb = WIDE_TILE
+        k1 = k0 + nb
+        for o, n in zip(off_h, cols_h):
+            w = max(0, min(nb, n - k0))
+            if not w:
+                continue
+            linv = _tile_linv(_panel_view(data, o, cp, k0, k0, w, w), w)
+            x = _panel_view(data, o, cp, k1, k0, cp + rp - k1, w)
+            x.copy_(torch.matmul(x, linv.mT))
+
+    @staticmethod
+    def embed(data, xt, off, cp, off_h):
+        upper = torch.ones(cp, cp, dtype=torch.bool,
+                           device=data.device).triu(1)
+        for i, o in enumerate(off_h):
+            p = _panel_view(data, o, cp, 0, 0, cp, cp)
+            p.copy_(torch.where(upper, xt[:, i], p))
 
 
 # ----------------------------------------------------------------------
@@ -257,28 +456,29 @@ def segmented_subtract_twin(out, src, tgt, seg_ptr, src_idx,
 
 
 # ----------------------------------------------------------------------
-# K3 bucket_solve
+# K3 bucket_solve and K3-wide wide_solve
 # ----------------------------------------------------------------------
+def _check_solve(name, data, vv, y, rp, transpose):
+    use_y = not transpose and rp > 0
+    _check_batch(name, data, vv, y if use_y else None)
+    if use_y and y.shape[2:] != vv.shape[2:]:
+        raise ValueError(f"{name}: y has {y.shape[2:]} right-hand "
+                         f"sides, vv {vv.shape[2:]}")
+    return use_y
+
+
 def bucket_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
                  below_idx, cp: int, rp: int, transpose: bool) -> None:
     """Stored-inverse diagonal solve of one bucket, in place in vv.
     L pass (transpose=False): vv[rows] = Linv . vv[rows] and, when rp > 0,
     y[:, y_base + b*rp + r] = (below . x)[b, r]. Lt pass: vv[rows] =
     Linv^T . (vv[rows] - below^T . vv[below_idx])."""
-    use_y = not transpose and rp > 0
-    _check_batch("bucket_solve", data, vv, y if use_y else None)
-    if use_y and y.shape[2:] != vv.shape[2:]:
-        raise ValueError(f"bucket_solve: y has {y.shape[2:]} right-hand "
-                         f"sides, vv {vv.shape[2:]}")
+    use_y = _check_solve("bucket_solve", data, vv, y, rp, transpose)
     if data.device.type == "cpu":
         return bucket_solve_twin(data, vv, y, y_base, off, rows, cols,
                                  vec_off, below_idx, cp, rp, transpose)
-    floats = [data, vv] if (transpose or rp == 0) else [data, vv, y]
-    _check_cuda("bucket_solve", floats, [off, rows, cols, vec_off,
-                                         below_idx])
-    if cp > 512:
-        raise ValueError("bucket_solve: cp > 512 needs the blocked wide "
-                         "path, which is not ported")
+    _check_cuda("bucket_solve", [data, vv, y] if use_y else [data, vv],
+                [off, rows, cols, vec_off, below_idx])
     batch, order, nrhs = vv.shape
     err = _lib().bs_bucket_solve(
         _DTYPE_CODE[data.dtype], int(transpose), data.data_ptr(),
@@ -292,6 +492,32 @@ def bucket_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
     _raise_on("bucket_solve", err)
 
 
+def wide_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
+               below_idx, cp: int, rp: int, transpose: bool) -> None:
+    """bucket_solve for wide panels (cp > 512): the same arguments and
+    result, run on many CTAs per panel (row blocks of Linv) through a
+    (batch, B, cp, nrhs) scratch, since the single panel of a wide level
+    would otherwise run on one SM."""
+    use_y = _check_solve("wide_solve", data, vv, y, rp, transpose)
+    if data.device.type == "cpu":
+        return wide_solve_twin(data, vv, y, y_base, off, rows, cols,
+                               vec_off, below_idx, cp, rp, transpose)
+    _check_cuda("wide_solve", [data, vv, y] if use_y else [data, vv],
+                [off, rows, cols, vec_off, below_idx])
+    batch, order, nrhs = vv.shape
+    tmp = vv.new_empty((batch, off.shape[0], cp, nrhs))
+    err = _lib().bs_wide_solve(
+        _DTYPE_CODE[data.dtype], int(transpose), data.data_ptr(),
+        data.shape[1], vv.data_ptr(), order * nrhs,
+        y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,
+        y_base * nrhs, tmp.data_ptr(), off.data_ptr(), rows.data_ptr(),
+        cols.data_ptr(), vec_off.data_ptr(), below_idx.data_ptr(), order,
+        off.shape[0], cp, rp, nrhs, batch, _stream(data))
+    COUNTS["wide_solve"].launches += 1
+    COUNTS["wide_solve"].grid_launches += 2
+    _raise_on("wide_solve", err)
+
+
 def _stored_linv(P, cols):
     """Linv from a stored diag block (PlannedBackend._tri_stored)."""
     cp, dev = P.shape[-1], P.device
@@ -303,11 +529,10 @@ def _stored_linv(P, cols):
                        torch.where(ii == jj, dinv[..., :, None], 0.0))
 
 
-def bucket_solve_twin(data, vv, y, y_base: int, off, rows, cols, vec_off,
+def _diag_solve_plain(data, vv, y, y_base: int, off, rows, cols, vec_off,
                       below_idx, cp: int, rp: int, transpose: bool) -> None:
-    """Plain twin of K3: PlannedBackend._diag_solve(use_inv=True) in
-    torch, with the below scatter of the L pass left to K2."""
-    COUNTS["bucket_solve"].twin_calls += 1
+    """PlannedBackend._diag_solve(use_inv=True) in torch, with the below
+    scatter of the L pass left to K2."""
     batch, order, nrhs = vv.shape
     B, h, dev = off.shape[0], cp + rp, data.device
     idx = off[:, None] + torch.arange(h * cp, device=dev)
@@ -332,8 +557,95 @@ def bucket_solve_twin(data, vv, y, y_base: int, off, rows, cols, vec_off,
     vv.copy_(ext[:, :order])
 
 
+def bucket_solve_twin(*args) -> None:
+    """Plain twin of K3."""
+    COUNTS["bucket_solve"].twin_calls += 1
+    _diag_solve_plain(*args)
+
+
+def wide_solve_twin(*args) -> None:
+    """Plain twin of K3-wide (the same function as K3's)."""
+    COUNTS["wide_solve"].twin_calls += 1
+    _diag_solve_plain(*args)
+
+
+# ----------------------------------------------------------------------
+# K4 dense_update
+# ----------------------------------------------------------------------
+def dense_update(data, d) -> None:
+    """Subtract a dense level's update from its target panels, in place:
+    for every touched span-block (a, b), a >= b, sum over the origins o
+    whose below rows hold both spans of x_o[a] . x_o[b]^T, in origin
+    order. `d` is the level's DenseUpdate as device tensors
+    (planned_backend.DevDense); x_o is read from the data, where the
+    bucket factor left it."""
+    if data.device.type == "cpu":
+        return dense_update_twin(data, d)
+    _check_cuda("dense_update", [data],
+                [d.list_ptr, d.ent_x, d.ent_row, d.ent_nrow, d.ent_ld,
+                 d.ent_n, d.crow, d.sp_cs, d.sp_size, d.sp_ld, d.slice_ptr,
+                 d.sl_cs, d.sl_size, d.sl_off])
+    S = d.sp_cs.shape[0]
+    if S == 0:
+        return
+    err = _lib().bs_dense_update(
+        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+        d.list_ptr.data_ptr(), d.ent_x.data_ptr(), d.ent_row.data_ptr(),
+        d.ent_nrow.data_ptr(), d.ent_ld.data_ptr(), d.ent_n.data_ptr(),
+        d.crow.data_ptr(), d.sp_cs.data_ptr(), d.sp_size.data_ptr(),
+        d.sp_ld.data_ptr(), d.slice_ptr.data_ptr(), d.sl_cs.data_ptr(),
+        d.sl_size.data_ptr(), d.sl_off.data_ptr(), S, d.R, d.max_span,
+        data.shape[0], _stream(data))
+    COUNTS["dense_update"].launches += 1
+    COUNTS["dense_update"].grid_launches += 1
+    _raise_on("dense_update", err)
+
+
+TWIN_CHUNK_ELEMS = 1 << 22  # product elements per chunk of the K4 twin
+
+
+def dense_update_twin(data, d) -> None:
+    """Plain twin of K4: the compact update U = sum_o x_o x_o^T built in
+    chunks of origins (index_add of each chunk's products at compact
+    rows), then U's lower span-blocks subtracted into the target slices.
+    Memory: U is (R + 1)^2, a chunk TWIN_CHUNK_ELEMS products."""
+    COUNTS["dense_update"].twin_calls += 1
+    batch, R, dev = data.shape[0], d.R, data.device
+    U = data.new_zeros((batch, (R + 1) * (R + 1)))
+    n_rows = d.crow.shape[0]
+    for cp, rp, first, end in d.groups:
+        step = max(1, TWIN_CHUNK_ELEMS // (rp * rp))
+        ar = torch.arange(rp, device=dev)
+        for a in range(first, end, step):
+            b = min(end, a + step)
+            xo = d.org_xoff[a:b]
+            X = data[:, xo[:, None] + torch.arange(rp * cp, device=dev)]
+            X = X.view(batch, b - a, rp, cp)
+            ri = d.org_rptr[a:b, None] + ar
+            cr = torch.where(ar < d.org_rows[a:b, None],
+                             d.crow[ri.clamp(max=n_rows - 1)], R)
+            flat = cr[:, :, None] * (R + 1) + cr[:, None, :]
+            U.index_add_(1, flat.reshape(-1),
+                         torch.matmul(X, X.mT).reshape(batch, -1))
+    S = d.sp_cs.shape[0]
+    s_of = torch.repeat_interleave(torch.arange(S, device=dev),
+                                   d.slice_ptr.diff())
+    sb = d.sp_size[s_of]
+    ne = d.sl_size * sb
+    q = torch.repeat_interleave(torch.arange(len(ne), device=dev), ne)
+    k = torch.arange(int(ne.sum()), device=dev) - \
+        torch.repeat_interleave(torch.cumsum(ne, 0) - ne, ne)
+    i, c = k // sb[q], k % sb[q]
+    tgt = d.sl_off[q] + i * d.sp_ld[s_of[q]] + c
+    src = (d.sl_cs[q] + i) * (R + 1) + d.sp_cs[s_of[q]] + c
+    data[:, tgt] -= U[:, src]
+
+
 # the plain twins under the wrappers' names, for running a whole path
 # through them (timing and comparison on the card)
 TWINS = SimpleNamespace(bucket_factor=bucket_factor_twin,
+                        wide_factor=wide_factor_twin,
                         segmented_subtract=segmented_subtract_twin,
-                        bucket_solve=bucket_solve_twin)
+                        bucket_solve=bucket_solve_twin,
+                        wide_solve=wide_solve_twin,
+                        dense_update=dense_update_twin)

@@ -1,12 +1,16 @@
 """Planned backend, numeric half: the level-scheduled factor and solve in
-torch, through the three hand-written kernels (ops/kernels.py).
+torch, through the hand-written kernels (ops/kernels.py).
 
 Counterpart of `PlannedBackend.make_factor` / `make_solve`
-(baspacho_tpu/ops/planned_backend.py:1559, :2383) on the sparse-level
-path. Per level, the factor runs K1 (bucket_factor) on each bucket, then
-K2 (segmented_subtract) once over the level's block pairs; the solve
-runs K3 (bucket_solve) per bucket, level by level, with the L pass's
-below updates applied by K2 through a per-level CSR of RHS rows.
+(baspacho_tpu/ops/planned_backend.py:1559, :2383). Per level, the factor
+runs K1 (bucket_factor; K1-wide wide_factor for panels wider than 512)
+on each bucket, then the level's update: on a pair level K2
+(segmented_subtract) over the block pairs of the products K1 wrote; on a
+dense level (ops/schedule.py) K1 writes no product and K4
+(dense_update) sums the origins' x x^T straight into the targets. The
+solve runs K3 (bucket_solve; K3-wide wide_solve) per bucket, level by
+level, with the L pass's below updates applied by K2 through a per-level
+CSR of RHS rows, on either kind of level.
 
 Unlike the JAX package, buffers carry no [trash, zero] margins: every
 kernel masks its own ragged edges, and the solve skips sentinel rows
@@ -28,8 +32,8 @@ import numpy as np
 import torch
 
 from . import kernels
-from .schedule import LumpBucket, PlannedSchedule, SegmentCSR, pair_csr, \
-    solve_csr
+from .schedule import NARROW_MAX, DenseUpdate, LumpBucket, PlannedSchedule, \
+    SegmentCSR, pair_csr, solve_csr
 
 
 @dataclass
@@ -43,6 +47,12 @@ class DevBucket:
     cols: torch.Tensor
     vec_off: torch.Tensor
     below_idx: torch.Tensor
+    off_h: tuple   # host copies of off and cols (wide panels' views)
+    cols_h: tuple
+
+    @property
+    def wide(self) -> bool:
+        return self.cp > NARROW_MAX
 
 
 @dataclass
@@ -63,7 +73,19 @@ def _dev_bucket(lb: LumpBucket, device) -> DevBucket:
                      off=_i64(lb.off, device), rows=_i64(lb.rows, device),
                      cols=_i64(lb.cols, device),
                      vec_off=_i64(lb.vec_off, device),
-                     below_idx=_i64(lb.below_idx, device))
+                     below_idx=_i64(lb.below_idx, device),
+                     off_h=tuple(int(o) for o in lb.off),
+                     cols_h=tuple(int(c) for c in lb.cols))
+
+
+class DevDense:
+    """A DenseUpdate's arrays as int64 tensors on the device (same
+    names), its scalars and its origin groups."""
+
+    def __init__(self, du: DenseUpdate, device):
+        for k, v in vars(du).items():
+            setattr(self, k, _i64(v, device) if isinstance(v, np.ndarray)
+                    else v)
 
 
 def _dev_csr(csr: SegmentCSR, device) -> DevCSR:
@@ -85,10 +107,11 @@ class PlannedBackend(PlannedSchedule):
         sk = self.plan.skel
         pad_idx = _i64(np.nonzero(sk.padding_mask() == 0)[0], device)
         levels = []
-        for lump_buckets, pairs, ptot in sched:
+        for lump_buckets, pairs, ptot, dense in sched:
             csr = _dev_csr(pair_csr(pairs), device) if ptot else None
+            dd = DevDense(dense, device) if dense is not None else None
             levels.append(([_dev_bucket(lb, device) for lb in lump_buckets],
-                           csr, ptot))
+                           csr, ptot, dd))
 
         def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
             ext = data.clone(memory_format=torch.contiguous_format)
@@ -97,14 +120,20 @@ class PlannedBackend(PlannedSchedule):
             # slots are filled by index
             if pad_idx.numel():
                 ext.index_fill_(1, pad_idx, 0)
-            for buckets, csr, ptot in levels:
+            for buckets, csr, ptot, dense in levels:
                 prod = ext.new_empty((ext.shape[0], ptot)) if ptot else None
                 for b in buckets:
-                    ops.bucket_factor(ext, prod, b.off, b.rows, b.cols,
-                                      b.cp, b.rp, b.prod_base)
+                    if b.wide:
+                        ops.wide_factor(ext, b.off, b.rows, b.cols, b.cp,
+                                        b.rp, b.off_h, b.cols_h)
+                    else:
+                        ops.bucket_factor(ext, prod, b.off, b.rows, b.cols,
+                                          b.cp, b.rp, b.prod_base)
                 if csr is not None and csr.n_tgt:
                     ops.segmented_subtract(ext, prod, csr.tgt, csr.seg_ptr,
                                            csr.src_idx, 1)
+                if dense is not None:
+                    ops.dense_update(ext, dense)
             return ext
 
         return factor
@@ -138,17 +167,17 @@ class PlannedBackend(PlannedSchedule):
                 y: Optional[torch.Tensor] = \
                     vv.new_empty((batch, ytot, nrhs)) if ytot else None
                 for b, base in zip(buckets, row_base):
-                    ops.bucket_solve(data, vv, y, base, b.off, b.rows,
-                                     b.cols, b.vec_off, b.below_idx, b.cp,
-                                     b.rp, False)
+                    op = ops.wide_solve if b.wide else ops.bucket_solve
+                    op(data, vv, y, base, b.off, b.rows, b.cols, b.vec_off,
+                       b.below_idx, b.cp, b.rp, False)
                 if csr.n_tgt:
                     ops.segmented_subtract(vv, y, csr.tgt, csr.seg_ptr,
                                            csr.src_idx, nrhs)
             for buckets, _, _, _ in reversed(levels):
                 for b in buckets:
-                    ops.bucket_solve(data, vv, None, 0, b.off, b.rows,
-                                     b.cols, b.vec_off, b.below_idx, b.cp,
-                                     b.rp, True)
+                    op = ops.wide_solve if b.wide else ops.bucket_solve
+                    op(data, vv, None, 0, b.off, b.rows, b.cols, b.vec_off,
+                       b.below_idx, b.cp, b.rp, True)
             return vv
 
         return solve

@@ -12,10 +12,38 @@ line for line so a diff against the original shows what changed:
   * the block-pair enumeration `_build_pairs`, which returns one flat
     run list per level: the JAX package's shape groups, padding and
     chunking serve XLA's static shapes, and nothing here reads them;
-  * `_factor_schedule` / `_solve_schedule`.
+  * `_factor_schedule` / `_solve_schedule`;
+  * the compact row space of `_build_dense_update` (touched spans,
+    `compact_start`, per-origin compact rows) behind `DenseUpdate`.
 
-Every level takes the block-pair assembly: the dense compact-U update
-is a mechanism tuned to the TPU's scatter cost and is not ported yet.
+A level's update runs through one of two mechanisms:
+
+  pairs  each origin's product x . x^T goes to a product buffer, and the
+         level's block pairs subtract it into the targets (K1 + K2);
+  dense  no product buffer and no pairs: the dense-level kernel (K4)
+         sums x_o[a] . x_o[b]^T over the origins that share the target
+         span-block (a, b), straight into the target panel.
+
+The port's rule (its own; the JAX package prices the two against TPU
+cost constants): a level goes dense when the volume of its origins'
+products, sum_o rows_o^2, exceeds the area R^2 of the compact row space
+their below rows span, i.e. when the origins overlap so much that the
+pair path's product buffer and per-element CSR would outgrow a dense
+R x R update (a lone origin, whose volume is exactly R^2, stays on
+pairs). A level with an origin wider than `NARROW_MAX` also
+goes dense, since the blocked wide factor writes no product. The test
+reads only per-origin row counts and the union of the origins' below
+spans, both linear in the number of below chains, so a level is never
+enumerated per element or per pair before it goes dense. On the
+reference problems it sends every level of MERI and GRID to pairs
+(overlap <= 0.74) and every sparse-elimination Schur level dense
+(overlap >= 1.58). `PlannedSchedule(plan, assembly="dense"|"pairs")`
+forces either mechanism on every level (levels with a wide origin stay
+dense), for the tests.
+
+The JAX package's one-hot / W / span-granular chunk planning, outlier
+routing and gap closing are TPU scatter workarounds and are not ported:
+K4's cost does not depend on how far an origin's rows spread.
 
 Added for the hand-written kernels: `pair_csr` and `solve_csr` turn a
 level's contributions into a target-sorted CSR (stable in origin order),
@@ -25,11 +53,14 @@ which the deterministic segmented-subtract kernel consumes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .plan import NumericPlan
+
+NARROW_MAX = 512  # widest padded panel the one-CTA bucket factor takes;
+#                   wider buckets (512-multiples) take the blocked path
 
 
 def pad_dim(x: int, floor: int = 1) -> int:
@@ -107,11 +138,66 @@ class PairBucket:
     tgt_stride: np.ndarray  # (P,) per-pair target panel stride
 
 
+@dataclass
+class DenseUpdate:
+    """One dense level's update, for the dense-level kernel (K4).
+
+    Compact row space: the level's touched spans (below spans of its
+    origins) concatenated in span order, R rows. Origins are the level's
+    lumps with below rows, in bucket order; their solved below blocks x
+    (written in place by the bucket factor) are read from the data.
+
+    Per touched span b (index s into `tspans`), the list entries
+    [list_ptr[s], list_ptr[s + 1]) are the origins whose below rows
+    include b, in origin order; entry e points at the first row of b in
+    that origin (`ent_x`, flat data offset; `ent_row`, index into
+    `crow`) and counts the origin's rows from there to its end
+    (`ent_nrow`: the tail, whose spans are all >= b). The target of
+    span-block (a, b), a >= b, is slice q in [slice_ptr[s],
+    slice_ptr[s + 1]): rows of span a start at compact row sl_cs[q] and
+    at flat offset sl_off[q] (column 0 of b) with row stride sp_ld[s].
+    Slices of one span ascend in sl_cs."""
+    R: int
+    max_span: int
+    tspans: np.ndarray     # (S,) touched spans, ascending
+    sp_cs: np.ndarray      # (S,) compact start
+    sp_size: np.ndarray    # (S,) rows
+    sp_ld: np.ndarray      # (S,) row stride of the span's lump panel
+    list_ptr: np.ndarray   # (S + 1,)
+    ent_x: np.ndarray      # (E,)
+    ent_row: np.ndarray    # (E,)
+    ent_nrow: np.ndarray   # (E,)
+    ent_ld: np.ndarray     # (E,) origin panel stride (its padded width)
+    ent_n: np.ndarray      # (E,) origin width
+    crow: np.ndarray       # (N,) compact row of every origin below row
+    slice_ptr: np.ndarray  # (S + 1,)
+    sl_cs: np.ndarray      # (Q,)
+    sl_size: np.ndarray    # (Q,)
+    sl_off: np.ndarray     # (Q,)
+    org_xoff: np.ndarray   # (O,) flat offset of each origin's below block
+    org_rows: np.ndarray   # (O,) below rows
+    org_rptr: np.ndarray   # (O + 1,) extents into crow
+    groups: list           # (cp, rp, first, end) origin ranges per bucket
+
+
+def _expand(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Concatenation of the ranges [starts[i], starts[i] + counts[i])."""
+    tot = int(counts.sum())
+    ex = np.cumsum(counts) - counts
+    return np.repeat(starts - ex, counts) + np.arange(tot, dtype=np.int64)
+
+
 class PlannedSchedule:
     """Level schedule of one plan: lump buckets, product-buffer offsets
-    and assembly block pairs per level (host, cached per lump range)."""
+    and assembly block pairs, or the dense update, per level (host,
+    cached per lump range). `assembly` ("dense" or "pairs") forces one
+    mechanism on every level, for the tests."""
 
-    def __init__(self, plan: NumericPlan):
+    def __init__(self, plan: NumericPlan, assembly: Optional[str] = None):
+        if assembly not in (None, "dense", "pairs"):
+            raise ValueError(f"assembly {assembly!r}: None, 'dense' or "
+                             "'pairs'")
+        self.assembly = assembly
         self.plan = plan
         self.num_levels = int(plan.lump_levels.max()) + 1 \
             if len(plan.lump_levels) else 0
@@ -147,12 +233,16 @@ class PlannedSchedule:
         return sched
 
     def _build_level(self, lds, with_below_idx=False):
-        """Bucket the level's lumps (`lds` is an array of lump ids);
-        assign product-buffer offsets to buckets with below rows;
-        enumerate the assembly block pairs. Returns
-        (lump_buckets, pairs, product-buffer size)."""
+        """Bucket the level's lumps (`lds` is an array of lump ids); plan
+        the dense update, or else assign product-buffer offsets to buckets
+        with below rows and enumerate the assembly block pairs. Returns
+        (lump_buckets, pairs, product-buffer size, dense), with pairs None
+        and size 0 on a dense level, dense None on a pair level."""
         lds = np.asarray(lds, dtype=np.int64)
         lump_buckets = self._bucket_lumps(lds, with_below_idx)
+        dense = self._dense_update(lump_buckets)
+        if dense is not None:
+            return lump_buckets, None, 0, dense
         prod_total = 0
         origin_pos: Dict[int, Tuple[int, int]] = {}
         for lb in lump_buckets:
@@ -163,7 +253,97 @@ class PlannedSchedule:
                 origin_pos[l] = (prod_total + bi * lb.rp * lb.rp, lb.rp)
             prod_total += len(lb.off) * lb.rp * lb.rp
         pairs = self._build_pairs(lds, origin_pos)
-        return lump_buckets, pairs, prod_total
+        return lump_buckets, pairs, prod_total, None
+
+    def _dense_update(self, lump_buckets) -> Optional[DenseUpdate]:
+        """The level's DenseUpdate when the rule of the module docstring
+        sends it dense, else None (vectorized; linear in the origins'
+        below chains and rows)."""
+        sk = self.plan.skel
+        span_size = sk.span_start[1:] - sk.span_start[:-1]
+        org, xoff, ld, width, groups = [], [], [], [], []
+        for lb in lump_buckets:
+            keep = lb.rows > 0
+            if lb.rp == 0 or not np.any(keep):
+                continue
+            first = sum(len(m) for m in org)
+            org.append(np.asarray(lb.members)[keep])
+            xoff.append(lb.off[keep].astype(np.int64) + lb.cp * lb.cp)
+            ld.append(np.full(int(keep.sum()), lb.cp, np.int64))
+            width.append(lb.cols[keep].astype(np.int64))
+            groups.append((lb.cp, lb.rp, first, first + len(org[-1])))
+        if not org:
+            return None
+        org, xoff = np.concatenate(org), np.concatenate(xoff)
+        ld, width = np.concatenate(ld), np.concatenate(width)
+
+        # below chains of every origin, origins in order
+        nd = sk.lump_to_span[org + 1] - sk.lump_to_span[org]
+        c0 = sk.chain_col_ptr[org] + nd
+        nch = sk.chain_col_ptr[org + 1] - c0
+        sp = sk.chain_row_span[_expand(c0, nch)]
+        sz = span_size[sp]
+        org_of = np.repeat(np.arange(len(org), dtype=np.int64), nch)
+        rows = np.bincount(org_of, weights=sz,
+                           minlength=len(org)).astype(np.int64)
+        tspans = np.unique(sp)
+        R = int(span_size[tspans].sum())
+        wide = bool(np.any(ld > NARROW_MAX))
+        if not wide:
+            if self.assembly == "pairs":
+                return None
+            overlap = float((rows.astype(np.float64) ** 2).sum()) / R / R
+            if self.assembly != "dense" and overlap <= 1.0:
+                return None
+
+        compact_start = np.zeros(sk.num_spans, dtype=np.int64)
+        tsize = span_size[tspans]
+        compact_start[tspans] = np.cumsum(tsize) - tsize
+        rptr = np.concatenate([[0], np.cumsum(rows)])
+        grow = np.cumsum(sz) - sz  # first row of each chain, into crow
+        crow = np.repeat(compact_start[sp] - grow, sz) + \
+            np.arange(int(rptr[-1]), dtype=np.int64)
+
+        # list entries: one per (origin, below chain), by (span, origin)
+        order = np.argsort(sp, kind="stable")
+        e_org, e_row = org_of[order], grow[order]
+        e_loc = e_row - rptr[e_org]  # row of the span inside its origin
+        sidx = np.searchsorted(tspans, sp[order])
+        list_ptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(sidx, minlength=len(tspans)))])
+
+        # target slices: per touched span b of lump t, the touched chains
+        # of t's column from b down (a >= b, spans ascending)
+        tl = np.unique(sk.span_to_lump[tspans])
+        ch = _expand(sk.chain_col_ptr[tl],
+                     sk.chain_col_ptr[tl + 1] - sk.chain_col_ptr[tl])
+        ct = np.repeat(tl, sk.chain_col_ptr[tl + 1] - sk.chain_col_ptr[tl])
+        touched = np.zeros(sk.num_spans, dtype=bool)
+        touched[tspans] = True
+        keep = touched[sk.chain_row_span[ch]]
+        ch, ct = ch[keep], ct[keep]
+        cs = sk.chain_row_span[ch]
+        bounds = np.concatenate(
+            [[0], np.nonzero(ct[1:] != ct[:-1])[0] + 1, [len(ct)]])
+        own = np.nonzero((cs >= sk.lump_to_span[ct]) &
+                         (cs < sk.lump_to_span[ct + 1]))[0]
+        assert np.array_equal(cs[own], tspans), "touched span without chain"
+        grp_end = bounds[np.searchsorted(bounds, own, side="right")]
+        n_sl = grp_end - own
+        q = _expand(own, n_sl)
+        return DenseUpdate(
+            R=R, max_span=int(tsize.max()), tspans=tspans,
+            sp_cs=compact_start[tspans], sp_size=tsize,
+            sp_ld=sk.col_stride[ct[own]].astype(np.int64),
+            list_ptr=list_ptr,
+            ent_x=xoff[e_org] + e_loc * ld[e_org], ent_row=e_row,
+            ent_nrow=rows[e_org] - e_loc, ent_ld=ld[e_org],
+            ent_n=width[e_org], crow=crow,
+            slice_ptr=np.concatenate([[0], np.cumsum(n_sl)]),
+            sl_cs=compact_start[cs[q]], sl_size=span_size[cs[q]],
+            sl_off=sk.chain_data[ch[q]] +
+            np.repeat(sk.span_offset_in_lump[tspans], n_sl),
+            org_xoff=xoff, org_rows=rows, org_rptr=rptr, groups=groups)
 
     def _bucket_lumps(self, lds, with_below_idx: bool) -> List[LumpBucket]:
         """Group the lump ids by padded panel shape (fully vectorized)."""

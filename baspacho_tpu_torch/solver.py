@@ -12,8 +12,8 @@ carries (order, data_size, span offsets, accessor, factor, solve), its
 input checks and its batching rules: a leading batch axis on the data,
 1-D or 2-D right-hand sides. Everything else raises NotImplementedError
 naming the slice that brings it, and so do the configurations this slice
-cannot run (the REF backend, partial factor ranges, supernodes wider
-than 512), at create_solver time rather than mid-factor.
+cannot run (the REF backend, partial factor ranges), at create_solver
+time rather than mid-factor.
 
 createSolver pipeline (same analysis structure as reference :611-752):
   1. apply given sparse-elim-range fill,
@@ -40,9 +40,6 @@ from .ops.plan import build_plan
 from .sparse_structure import SparseStructure
 from .utils import (compose_permutations, cum_sum_vec, inverse_permutation,
                     is_strictly_increasing)
-
-MAX_PANEL_WIDTH = 512  # widest padded supernode the hand kernels take
-
 
 class BackendType(enum.Enum):
     REF = "ref"          # unrolled ops, one op per lump/board
@@ -75,7 +72,6 @@ _SLICE_REF = "the reference-backend slice (ROADMAP queue 1, item 2)"
 _SLICE_DIFF = "the differentiable-solve slice (ROADMAP queue 1, item 7)"
 _SLICE_STATS = "the stats slice (ROADMAP queue 1, item 9)"
 _SLICE_MULTI = "the multi-GPU slice (ROADMAP queue 1, item 11)"
-_SLICE_WIDE = "the wide-panel slice (blocked K1/K3, ROADMAP queue 2)"
 
 
 def _not_ported(what: str, slice_: str):
@@ -101,10 +97,6 @@ class Solver:
         if self.can_factor_up_to < skel.num_spans:
             _not_ported("a skeleton that factors only up to span "
                         f"{self.can_factor_up_to}", _SLICE_PARTIAL)
-        if skel.num_lumps and int(skel.col_stride.max()) > MAX_PANEL_WIDTH:
-            _not_ported(f"a supernode of padded width "
-                        f"{int(skel.col_stride.max())} > {MAX_PANEL_WIDTH}",
-                        _SLICE_WIDE)
         self.plan = build_plan(skel, self.sparse_elim_ranges,
                                skel.num_lumps)
         from .ops.planned_backend import PlannedBackend

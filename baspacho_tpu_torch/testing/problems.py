@@ -51,6 +51,40 @@ def grid100(pkg, **kw):
                                                       seed=37), **kw)
 
 
+def flat1000(pkg, **kw):
+    """FLAT n=1000 as bench.py:172-174 builds it: one 3,000-wide
+    supernode (padded width 3072)."""
+    return build_gen(pkg, SparseMatGenerator.gen_flat(1000, 0.1, seed=37),
+                     **kw)
+
+
+def _flat_schur(pkg, schur, **kw):
+    gen = SparseMatGenerator.gen_flat(1000, 0.1, seed=37)
+    gen.add_schur_set(schur, 0.02)
+    return build_gen(pkg, gen, elim_ranges=[0, schur], **kw)
+
+
+def flat_schur5k(pkg, **kw):
+    """FLAT n=1000 + a 5,000-block Schur set, as bench.py:176-181."""
+    return _flat_schur(pkg, 5000, **kw)
+
+
+def flat_schur50k(pkg, **kw):
+    """The reference's headline Schur configuration, FLAT n=1000 + a
+    50,000-block Schur set, as bench.py:183-190: a dense level of 50,000
+    width-3 lumps, then the 3,000-wide lump."""
+    return _flat_schur(pkg, 50000, **kw)
+
+
+def wide_dense(pkg, **kw):
+    """A small problem with both a wide supernode and a dense level:
+    gen_flat(200, 0.25) + a 1,500-block Schur set, eliminated first
+    (order 5,100; one 600-wide lump, padded width 1024)."""
+    gen = SparseMatGenerator.gen_flat(200, 0.25, seed=3)
+    gen.add_schur_set(1500, 0.05)
+    return build_gen(pkg, gen, elim_ranges=[0, 1500], **kw)
+
+
 # the five small problems the tests hold the port against the JAX
 # package on
 SMALL = {

@@ -58,7 +58,7 @@ def test_k1_twin_matches_factor_bucket():
     js, ts, data, _ = problem()
     ext_j = jnp.concatenate([jnp.asarray(data), jnp.zeros(2)])
     n = 0
-    for (jlbs, _, _, _), (tlbs, _, ptot) in _levels(js, ts):
+    for (jlbs, _, _, _), (tlbs, _, ptot, _) in _levels(js, ts):
         for jlb, tlb in zip(jlbs, tlbs):
             want, prod_j = jax.jit(
                 lambda e, jlb=jlb: js.backend._factor_bucket(e, jlb))(ext_j)
@@ -82,7 +82,7 @@ def test_k2_twin_matches_apply_pairs():
     js, ts, data, _ = problem()
     rng = np.random.RandomState(5)
     n = 0
-    for (_, jpbs, jptot, dense), (_, tpbs, ptot) in _levels(js, ts):
+    for (_, jpbs, jptot, dense), (_, tpbs, ptot, _) in _levels(js, ts):
         if not ptot:
             continue
         assert dense is None and jptot == ptot

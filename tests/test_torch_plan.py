@@ -13,7 +13,7 @@ import torch
 
 import baspacho_tpu as J
 import baspacho_tpu_torch as T
-from baspacho_tpu_torch.ops.schedule import pair_csr, solve_csr
+from baspacho_tpu_torch.ops.schedule import PlannedSchedule, pair_csr, solve_csr
 from baspacho_tpu_torch.testing import SparseMatGenerator
 from baspacho_tpu_torch.testing.problems import SMALL
 
@@ -45,17 +45,20 @@ def test_skeleton_bit_for_bit(name):
 
 @pytest.mark.parametrize("name", sorted(SMALL))
 def test_level_schedule_matches(name):
-    """Same levels and lump buckets; same block pairs wherever the JAX
-    schedule took the pair assembly (the port always does)."""
+    """Same levels and lump buckets; the same levels dense; the same
+    block pairs wherever both schedules took the pair assembly."""
     js, ts = solvers(name)
     nl = js.skel.num_lumps
     jsched = js.backend._factor_schedule(0, nl)
     tsched = ts.backend._factor_schedule(0, nl)
     assert len(jsched) == len(tsched)
-    for (jlb, jpb, jptot, dense), (tlb, tpb, tptot) in zip(jsched, tsched):
+    for (jlb, jpb, jptot, dense), (tlb, tpb, tptot, tdense) in zip(
+            jsched, tsched):
+        assert (dense is None) == (tdense is None)
         assert len(jlb) == len(tlb)
         for a, b in zip(jlb, tlb):
-            assert (a.cp, a.rp, a.prod_base) == (b.cp, b.rp, b.prod_base)
+            assert (a.cp, a.rp) == (b.cp, b.rp)
+            assert dense is not None or a.prod_base == b.prod_base
             for f in ("off", "rows", "cols", "vec_off", "below_idx",
                       "members"):
                 assert np.array_equal(getattr(a, f), getattr(b, f)), f
@@ -93,8 +96,10 @@ def test_pair_csr_covers_every_contribution(name):
     """Every real element of every pair rectangle appears exactly once;
     targets ascend; within a target, contributions keep origin order."""
     _, ts = solvers(name)
-    for lbs, pairs, ptot in ts.backend._factor_schedule(
-            0, ts.skel.num_lumps):
+    # forced pairs: elim_range's first level goes dense by default
+    sched = PlannedSchedule(ts.plan, assembly="pairs")._factor_schedule(
+        0, ts.skel.num_lumps)
+    for lbs, pairs, ptot, _ in sched:
         csr = pair_csr(pairs)
         want = int((pairs.rs * pairs.cs).sum())
         assert len(csr.src_idx) == want == csr.seg_ptr[-1]
@@ -125,10 +130,12 @@ def test_refusals_at_create_time():
     ss = gen.to_structure()
     with pytest.raises(NotImplementedError, match="reference-backend"):
         T.create_solver(T.Settings(), np.full(4, 3), ss)
-    # one dense supernode of width 800 pads to 1024 > 512
-    with pytest.raises(NotImplementedError, match="wide-panel"):
-        T.create_solver(T.Settings(backend=T.BackendType.PLANNED),
-                        np.full(4, 200), ss)
+    # one dense supernode of width 800 pads to 1024: no refusal, it
+    # takes the blocked wide path
+    wide = T.create_solver(T.Settings(backend=T.BackendType.PLANNED),
+                           np.full(4, 200), ss)
+    assert [lb.cp for lv in wide.backend._factor_schedule(
+        0, wide.skel.num_lumps) for lb in lv[0]] == [1024]
     with pytest.raises(NotImplementedError, match="partial-ops"):
         T.create_solver(T.Settings(backend=T.BackendType.PLANNED,
                                    add_fill_policy=T.AddFillPolicy.NONE),
