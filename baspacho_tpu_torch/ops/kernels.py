@@ -325,11 +325,13 @@ def _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h, steps):
         for z in range(batch):
             X = xt[z, i]
             for r0 in range(nb, cp, nb):
-                # Linv[r, :r] = -Dinv_r L[r, :r] Linv[:r, :r], transposed
+                # Linv[r, :r] = -Dinv_r L[r, :r] Linv[:r, :r], transposed,
+                # written in place by one product (beta 0: the block is
+                # not read)
                 st = torch.matmul(
                     X[:r0, :r0], _panel_view(data, o, cp, r0, 0, nb, r0)[z].mT)
-                X[:r0, r0:r0 + nb] = -torch.matmul(
-                    st, X[r0:r0 + nb, r0:r0 + nb])
+                X[:r0, r0:r0 + nb].addmm_(st, X[r0:r0 + nb, r0:r0 + nb],
+                                          beta=0, alpha=-1)
     steps.embed(data, xt, off, cp, off_h)
 
 

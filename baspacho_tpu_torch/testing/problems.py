@@ -85,6 +85,24 @@ def wide_dense(pkg, **kw):
     return build_gen(pkg, gen, elim_ranges=[0, 1500], **kw)
 
 
+def wide_below(pkg, **kw):
+    """A wide supernode with below rows: two dense blocks of 180 and 40
+    params over a 20-param separator, which is ordered last
+    (`elim_last_ids`). Order 720; level 0 holds the 540-wide lump (padded
+    1024) and the 120-wide one, each with 36 below rows (padded 64) on
+    overlapping parts of the separator; level 1 is the separator."""
+    na, nb, ns = 180, 40, 20
+    gen = SparseMatGenerator(na + nb + ns, seed=5)
+    s0 = na + nb
+    gen.connect_ranges(0, na, 0, na, 1.0)
+    gen.connect_ranges(na, s0, na, s0, 1.0)
+    gen.connect_ranges(0, na, s0, s0 + 12, 0.5)
+    gen.connect_ranges(na, s0, s0 + 8, s0 + ns, 0.5)
+    gen.connect_ranges(s0, s0 + ns, s0, s0 + ns, 0.5)
+    return build_gen(pkg, gen, elim_last_ids=list(range(s0, s0 + ns)),
+                     **kw)
+
+
 # the five small problems the tests hold the port against the JAX
 # package on
 SMALL = {

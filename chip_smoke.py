@@ -13,12 +13,15 @@ and drives the planned factor + solve (create_solver -> Solver.factor
   GRID 100x100 single f64, against the port's CPU twins
   FLAT n=1000  single f64 and f32, batch 8: one 3,000-wide supernode
                (K1-wide, K3-wide) under a narrow one (K1, K2, K3)
-  FLAT+Schur   5k: every kernel against its twin; 50k (order 153,000):
-               single f64 and f32, kernels only, a 50,000-origin dense
+  FLAT+Schur   5k and 50k: every kernel against its twin; 50k (order
+               153,000): single f64 and f32, a 50,000-origin dense
                level (K1 without products, K4), residuals from sparse
-               products
+               products, timed without twins
   GRID         once more with every level forced dense, K4 against its
                twin on compact spaces of up to 15,411 rows
+  WIDE_BELOW   a 540-wide lump (padded 1024) with 64 padded below rows
+               on a dense level: K1-wide's below rows, K3-wide's below
+               products and gather, K4 on a wide origin
 
 It checks the results, times the kernels against their twins with CUDA
 events, and reads a torch.profiler trace of the card for the device time
@@ -51,7 +54,8 @@ from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import PlannedBackend
 from baspacho_tpu_torch.testing.problems import (flat1000, flat_schur5k,
                                                  flat_schur50k, grid100,
-                                                 meri7, spd_data)
+                                                 meri7, spd_data,
+                                                 wide_below)
 
 _PB = "baspacho_tpu/ops/planned_backend.py"
 KERNELS = [
@@ -82,6 +86,7 @@ PATH_KERNELS = {
     "flat1000": {"bucket_factor", "wide_factor", "segmented_subtract",
                  "bucket_solve", "wide_solve"},
     "flat_schur50k": set(NAMES),
+    "wide_below": set(NAMES),
 }
 # kernel vs twin: the two sum in different orders and the stored inverse
 # amplifies rounding
@@ -278,6 +283,8 @@ def trace(fn, reps: int):
             b = max(b, e)
     busy += b - a
     span = iv[-1][1] - iv[0][0]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    rest = ranked[12:]
     return {"reps": reps,
             "wall_ms_per_call": wall * 1e3 / reps,
             "device_span_ms_per_call": span / 1e3 / reps,
@@ -285,8 +292,12 @@ def trace(fn, reps: int):
             "idle_share": 1.0 - busy / span,
             "device_activities_per_call": len(ev) / reps,
             "device_ms_per_call_by_kernel": {
-                k: v / 1e3 / reps for k, v in sorted(
-                    by_name.items(), key=lambda kv: -kv[1])[:12]},
+                k: v / 1e3 / reps for k, v in ranked[:12]},
+            # the kernels below the top 12, summed
+            "other_kernels": {
+                "names": len(rest),
+                "device_ms_per_call": sum(v for _, v in rest) / 1e3 / reps,
+                "launches_per_call": sum(n_name[k] for k, _ in rest) / reps},
             "launches_per_call_by_kernel": {
                 k: v / reps for k, v in n_name.items()}}
 
@@ -406,7 +417,8 @@ def main() -> int:
     for pname, make in (("meri7", meri7), ("grid100", grid100),
                         ("flat1000", flat1000),
                         ("flat_schur5k", flat_schur5k),
-                        ("flat_schur50k", flat_schur50k)):
+                        ("flat_schur50k", flat_schur50k),
+                        ("wide_below", wide_below)):
         t0 = time.perf_counter()
         s = make(T, device=dev)
         t1 = time.perf_counter()
@@ -439,11 +451,13 @@ def main() -> int:
     d64 = {k: spd_data(s, 1) for k, s in probs.items()}
 
     # 4. kernels vs twins on the card, at every bucket of each path
+    # (the bucket shapes each covers are logged with the f64 errors)
     max_abs = {k: 0.0 for k in NAMES}
     errs = {}
     for dt in (torch.float64, torch.float32):
         np_dt = np.float64 if dt == torch.float64 else np.float32
-        for pname in ("meri7", "grid100", "flat1000", "flat_schur5k"):
+        for pname in ("meri7", "grid100", "flat1000", "flat_schur5k",
+                      "flat_schur50k", "wide_below"):
             s = probs[pname]
             chk = CheckedOps()
             d = torch.from_numpy(d64[pname].astype(np_dt)).to(dev)[None]
@@ -457,7 +471,8 @@ def main() -> int:
                 max_abs[k] = max(max_abs[k], chk.abs[k])
             errs[f"{pname}_{str(dt)[6:]}"] = {
                 "max_rel": {k: v for k, v in chk.rel.items() if v},
-                "bucket_shapes": len(chk.shapes)}
+                **({"shapes": sorted(chk.shapes)}
+                   if dt == torch.float64 else {})}
     log("kernels_vs_twins", limits={"float64": 1e-10, "float32": 1e-4},
         errors=errs)
 
@@ -477,6 +492,20 @@ def main() -> int:
         factor_rel_vs_pairs=frel,
         compact_rows=[lv[3].R for lv in forced._factor_schedule(
             0, grid.skel.num_lumps) if lv[3] is not None])
+
+    # 4c. WIDE_BELOW through the entry points, f64: the wide factor's
+    # below rows, the wide solve's below products, K4 on a wide origin
+    wb = probs["wide_below"]
+    d = torch.from_numpy(d64["wide_below"]).to(dev)
+    b = torch.from_numpy(rhs["wide_below"]).to(dev)
+    (f, x), c_wb = counted("wide_below", lambda: factor_solve(wb, d, b))
+    fr = factor_residual(wb, d64["wide_below"], f.cpu().numpy())
+    sr = solve_residual(wb, d64["wide_below"], x.cpu().numpy(),
+                        rhs["wide_below"])
+    check(fr <= 1e-10, f"WIDE_BELOW f64 factor residual {fr}")
+    check(sr <= 1e-10, f"WIDE_BELOW f64 solve residual {sr}")
+    log("wide_below", factor_residual=fr, solve_residual=sr,
+        launches={k: v[0] for k, v in c_wb.items()})
 
     # 5. MERI n=7, f64, single: the main path, counted
     d = torch.from_numpy(d64["meri7"]).to(dev)

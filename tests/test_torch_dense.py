@@ -5,8 +5,11 @@ the JAX package runs dense (f64, CPU twins). The CUDA kernel is held
 against the twin on the card by chip_smoke.py.
 
 Problems: SMALL["elim_range"] (a 60-block elimination range over 30
-compact rows) and `wide_dense` (1,500 eliminated blocks over a 600-wide
-lump of padded width 1024: a dense level and a wide panel in one).
+compact rows), `wide_dense` (1,500 eliminated blocks over a 600-wide
+lump of padded width 1024: a dense level and a wide panel in one) and
+`wide_below` (a 540-wide lump, padded 1024, with 36 below rows beside a
+narrow lump: the level goes dense in the port because of its wide
+origin, and runs on pairs in the JAX package).
 
 Tolerances: 1e-10 relative between the packages (XLA and torch sum in
 different orders, and the stored inverse amplifies rounding); 1e-12
@@ -22,13 +25,16 @@ import baspacho_tpu as J
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import DevDense, PlannedBackend
-from baspacho_tpu_torch.ops.schedule import PlannedSchedule
+from baspacho_tpu_torch.ops.schedule import NARROW_MAX, PlannedSchedule
 from baspacho_tpu_torch.testing.problems import (SMALL, flat_schur5k,
-                                                 spd_data, wide_dense)
+                                                 spd_data, wide_below,
+                                                 wide_dense)
 
 torch.set_num_threads(1)
 
-PROBLEMS = {"elim_range": SMALL["elim_range"], "wide_dense": wide_dense}
+PROBLEMS = {"elim_range": SMALL["elim_range"], "wide_dense": wide_dense,
+            "wide_below": wide_below}
+JAX_DENSE = ("elim_range", "wide_dense")  # level 0 is dense in both
 _cache = {}
 
 
@@ -50,13 +56,30 @@ def levels(s):
     return s.backend._factor_schedule(0, s.skel.num_lumps)
 
 
-@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@pytest.mark.parametrize("name", JAX_DENSE)
 def test_level_is_dense_in_both_packages(name):
     js, ts, _, _ = case(name)
     assert levels(js)[0][3] is not None
     lbs, pairs, ptot, dense = levels(ts)[0]
     assert dense is not None and pairs is None and ptot == 0
     assert dense.R <= levels(js)[0][3]["R"]  # JAX closes small gaps
+    assert all(lv[3] is None for lv in levels(ts)[1:])
+
+
+def test_wide_origin_sends_its_level_dense():
+    """A level with an origin wider than NARROW_MAX goes dense, below
+    rows and all, even with pairs forced: the blocked wide factor writes
+    no product. The JAX package runs this level on pairs."""
+    js, ts, _, _ = case("wide_below")
+    assert levels(js)[0][3] is None
+    lbs, pairs, ptot, dense = levels(ts)[0]
+    assert dense is not None and pairs is None and ptot == 0
+    wide = [lb for lb in lbs if lb.cp > NARROW_MAX]
+    assert [(lb.cp, lb.rp, int(lb.rows[0])) for lb in wide] == \
+        [(1024, 64, 36)]
+    assert sorted(set(dense.ent_ld.tolist())) == [128, 1024]
+    forced = PlannedBackend(ts.plan, assembly="pairs")
+    assert forced._factor_schedule(0, ts.skel.num_lumps)[0][3] is not None
     assert all(lv[3] is None for lv in levels(ts)[1:])
 
 
