@@ -7,6 +7,12 @@ launch counters.
   K3 bucket_solve        csrc/bucket_solve.cu        panels cp <= 512
   K3-wide wide_solve     csrc/wide_solve.cu          panels cp > 512
   K4 dense_update        csrc/dense_level.cu         dense levels
+  K3-rest tri_solve      csrc/tri_solve.cu           panels cp <= 512, by
+                                                     substitution (partial
+                                                     ranges)
+  K3-rest wide_tri_solve csrc/tri_solve.cu           panels cp > 512
+  K5 add_mv              csrc/add_mv.cu              panels cp <= 512
+  K5 wide_add_mv         csrc/add_mv.cu              panels cp > 512
 
 Each wrapper takes the same arguments on either device. For a tensor on
 the CPU it runs the plain PyTorch twin beside it; for a CUDA tensor it
@@ -40,7 +46,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu",
-           "wide_factor.cu", "wide_solve.cu", "dense_level.cu")
+           "wide_factor.cu", "wide_solve.cu", "dense_level.cu",
+           "tri_solve.cu", "add_mv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu)
@@ -57,7 +64,8 @@ class LaunchCount:
 
 COUNTS = {name: LaunchCount() for name in (
     "bucket_factor", "wide_factor", "segmented_subtract", "bucket_solve",
-    "wide_solve", "dense_update")}
+    "wide_solve", "dense_update", "tri_solve", "wide_tri_solve", "add_mv",
+    "wide_add_mv")}
 
 
 def reset_counts() -> None:
@@ -131,6 +139,7 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         lib = ctypes.CDLL(build())
         i64, i32, vp = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+        f64 = ctypes.c_double
         sigs = {
             "bs_bucket_factor": [i32, vp, i64, vp, i64, i64, vp, vp, vp, i64,
                                  i32, i32, i32, vp],
@@ -150,6 +159,24 @@ def _lib() -> ctypes.CDLL:
             "bs_dense_update": [i32, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp,
                                 vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                 vp],
+            "bs_tri_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
+                             vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                             vp],
+            "bs_tri_wide_pre": [i32, i32, vp, i64, vp, i64, vp, vp, vp, vp,
+                                vp, vp, i64, i64, i32, i32, i32, i32, vp],
+            "bs_tri_wide_inv": [i32, i32, vp, i64, vp, vp, vp, i64, i32,
+                                i32, i32, vp],
+            "bs_tri_wide_step": [i32, i32, vp, i64, vp, vp, vp, vp, vp, i64,
+                                 i32, i32, i32, i32, i32, vp],
+            "bs_tri_wide_post": [i32, vp, i64, vp, i64, vp, i64, i64, vp,
+                                 vp, vp, vp, vp, i64, i32, i32, i32, i32,
+                                 vp],
+            "bs_add_mv": [i32, vp, i64, vp, i64, vp, i64, vp, i64, i64, vp,
+                          vp, vp, vp, vp, i64, i64, i32, i32, i32, i32, f64,
+                          vp],
+            "bs_wide_add_mv": [i32, vp, i64, vp, i64, vp, i64, vp, i64, i64,
+                               vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
+                               i32, i32, f64, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -643,6 +670,272 @@ def dense_update_twin(data, d) -> None:
     data[:, tgt] -= U[:, src]
 
 
+# ----------------------------------------------------------------------
+# K3-rest tri_solve and wide_tri_solve
+# ----------------------------------------------------------------------
+def tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
+              below_idx, cp: int, rp: int, transpose: bool) -> None:
+    """Diagonal solve of one bucket by substitution on the lower triangle
+    of each diag block (no stored inverse: partial-range solves, and
+    pseudo-factored data), in place in vv, with bucket_solve's arguments
+    and result: L pass vv[rows] = L^-1 vv[rows] and y = below . x; Lt
+    pass vv[rows] = L^-T (vv[rows] - below^T vv[below_idx])."""
+    use_y = _check_solve("tri_solve", data, vv, y, rp, transpose)
+    if data.device.type == "cpu":
+        return tri_solve_twin(data, vv, y, y_base, off, rows, cols, vec_off,
+                              below_idx, cp, rp, transpose)
+    _check_cuda("tri_solve", [data, vv, y] if use_y else [data, vv],
+                [off, rows, cols, vec_off, below_idx])
+    batch, order, nrhs = vv.shape
+    err = _lib().bs_tri_solve(
+        _DTYPE_CODE[data.dtype], int(transpose), data.data_ptr(),
+        data.shape[1], vv.data_ptr(), order * nrhs,
+        y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,
+        y_base * nrhs, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+        vec_off.data_ptr(), below_idx.data_ptr(), order, off.shape[0], cp,
+        rp, nrhs, batch, _stream(data))
+    COUNTS["tri_solve"].launches += 1
+    COUNTS["tri_solve"].grid_launches += 1
+    _raise_on("tri_solve", err)
+
+
+def wide_tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
+                   below_idx, cp: int, rp: int, transpose: bool, off_h,
+                   cols_h) -> None:
+    """tri_solve for wide panels (cp > 512, a multiple of WIDE_TILE), as
+    PlannedBackend._big_panel_solve: a chain of WIDE_TILE-wide diagonal
+    tiles. One launch gathers each panel's RHS rows into a (batch, B, cp,
+    nrhs) scratch xs (Lt pass: minus below^T vv[below_idx]), one inverts
+    every diagonal tile at once; then one launch per tile (forward in
+    the L pass, backward in the Lt pass) puts the tile's solution into
+    xsol and applies it to the rest of xs (L pass x[k1:n] -= L[k1:n,
+    k0:k1] s; Lt pass x[:k0] -= L[k0:k1, :k0]^T s); the last writes xsol
+    back and, in the L pass, y. off_h / cols_h are host copies of off /
+    cols."""
+    use_y = _check_solve("wide_tri_solve", data, vv, y, rp, transpose)
+    if data.device.type == "cpu":
+        return wide_tri_solve_twin(data, vv, y, y_base, off, rows, cols,
+                                   vec_off, below_idx, cp, rp, transpose,
+                                   off_h, cols_h)
+    _check_cuda("wide_tri_solve", [data, vv, y] if use_y else [data, vv],
+                [off, rows, cols, vec_off, below_idx])
+    nb = WIDE_TILE
+    if cp % nb:
+        raise ValueError(f"wide_tri_solve: cp {cp} is not a multiple of "
+                         f"{nb}")
+    COUNTS["wide_tri_solve"].launches += 1
+    batch, order, nrhs = vv.shape
+    B = off.shape[0]
+    lib, code, tr = _lib(), _DTYPE_CODE[data.dtype], int(transpose)
+    d, dst, st = data.data_ptr(), data.shape[1], _stream(data)
+    xs = vv.new_empty((batch, B, cp, nrhs))
+    xsol = torch.zeros_like(xs)
+    tinv = vv.new_empty((batch, B, cp // nb, nb, nb))
+
+    def ran(step, err):
+        COUNTS["wide_tri_solve"].grid_launches += 1
+        _raise_on(f"wide_tri_solve ({step})", err)
+
+    ran("pre", lib.bs_tri_wide_pre(
+        code, tr, d, dst, vv.data_ptr(), order * nrhs, xs.data_ptr(),
+        off.data_ptr(), rows.data_ptr(), cols.data_ptr(), vec_off.data_ptr(),
+        below_idx.data_ptr(), order, B, cp, rp, nrhs, batch, st))
+    ran("inverse", lib.bs_tri_wide_inv(
+        code, tr, d, dst, tinv.data_ptr(), off.data_ptr(), cols.data_ptr(),
+        B, cp, nb, batch, st))
+    tiles = [k0 for k0 in range(0, cp, nb) if k0 < max(cols_h)]
+    for k0 in (reversed(tiles) if transpose else tiles):
+        ran("step", lib.bs_tri_wide_step(
+            code, tr, d, dst, tinv.data_ptr(), xs.data_ptr(),
+            xsol.data_ptr(), off.data_ptr(), cols.data_ptr(), B, cp, k0, nb,
+            nrhs, batch, st))
+    ran("post", lib.bs_tri_wide_post(
+        code, d, dst, vv.data_ptr(), order * nrhs,
+        y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,
+        y_base * nrhs, xsol.data_ptr(), off.data_ptr(), rows.data_ptr(),
+        cols.data_ptr(), vec_off.data_ptr(), B, cp, rp if use_y else 0,
+        nrhs, batch, st))
+
+
+def wide_tri_solve_twin(*args) -> None:
+    """Plain twin of K3-rest wide (the same function as tri_solve's; the
+    host copies off_h / cols_h are not needed)."""
+    COUNTS["wide_tri_solve"].twin_calls += 1
+    _tri_plain(*args[:12])
+
+
+def _lower_masked(P, cols):
+    """The diag blocks' lower triangles over their real columns, with
+    identity on the padded ones (PlannedBackend._pad_eye); nothing above
+    the diagonal or in the padding is read."""
+    cp, dev = P.shape[-1], P.device
+    ar = torch.arange(cp, device=dev)
+    ii, jj = ar[:, None], ar[None, :]
+    real = (ii < cols[:, None, None]) & (jj < cols[:, None, None])
+    pad_eye = ((ii == jj) & (ii >= cols[:, None, None])).to(P.dtype)
+    return torch.where(real & (ii >= jj), P, 0.0) + pad_eye
+
+
+def _below_masked(below, rows, cols):
+    """Below blocks with their padded rows and columns zeroed."""
+    rp, cp, dev = below.shape[-2], below.shape[-1], below.device
+    keep = (torch.arange(rp, device=dev)[:, None] < rows[:, None, None]) & \
+        (torch.arange(cp, device=dev) < cols[:, None, None])
+    return torch.where(keep, below, 0.0)
+
+
+def _bucket_panels(data, off, cp, rp):
+    batch, B, h = data.shape[0], off.shape[0], cp + rp
+    idx = off[:, None] + torch.arange(h * cp, device=data.device)
+    return data[:, idx].view(batch, B, h, cp)
+
+
+def _tri_plain(data, vv, y, y_base: int, off, rows, cols, vec_off,
+               below_idx, cp: int, rp: int, transpose: bool) -> None:
+    """PlannedBackend._diag_solve(use_inv=False) in torch, with the below
+    scatter of the L pass left to K2."""
+    batch, order, nrhs = vv.shape
+    B, dev = off.shape[0], data.device
+    panels = _bucket_panels(data, off, cp, rp)
+    L = _lower_masked(panels[:, :, :cp], cols)
+    below = _below_masked(panels[:, :, cp:], rows, cols)
+    xr = torch.arange(cp, device=dev)
+    xidx = torch.where(xr < cols[:, None], vec_off[:, None] + xr, order)
+    ext = torch.cat([vv, vv.new_zeros((batch, 1, nrhs))], dim=1)
+    x = ext[:, xidx]  # (batch, B, cp, nrhs)
+    if not transpose:
+        x = torch.linalg.solve_triangular(L, x, upper=False)
+        if rp > 0:
+            yb = torch.einsum("zbrk,zbkn->zbrn", below, x)
+            y[:, y_base:y_base + B * rp] = yb.reshape(batch, B * rp, nrhs)
+    else:
+        if rp > 0:
+            x = x - torch.einsum("zbrk,zbrn->zbkn", below,
+                                 ext[:, below_idx])
+        x = torch.linalg.solve_triangular(L.mT, x, upper=True)
+    ext[:, xidx] = x
+    vv.copy_(ext[:, :order])
+
+
+def tri_solve_twin(*args) -> None:
+    """Plain twin of K3-rest."""
+    COUNTS["tri_solve"].twin_calls += 1
+    _tri_plain(*args)
+
+
+# ----------------------------------------------------------------------
+# K5 add_mv and wide_add_mv
+# ----------------------------------------------------------------------
+def _check_mv(name, data, x, out, y, rp):
+    _check_batch(name, data, x, out, y if rp > 0 else None)
+    if x.shape != out.shape:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and out "
+                         f"{tuple(out.shape)} differ")
+    if rp > 0 and y.shape[2:] != x.shape[2:]:
+        raise ValueError(f"{name}: y has {y.shape[2:]} right-hand sides, "
+                         f"x {x.shape[2:]}")
+
+
+def add_mv(data, x, out, y, y_base: int, off, rows, cols, vec_off,
+           below_idx, cp: int, rp: int, alpha: float) -> None:
+    """Block mat-vec of one bucket: out[own rows] += alpha (sym(lower(
+    diag)) x_own + below^T x[below_idx]) in place, and, when rp > 0,
+    y[:, y_base + b*rp + r] = -alpha (below . x_own)[b, r] for K2 to
+    subtract into out[below_idx] once every bucket has run."""
+    _check_mv("add_mv", data, x, out, y, rp)
+    if data.device.type == "cpu":
+        return add_mv_twin(data, x, out, y, y_base, off, rows, cols,
+                           vec_off, below_idx, cp, rp, alpha)
+    _check_cuda("add_mv", [data, x, out, y] if rp > 0 else [data, x, out],
+                [off, rows, cols, vec_off, below_idx])
+    batch, order, nrhs = x.shape
+    err = _lib().bs_add_mv(
+        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+        x.data_ptr(), order * nrhs, out.data_ptr(), order * nrhs,
+        y.data_ptr() if rp > 0 else None, y[0].numel() if rp > 0 else 0,
+        y_base * nrhs, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+        vec_off.data_ptr(), below_idx.data_ptr(), order, off.shape[0], cp,
+        rp, nrhs, batch, float(alpha), _stream(data))
+    COUNTS["add_mv"].launches += 1
+    COUNTS["add_mv"].grid_launches += 1
+    _raise_on("add_mv", err)
+
+
+MV_TILE = 64  # tile edge of the wide mat-vec (csrc/add_mv.cu)
+
+
+def wide_add_mv(data, x, out, y, y_base: int, off, rows, cols, vec_off,
+                below_idx, cp: int, rp: int, alpha: float) -> None:
+    """add_mv for wide panels (cp > 512): the lower triangle in 64 x 64
+    tiles on many CTAs, each element read once for both its terms, the
+    partial sums through (batch, B, cp / 64, cp, nrhs) scratches and
+    summed per row in a fixed order."""
+    _check_mv("wide_add_mv", data, x, out, y, rp)
+    if data.device.type == "cpu":
+        return wide_add_mv_twin(data, x, out, y, y_base, off, rows, cols,
+                                vec_off, below_idx, cp, rp, alpha)
+    _check_cuda("wide_add_mv",
+                [data, x, out, y] if rp > 0 else [data, x, out],
+                [off, rows, cols, vec_off, below_idx])
+    if cp % MV_TILE:
+        raise ValueError(f"wide_add_mv: cp {cp} is not a multiple of "
+                         f"{MV_TILE}")
+    batch, order, nrhs = x.shape
+    B = off.shape[0]
+    p1 = x.new_empty((batch, B, cp // MV_TILE, cp, nrhs))
+    p2 = torch.empty_like(p1)
+    err = _lib().bs_wide_add_mv(
+        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+        x.data_ptr(), order * nrhs, out.data_ptr(), order * nrhs,
+        y.data_ptr() if rp > 0 else None, y[0].numel() if rp > 0 else 0,
+        y_base * nrhs, p1.data_ptr(), p2.data_ptr(), off.data_ptr(),
+        rows.data_ptr(), cols.data_ptr(), vec_off.data_ptr(),
+        below_idx.data_ptr(), order, B, cp, rp, nrhs, batch, float(alpha),
+        _stream(data))
+    COUNTS["wide_add_mv"].launches += 1
+    COUNTS["wide_add_mv"].grid_launches += 2
+    _raise_on("wide_add_mv", err)
+
+
+def _add_mv_plain(data, x, out, y, y_base: int, off, rows, cols, vec_off,
+                  below_idx, cp: int, rp: int, alpha: float) -> None:
+    """PlannedBackend.make_add_mv's per-bucket step in torch, with the
+    below scatter left to K2 (through y)."""
+    batch, order, nrhs = x.shape
+    B, dev = off.shape[0], data.device
+    panels = _bucket_panels(data, off, cp, rp)
+    lower = _lower_masked(panels[:, :, :cp], cols)
+    ar = torch.arange(cp, device=dev)
+    lower = torch.where(ar[:, None] < cols[:, None, None], lower, 0.0)
+    sym = lower + torch.tril(lower, -1).mT
+    xidx = torch.where(ar < cols[:, None], vec_off[:, None] + ar, order)
+    xe = torch.cat([x, x.new_zeros((batch, 1, nrhs))], dim=1)
+    xl = xe[:, xidx]
+    contrib = torch.einsum("zbij,zbjn->zbin", sym, xl)
+    if rp > 0:
+        below = _below_masked(panels[:, :, cp:], rows, cols)
+        contrib = contrib + torch.einsum("zbrk,zbrn->zbkn", below,
+                                         xe[:, below_idx])
+        yb = torch.einsum("zbrk,zbkn->zbrn", below, xl)
+        y[:, y_base:y_base + B * rp] = -alpha * yb.reshape(batch, B * rp,
+                                                           nrhs)
+    oe = torch.cat([out, out.new_zeros((batch, 1, nrhs))], dim=1)
+    oe[:, xidx] += alpha * contrib
+    out.copy_(oe[:, :order])
+
+
+def add_mv_twin(*args) -> None:
+    """Plain twin of K5."""
+    COUNTS["add_mv"].twin_calls += 1
+    _add_mv_plain(*args)
+
+
+def wide_add_mv_twin(*args) -> None:
+    """Plain twin of K5 wide (the same function as add_mv's)."""
+    COUNTS["wide_add_mv"].twin_calls += 1
+    _add_mv_plain(*args)
+
+
 # the plain twins under the wrappers' names, for running a whole path
 # through them (timing and comparison on the card)
 TWINS = SimpleNamespace(bucket_factor=bucket_factor_twin,
@@ -650,4 +943,8 @@ TWINS = SimpleNamespace(bucket_factor=bucket_factor_twin,
                         segmented_subtract=segmented_subtract_twin,
                         bucket_solve=bucket_solve_twin,
                         wide_solve=wide_solve_twin,
-                        dense_update=dense_update_twin)
+                        dense_update=dense_update_twin,
+                        tri_solve=tri_solve_twin,
+                        wide_tri_solve=wide_tri_solve_twin,
+                        add_mv=add_mv_twin,
+                        wide_add_mv=wide_add_mv_twin)

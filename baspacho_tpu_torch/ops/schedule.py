@@ -214,7 +214,9 @@ class PlannedSchedule:
 
     def _by_level(self, start: int, end: int) -> List[np.ndarray]:
         """Lump ids of [start, end) grouped by schedule level (ascending),
-        preserving id order within a level."""
+        preserving id order within a level (none for an empty range)."""
+        if end <= start:
+            return []
         lv = np.asarray(self.plan.lump_levels[start:end])
         ids = np.arange(start, end, dtype=np.int64)
         order = np.argsort(lv, kind="stable")
@@ -350,6 +352,8 @@ class PlannedSchedule:
         plan = self.plan
         order = plan.skel.order
         lds = np.asarray(lds, dtype=np.int64)
+        if not len(lds):
+            return []
         prp_a = plan.lump_prp[lds]
         cp_a = plan.lump_strides[lds]
         co_a = plan.lump_col_offset[lds]

@@ -1,4 +1,4 @@
-"""Solver: symbolic plan + the planned numeric factor and solve on a
+"""Solver: symbolic plan + the numeric factor, solves and mat-vec on a
 torch device.
 
 Port of baspacho_tpu/solver.py. The host part (BackendType,
@@ -7,13 +7,14 @@ to line for line, so both packages build the same skeleton and the same
 data buffer means the same matrix. The MXU precision fields of Settings
 are dropped: the hand-written kernels compute at full precision.
 
-The facade keeps the JAX Solver's public names for what this slice
-carries (order, data_size, span offsets, accessor, factor, solve), its
-input checks and its batching rules: a leading batch axis on the data,
-1-D or 2-D right-hand sides. Everything else raises NotImplementedError
-naming the slice that brings it, and so do the configurations this slice
-cannot run (the REF backend, partial factor ranges), at create_solver
-time rather than mid-factor.
+The facade keeps the JAX Solver's public names, input checks and
+batching rules (a leading batch axis on the data, 1-D or 2-D right-hand
+sides): factor / factor_up_to / factor_from, the full and partial L /
+Lt solves, add_mv_from, pseudo_factor_from, check_factor,
+solve_refined and make_differentiable_solve, on either backend (PLANNED
+through the hand-written kernels, REF in plain torch). A solver runs on
+the CUDA card unless a device is named. The sharded, chained and stats
+methods raise NotImplementedError naming the slice that brings them.
 
 createSolver pipeline (same analysis structure as reference :611-752):
   1. apply given sparse-elim-range fill,
@@ -67,9 +68,6 @@ class Settings:
 
 
 # slices of the port (ROADMAP.md, queue 1) that bring what is refused here
-_SLICE_PARTIAL = "the partial-ops slice (ROADMAP queue 1, item 6)"
-_SLICE_REF = "the reference-backend slice (ROADMAP queue 1, item 2)"
-_SLICE_DIFF = "the differentiable-solve slice (ROADMAP queue 1, item 7)"
 _SLICE_STATS = "the stats slice (ROADMAP queue 1, item 9)"
 _SLICE_MULTI = "the multi-GPU slice (ROADMAP queue 1, item 11)"
 
@@ -79,30 +77,44 @@ def _not_ported(what: str, slice_: str):
                               f"{slice_}")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a solver runs on: the one named, else the CUDA card.
+    Without a card and without a named device it raises rather than
+    carrying on on the CPU (device="cpu" runs the plain twins)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the solver runs on the GPU unless a device is "
+            "named; pass device='cpu' to run the plain PyTorch versions")
+    return torch.device("cuda")
+
+
 class Solver:
     def __init__(self, skel: CoalescedBlockMatrixSkel,
                  sparse_elim_ranges: Sequence[int],
                  permutation: np.ndarray,
                  backend: BackendType = BackendType.PLANNED,
                  can_factor_up_to: int = -1,
-                 device="cpu"):
-        if backend != BackendType.PLANNED:
-            _not_ported(f"backend {backend}", _SLICE_REF)
+                 device=None):
         self.skel = skel
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sparse_elim_ranges = list(sparse_elim_ranges)
         self.permutation = np.asarray(permutation, dtype=np.int64)
         self.can_factor_up_to = (skel.num_spans if can_factor_up_to < 0
                                  else can_factor_up_to)
-        if self.can_factor_up_to < skel.num_spans:
-            _not_ported("a skeleton that factors only up to span "
-                        f"{self.can_factor_up_to}", _SLICE_PARTIAL)
-        self.plan = build_plan(skel, self.sparse_elim_ranges,
-                               skel.num_lumps)
-        from .ops.planned_backend import PlannedBackend
-        self.backend = PlannedBackend(self.plan)
+        max_lump = (skel.num_lumps
+                    if self.can_factor_up_to >= skel.num_spans
+                    else int(skel.span_to_lump[self.can_factor_up_to]))
+        self.plan = build_plan(skel, self.sparse_elim_ranges, max_lump)
+        if backend == BackendType.PLANNED:
+            from .ops.planned_backend import PlannedBackend
+            self.backend = PlannedBackend(self.plan)
+        else:
+            from .ops.ref_backend import UnrolledBackend
+            self.backend = UnrolledBackend(self.plan)
         self.backend_type = backend
-        self._fns: Dict[str, object] = {}
+        self._fns: Dict[tuple, object] = {}
 
     # -- introspection --------------------------------------------------
     @property
@@ -129,10 +141,26 @@ class Solver:
         return self.permutation
 
     # -- internals ------------------------------------------------------
-    def _get(self, key: str, make):
+    def _lump_of_span(self, span_index: int) -> int:
+        assert 0 <= span_index <= self.skel.num_spans
+        assert self.skel.span_offset_in_lump[span_index] == 0
+        return int(self.skel.span_to_lump[span_index])
+
+    def program(self, op: str, start: int, end: int = -1):
+        """The backend program of `op` over lumps [start, end) (cached):
+        "factor", "solve" (PLANNED, full range), "solve_l", "solve_lt"
+        over batched (batch, ...) tensors; "add_mv" from lump `start`;
+        "pseudo" over spans [start, end)."""
+        key = (op, start, end)
         fn = self._fns.get(key)
         if fn is None:
-            fn = make()
+            b, dev = self.backend, self.device
+            if op == "add_mv":
+                fn = b.make_add_mv(start, dev)
+            elif op == "pseudo":
+                fn = b.make_pseudo_factor(start, end, dev)
+            else:
+                fn = getattr(b, f"make_{op}")(start, end, dev)
             self._fns[key] = fn
         return fn
 
@@ -171,88 +199,173 @@ class Solver:
                 f"rhs length {v.shape[1 if batched else 0]} != matrix "
                 f"order {self.skel.order}")
 
-    def factor_program(self):
-        """The full-range factor program: (batch, data_size) -> factor."""
-        return self._get("factor", lambda: self.backend.make_factor(
-            0, self.skel.num_lumps, self.device))
-
-    def solve_program(self):
-        """The full-range solve program: (data (batch, data_size),
-        v (batch, order, nrhs)) -> solution."""
-        return self._get("solve", lambda: self.backend.make_solve(
-            0, self.skel.num_lumps, self.device))
-
-    # -- factor / solve -------------------------------------------------
-    def factor(self, data):
-        data = self._as_tensor(data)
-        self._check_data(data)
-        batched = data.ndim == 2
-        out = self.factor_program()(data if batched else data[None])
-        return out if batched else out[0]
-
-    def solve(self, mat_data, rhs):
-        data = self._as_tensor(mat_data)
-        v = self._as_tensor(rhs)
-        self._check_data(data)
+    def _check_vec(self, data, v, what="rhs"):
+        """Checks one vector operand against the data: dims, length,
+        dtype and batch. Returns (batched, 1-D)."""
         batched = data.ndim == 2
         self._check_rhs(v, batched)
         if v.dtype != data.dtype:
-            raise TypeError(f"rhs dtype {v.dtype} != data dtype "
+            raise TypeError(f"{what} dtype {v.dtype} != data dtype "
                             f"{data.dtype}")
         if batched and v.shape[0] != data.shape[0]:
-            raise ValueError(f"rhs batch {v.shape[0]} != data batch "
+            raise ValueError(f"{what} batch {v.shape[0]} != data batch "
                              f"{data.shape[0]}")
-        vec1d = v.ndim == (2 if batched else 1)
+        return batched, v.ndim == (2 if batched else 1)
+
+    def _run_factor_like(self, op, data, start: int, end: int):
+        data = self._as_tensor(data)
+        self._check_data(data)
+        batched = data.ndim == 2
+        out = self.program(op, start, end)(
+            (data if batched else data[None]).contiguous())
+        return out if batched else out[0]
+
+    def _run_solve_like(self, op, mat_data, rhs, start: int, end: int):
+        data = self._as_tensor(mat_data)
+        v = self._as_tensor(rhs)
+        self._check_data(data)
+        batched, vec1d = self._check_vec(data, v)
         if vec1d:
             v = v[..., None]
         if not batched:
             data, v = data[None], v[None]
-        out = self.solve_program()(data.contiguous(), v)
+        out = self.program(op, start, end)(data.contiguous(), v)
         if not batched:
             out = out[0]
         return out[..., 0] if vec1d else out
 
-    # -- not in this slice ----------------------------------------------
+    def factor_program(self):
+        """The full-range factor program: (batch, data_size) -> factor."""
+        return self.program("factor", 0, self.skel.num_lumps)
+
+    def solve_program(self):
+        """The full-range solve program of the PLANNED backend: (data
+        (batch, data_size), v (batch, order, nrhs)) -> solution."""
+        return self.program("solve", 0, self.skel.num_lumps)
+
+    # -- factor ---------------------------------------------------------
+    def factor(self, data):
+        return self.factor_up_to(data, self.skel.num_spans)
+
     def factor_up_to(self, data, span_index: int):
-        _not_ported("factor_up_to", _SLICE_PARTIAL)
+        assert span_index <= self.can_factor_up_to
+        return self._run_factor_like("factor", data, 0,
+                                     self._lump_of_span(span_index))
 
     def factor_from(self, data, span_index: int):
-        _not_ported("factor_from", _SLICE_PARTIAL)
+        return self._run_factor_like("factor", data,
+                                     self._lump_of_span(span_index),
+                                     self.skel.num_lumps)
+
+    # -- solve ----------------------------------------------------------
+    def solve(self, mat_data, rhs):
+        n = self.skel.num_lumps
+        if self.backend_type == BackendType.PLANNED:
+            # fused L + Lt solve on the stored inverse
+            return self._run_solve_like("solve", mat_data, rhs, 0, n)
+        rhs = self._run_solve_like("solve_l", mat_data, rhs, 0, n)
+        return self._run_solve_like("solve_lt", mat_data, rhs, 0, n)
 
     def solve_l(self, mat_data, rhs):
-        _not_ported("solve_l", _SLICE_PARTIAL)
+        return self.solve_l_up_to(mat_data, self.skel.num_spans, rhs)
 
     def solve_lt(self, mat_data, rhs):
-        _not_ported("solve_lt", _SLICE_PARTIAL)
+        return self.solve_lt_up_to(mat_data, self.skel.num_spans, rhs)
 
     def solve_l_up_to(self, mat_data, span_index: int, rhs):
-        _not_ported("solve_l_up_to", _SLICE_PARTIAL)
+        return self._run_solve_like("solve_l", mat_data, rhs, 0,
+                                    self._lump_of_span(span_index))
 
     def solve_lt_up_to(self, mat_data, span_index: int, rhs):
-        _not_ported("solve_lt_up_to", _SLICE_PARTIAL)
+        return self._run_solve_like("solve_lt", mat_data, rhs, 0,
+                                    self._lump_of_span(span_index))
 
     def solve_l_from(self, mat_data, span_index: int, rhs):
-        _not_ported("solve_l_from", _SLICE_PARTIAL)
+        return self._run_solve_like("solve_l", mat_data, rhs,
+                                    self._lump_of_span(span_index),
+                                    self.skel.num_lumps)
 
     def solve_lt_from(self, mat_data, span_index: int, rhs):
-        _not_ported("solve_lt_from", _SLICE_PARTIAL)
+        return self._run_solve_like("solve_lt", mat_data, rhs,
+                                    self._lump_of_span(span_index),
+                                    self.skel.num_lumps)
 
+    # -- matvec / pseudo-factor / checks --------------------------------
     def add_mv_from(self, mat_data, span_index: int, x, out, alpha=1.0):
-        _not_ported("add_mv_from", _SLICE_PARTIAL)
+        """out + alpha * M x on the bottom-right corner from span_index,
+        as a new tensor (`out` is left as it was)."""
+        start_l = self._lump_of_span(span_index)
+        data = self._as_tensor(mat_data)
+        x = self._as_tensor(x)
+        out = self._as_tensor(out)
+        self._check_data(data)
+        batched, vec1d = self._check_vec(data, x, "x")
+        self._check_vec(data, out, "out")
+        if out.shape != x.shape:
+            raise ValueError(f"out shape {tuple(out.shape)} != x shape "
+                             f"{tuple(x.shape)}")
+        if vec1d:
+            x, out = x[..., None], out[..., None]
+        if not batched:
+            data, x, out = data[None], x[None], out[None]
+        res = self.program("add_mv", start_l)(data.contiguous(),
+                                              x.contiguous(), out,
+                                              float(alpha))
+        if not batched:
+            res = res[0]
+        return res[..., 0] if vec1d else res
 
     def pseudo_factor_from(self, data, span_index: int):
-        _not_ported("pseudo_factor_from", _SLICE_PARTIAL)
+        """Per-span Cholesky of the diagonal blocks of spans >= span_index
+        and their column blocks below multiplied by L^-T (the
+        Gauss-Seidel preconditioner's factor); no update between spans."""
+        return self._run_factor_like("pseudo", data, span_index,
+                                     self.skel.num_spans)
 
     def check_factor(self, factored) -> bool:
-        _not_ported("check_factor", _SLICE_PARTIAL)
+        """True iff every diagonal entry of L is finite and positive
+        (batched data: all items)."""
+        f = self._as_tensor(factored)
+        idx = torch.from_numpy(self.skel.damp_indices()).to(f.device)
+        d = f.index_select(-1, idx)
+        return bool(torch.all(torch.isfinite(d) & (d > 0)))
 
     def solve_refined(self, mat_data, factor_data, rhs,
                       iterations: int = 2):
-        _not_ported("solve_refined", _SLICE_PARTIAL)
+        """Mixed-precision solve by iterative refinement: `factor_data`
+        (typically float32) factors the matrix held at higher precision
+        in `mat_data`; each round takes the residual r = b - M x at the
+        matrix precision (block mat-vec) and corrects with a solve at
+        the factor's precision."""
+        rhs = self._as_tensor(rhs)
+        mat = self._as_tensor(mat_data)
+        lp = self._as_tensor(factor_data)
+        x = self.solve(lp, rhs.to(lp.dtype)).to(rhs.dtype)
+        for _ in range(iterations):
+            r = rhs - self.add_mv_from(mat, 0, x, torch.zeros_like(x), 1.0)
+            x = x + self.solve(lp, r.to(lp.dtype)).to(rhs.dtype)
+        return x
 
     def make_differentiable_solve(self):
-        _not_ported("make_differentiable_solve", _SLICE_DIFF)
+        """Returns f(hdata, rhs) -> x solving H x = rhs for the SPD block
+        matrix held in `hdata`, differentiable with torch.autograd. The
+        backward uses the implicit-function theorem (no differentiation
+        through the factor): with y = H^-1 g, bar_rhs = y and bar_H =
+        -y x^T symmetrized onto the stored lower half,
+        bar_hdata[slot(i, j)] = -(y_i x_j + x_i y_j) for i > j and
+        -y_i x_i on the diagonal; padding and the dead upper halves of
+        the diagonal blocks get 0. One (unbatched) system, rhs 1-D or
+        (order, nrhs)."""
+        ri, ci = self.skel.data_coords()
+        coords = (torch.from_numpy(ri).to(self.device),
+                  torch.from_numpy(ci).to(self.device))
 
+        def diff_solve(hdata, rhs):
+            return _DiffSolve.apply(self, coords, hdata, rhs)
+
+        return diff_solve
+
+    # -- not in this slice ----------------------------------------------
     def factor_sharded(self, data, mesh):
         _not_ported("factor_sharded", _SLICE_MULTI)
 
@@ -280,6 +393,38 @@ class Solver:
         _not_ported("profile_solve_ops", _SLICE_STATS)
 
 
+class _DiffSolve(torch.autograd.Function):
+    """x = H^-1 rhs with the implicit-gradient backward of
+    Solver.make_differentiable_solve; the backward is one more solve on
+    the forward's factor."""
+
+    @staticmethod
+    def forward(ctx, solver, coords, hdata, rhs):
+        f = solver.factor(hdata)
+        x = solver.solve(f, rhs)
+        ctx.solver, ctx.coords = solver, coords
+        ctx.save_for_backward(f, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        f, x = ctx.saved_tensors
+        ri, ci = ctx.coords
+        y = ctx.solver.solve(f, g.contiguous())
+        # a zero row, so sentinel coordinates (order) read 0
+        xe = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+        ye = torch.cat([y, y.new_zeros((1,) + y.shape[1:])])
+        yr, yc, xr, xc = ye[ri], ye[ci], xe[ri], xe[ci]
+        if x.ndim == 1:
+            diag = yr * xc
+            prod = diag + xr * yc
+        else:  # (order, nrhs): sum over the rhs columns
+            diag = (yr * xc).sum(-1)
+            prod = diag + (xr * yc).sum(-1)
+        bar_h = -torch.where(ri == ci, diag, prod)
+        return None, None, bar_h.to(x.dtype), y
+
+
 # -- carried-over state --------------------------------------------------
 SKELETON_KEYS = ("span_start", "lump_to_span", "chain_col_ptr",
                  "chain_row_span", "lump_start", "span_to_lump",
@@ -299,10 +444,11 @@ def skeleton_arrays(skel) -> Dict[str, np.ndarray]:
 
 def solver_from_skeleton(arrays: Dict[str, np.ndarray], permutation,
                          sparse_elim_ranges: Sequence[int],
-                         device="cpu") -> Solver:
+                         device=None) -> Solver:
     """A PLANNED solver on exactly the skeleton described by `arrays`
-    (from skeleton_arrays, e.g. of a JAX Solver's skel). Raises
-    ValueError when the rebuilt layout differs from the given one."""
+    (from skeleton_arrays, e.g. of a JAX Solver's skel), on `device`
+    (default: the CUDA card). Raises ValueError when the rebuilt layout
+    differs from the given one."""
     skel = CoalescedBlockMatrixSkel(
         arrays["span_start"], arrays["lump_to_span"],
         arrays["chain_col_ptr"], arrays["chain_row_span"],
@@ -496,9 +642,10 @@ def _batched_factor_cost(et, pad_fn) -> float:
 def create_solver(settings: Settings, param_sizes, ss: SparseStructure,
                   sparse_elim_ranges: Sequence[int] = (),
                   elim_last_ids: Sequence[int] = (),
-                  device="cpu") -> Solver:
-    if settings.backend != BackendType.PLANNED:
-        _not_ported(f"backend {settings.backend}", _SLICE_REF)
+                  device=None) -> Solver:
+    """The solver of `ss` under `settings`, on `device` (default: the
+    CUDA card; without one it raises, see resolve_device)."""
+    device = resolve_device(device)
     param_sizes = np.asarray(param_sizes, dtype=np.int64)
     sparse_elim_ranges = list(sparse_elim_ranges)
     elim_last = set(int(i) for i in elim_last_ids)

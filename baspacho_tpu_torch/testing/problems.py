@@ -4,7 +4,9 @@ chip_smoke.py.
 Each function takes the package to build with (`baspacho_tpu_torch`, or
 `baspacho_tpu` in the tests that hold the port against it) and returns a
 PLANNED solver, so both packages analyse the same structure the same
-way. Data are made with numpy from a seed.
+way. The port's solvers run on the CPU unless a `device` is passed (the
+JAX package's create_solver takes none). Data are made with numpy from a
+seed.
 """
 
 from __future__ import annotations
@@ -15,7 +17,12 @@ from .mat_gen import SparseMatGenerator
 from .utils import random_spd_data
 
 
+_PORT = __name__.split(".")[0]
+
+
 def _planned(pkg, param_sizes, ss, elim_ranges=(), **kw):
+    if pkg.__name__ == _PORT:
+        kw.setdefault("device", "cpu")
     return pkg.create_solver(pkg.Settings(backend=pkg.BackendType.PLANNED),
                              param_sizes, ss,
                              sparse_elim_ranges=list(elim_ranges), **kw)

@@ -22,10 +22,25 @@ and drives the planned factor + solve (create_solver -> Solver.factor
   WIDE_BELOW   a 540-wide lump (padded 1024) with 64 padded below rows
                on a dense level: K1-wide's below rows, K3-wide's below
                products and gather, K4 on a wide origin
+  partial      factor_up_to / factor_from / the four partial solves on
+               MERI, GRID (against the CPU twins) and FLAT+Schur 50k
+  PCG          the mixed direct/iterative solve on FLAT+Schur 50k, f64,
+               with each of the four preconditioners: factor_up_to(t =
+               50,000) -> solve_l_up_to -> preconditioner init -> pcg with
+               add_mv_from(t) as the operator -> solve_lt_up_to (K3-rest,
+               K5, the pseudo-factor, an f32 corner factor); residuals of
+               the full system from K5 and from a sparse product
+  refined      an f32 factor of FLAT+Schur 50k and solve_refined with
+               f64 residuals through K5
+  diff_solve   the differentiable solve on MERI against a central
+               difference; check_factor
 
-It checks the results, times the kernels against their twins with CUDA
-events, and reads a torch.profiler trace of the card for the device time
-per CUDA kernel and the device's idle share. One line per phase; the
+It checks the results, times the kernels against their twins (and,
+where one PyTorch call computes the same function, against that call)
+with CUDA events beside each kernel's bound (the larger of the bytes it
+must move over 3.35 TB/s and its operations over 67 TFLOP/s), and reads
+torch.profiler traces of the card for the device time per CUDA kernel
+and the device's idle share. One line per phase; the
 line before the last two holds the per-kernel JSON record, the next the
 card's name and power limit; the last line is
 
@@ -49,6 +64,7 @@ import numpy as np
 import torch
 
 import baspacho_tpu_torch as T
+import baspacho_tpu_torch.optimizer as TO
 from baspacho_tpu_torch import native
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import PlannedBackend
@@ -69,6 +85,11 @@ KERNELS = [
     ("wide_solve", "baspacho_tpu_torch/csrc/wide_solve.cu", f"{_PB}:2118"),
     ("dense_update", "baspacho_tpu_torch/csrc/dense_level.cu",
      f"{_PB}:1644"),
+    ("tri_solve", "baspacho_tpu_torch/csrc/tri_solve.cu", f"{_PB}:2105"),
+    ("wide_tri_solve", "baspacho_tpu_torch/csrc/tri_solve.cu",
+     f"{_PB}:1192"),
+    ("add_mv", "baspacho_tpu_torch/csrc/add_mv.cu", f"{_PB}:3078"),
+    ("wide_add_mv", "baspacho_tpu_torch/csrc/add_mv.cu", f"{_PB}:3078"),
 ]
 NAMES = [k for k, _, _ in KERNELS]
 # the __global__ functions each wrapper launches (csrc/*.cu)
@@ -79,15 +100,37 @@ GRIDS = {"bucket_factor": ("chol_inv_kernel", "below_kernel", "prod_kernel"),
          "bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
          "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
                         "wide_ltpre_kernel", "wide_ltmv_kernel"),
-         "dense_update": ("dense_level_kernel",)}
+         "dense_update": ("dense_level_kernel",),
+         "tri_solve": ("tri_l_kernel", "tri_lt_kernel"),
+         "wide_tri_solve": ("tri_wide_pre_kernel", "tri_wide_inv_kernel",
+                            "tri_wide_step_kernel", "tri_wide_post_kernel"),
+         "add_mv": ("mv_kernel",),
+         "wide_add_mv": ("wide_mv_tile_kernel", "wide_mv_post_kernel")}
+PRECONDS = ("IdentityPrecond", "BlockJacobiPrecond",
+            "BlockGaussSeidelPrecond", "LowerPrecSolvePrecond")
+_PCG_COMMON = {"bucket_factor", "dense_update", "tri_solve",
+               "segmented_subtract", "add_mv", "wide_add_mv"}
 # the wrappers each main path must launch
 PATH_KERNELS = {
     "meri7": {"bucket_factor", "segmented_subtract", "bucket_solve"},
     "flat1000": {"bucket_factor", "wide_factor", "segmented_subtract",
                  "bucket_solve", "wide_solve"},
-    "flat_schur50k": set(NAMES),
-    "wide_below": set(NAMES),
+    "flat_schur50k": set(NAMES[:6]),
+    "wide_below": set(NAMES[:6]),
+    "pcg_IdentityPrecond": _PCG_COMMON,
+    "pcg_BlockJacobiPrecond": _PCG_COMMON,
+    "pcg_BlockGaussSeidelPrecond": _PCG_COMMON | {"wide_tri_solve"},
+    "pcg_LowerPrecSolvePrecond": _PCG_COMMON | {"wide_tri_solve",
+                                                "wide_factor"},
+    "refined_schur50k": {"bucket_factor", "wide_factor", "dense_update",
+                         "segmented_subtract", "bucket_solve", "wide_solve",
+                         "add_mv", "wide_add_mv"},
 }
+# the least time of a call: the larger of its bytes over the memory rate
+# and its operations over the peak rate (NVIDIA H100 SXM data sheet: HBM3
+# 3.35 TB/s; 67 TFLOP/s in f64 on the tensor cores and in f32 off them)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = 67e12
 # kernel vs twin: the two sum in different orders and the stored inverse
 # amplifies rounding
 KERNEL_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
@@ -161,14 +204,14 @@ class CheckedOps:
                    o2.view(b, -1, width)[:, tgt])
 
     def _solve(self, name, data, vv, y, y_base, off, rows, cols, vec_off,
-               below_idx, cp, rp, transpose):
+               below_idx, cp, rp, transpose, *extra):
         v2 = vv.clone()
         y2 = y.clone() if y is not None else None
         getattr(kernels, f"{name}_twin")(data, v2, y2, y_base, off, rows,
                                          cols, vec_off, below_idx, cp, rp,
-                                         transpose)
+                                         transpose, *extra)
         getattr(kernels, name)(data, vv, y, y_base, off, rows, cols,
-                               vec_off, below_idx, cp, rp, transpose)
+                               vec_off, below_idx, cp, rp, transpose, *extra)
         xr = torch.arange(cp, device=off.device)
         xidx = (vec_off[:, None] + xr)[xr < cols[:, None]]
         self._note(name, vv[:, xidx], v2[:, xidx])
@@ -182,6 +225,35 @@ class CheckedOps:
 
     def wide_solve(self, *args):
         self._solve("wide_solve", *args)
+
+    def tri_solve(self, *args):
+        self._solve("tri_solve", *args)
+
+    def wide_tri_solve(self, *args):
+        self._solve("wide_tri_solve", *args)
+
+    def _mv(self, name, data, x, out, y, y_base, off, rows, cols, vec_off,
+            below_idx, cp, rp, alpha):
+        o2 = out.clone()
+        y2 = y.clone() if y is not None else None
+        getattr(kernels, f"{name}_twin")(data, x, o2, y2, y_base, off, rows,
+                                         cols, vec_off, below_idx, cp, rp,
+                                         alpha)
+        getattr(kernels, name)(data, x, out, y, y_base, off, rows, cols,
+                               vec_off, below_idx, cp, rp, alpha)
+        xr = torch.arange(cp, device=off.device)
+        xidx = (vec_off[:, None] + xr)[xr < cols[:, None]]
+        self._note(name, out[:, xidx], o2[:, xidx])
+        if rp:
+            sl = slice(y_base, y_base + off.shape[0] * rp)
+            self._note(name, y[:, sl], y2[:, sl])
+        self.shapes.add((name, cp, rp))
+
+    def add_mv(self, *args):
+        self._mv("add_mv", *args)
+
+    def wide_add_mv(self, *args):
+        self._mv("wide_add_mv", *args)
 
     def dense_update(self, data, d):
         # the update alone first, on a buffer that holds only the origins'
@@ -204,28 +276,169 @@ class CheckedOps:
         self.shapes.add(("dense_update", d.R, int(d.sp_cs.shape[0])))
 
 
+def _host(t) -> np.ndarray:
+    return np.asarray(t.tolist(), dtype=np.float64)
+
+
+def cost(name: str, args) -> tuple:
+    """(bytes, operations) that one wrapper call must move and do at the
+    least, from its arguments: each input element read once, each output
+    written once (index arrays included), the operations its real
+    (unpadded) panels need. Reads its index arrays back to the host."""
+    data = args[0]
+    item, batch = data.element_size(), data.shape[0]
+    if name == "segmented_subtract":
+        out, src, tgt, seg_ptr, src_idx, width = args
+        ns, nt = src_idx.numel(), tgt.numel()
+        return (batch * item * width * (ns + 2 * nt) +
+                8 * (nt + seg_ptr.numel() + ns), batch * ns * width)
+    if name == "dense_update":
+        d = args[1]
+        s_of = torch.repeat_interleave(
+            torch.arange(d.sp_cs.shape[0], device=data.device),
+            d.list_ptr.diff())
+        sz = d.sp_size[s_of]
+        x_el = int((sz * d.ent_n).sum())
+        macs = int((d.ent_nrow * sz * d.ent_n).sum())
+        q_of = torch.repeat_interleave(
+            torch.arange(d.sp_cs.shape[0], device=data.device),
+            d.slice_ptr.diff())
+        t_el = int((d.sl_size * d.sp_size[q_of]).sum())
+        idx = sum(getattr(d, k).numel() for k in (
+            "list_ptr", "ent_x", "ent_row", "ent_nrow", "ent_ld", "ent_n",
+            "crow", "sp_cs", "sp_size", "sp_ld", "slice_ptr", "sl_cs",
+            "sl_size", "sl_off"))
+        return (batch * item * (x_el + 2 * t_el) + 8 * idx,
+                2 * batch * macs)
+    if name in ("bucket_factor", "wide_factor"):
+        off, rows, cols, cp, rp = (args[2:7] if name == "bucket_factor"
+                                   else args[1:6])
+        prod = name == "bucket_factor" and rp > 0 and args[1] is not None
+        n, r = _host(cols), _host(rows) * (rp > 0)
+        el = n * (n + 1) / 2 + r * n + n * n + r * n + prod * r * r
+        ops = 2 * n ** 3 / 3 + r * n * n + prod * 2 * r * r * n
+        return (batch * item * el.sum() + 8 * 3 * off.numel(),
+                batch * ops.sum())
+    if name in ("bucket_solve", "wide_solve", "tri_solve", "wide_tri_solve"):
+        vv, off, rows, cols, below_idx, rp = (args[1], args[4], args[5],
+                                              args[6], args[8], args[10])
+        nrhs = vv.shape[2]
+        n, r = _host(cols), _host(rows) * (rp > 0)
+        el = n * (n + 1) / 2 + r * n + 2 * n * nrhs + r * nrhs
+        ops = n * n * nrhs + 2 * r * n * nrhs
+        return (batch * item * el.sum() +
+                8 * (4 * off.numel() + below_idx.numel()), batch * ops.sum())
+    if name in ("add_mv", "wide_add_mv"):
+        x, off, rows, cols, below_idx, rp = (args[1], args[5], args[6],
+                                             args[7], args[9], args[11])
+        nrhs = x.shape[2]
+        n, r = _host(cols), _host(rows) * (rp > 0)
+        el = n * (n + 1) / 2 + r * n + 3 * n * nrhs + 2 * r * nrhs
+        ops = 2 * n * n * nrhs + 4 * r * n * nrhs
+        return (batch * item * el.sum() +
+                8 * (4 * off.numel() + below_idx.numel()), batch * ops.sum())
+    raise KeyError(name)
+
+
+def pseudo_cost(s, span: int, item: int = 8) -> tuple:
+    """(bytes, operations) of pseudo_factor_from(span) at the least: each
+    span's diagonal block (lower triangle) and the rows below it in its
+    lump read once and written once, a Cholesky and a triangular solve
+    of those rows per span."""
+    sk = s.skel
+    sp = np.arange(span, sk.num_spans)
+    n = np.diff(sk.span_start)[sp]
+    lump = sk.span_to_lump[sp]
+    rows = (np.diff(sk.lump_start)[lump] - sk.span_offset_in_lump[sp] - n +
+            sk.below_rows[lump])
+    el = n * (n + 1) / 2 + rows * n
+    return 2 * item * el.sum(), (n ** 3 / 3 + rows * n * n).sum()
+
+
+def bound(bytes_: float, ops: float):
+    """(bound ms, "bytes" or "operations")."""
+    tb, to = bytes_ / PEAK_BYTES_S, ops / PEAK_FLOPS_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def library_call(name: str, args):
+    """One PyTorch call (or a pair) that computes what this wrapper call
+    computes on the same inputs, where there is one; else None. K2: an
+    index_add_ of the gathered sources; K3-wide and K3-rest wide on a
+    panel without below rows: torch.linalg.solve_triangular on the
+    panel's lower triangle, read from the same buffer (it reads only the
+    lower triangle, so the stored inverse above is ignored)."""
+    if name == "segmented_subtract":
+        out, src, tgt, seg_ptr, src_idx, width = args
+        b = out.shape[0]
+        e_tgt = torch.repeat_interleave(tgt, seg_ptr.diff())
+        o, sv = out.clone().view(b, -1, width), src.view(b, -1, width)
+        return lambda: o.index_add_(1, e_tgt, sv[:, src_idx], alpha=-1)
+    if name in ("wide_solve", "wide_tri_solve"):
+        data, vv, _, _, off, _, cols, vec_off, _, cp, rp, transpose = \
+            args[:12]
+        if rp or off.shape[0] != 1 or data.shape[0] != 1:
+            return None
+        n, o, v0 = int(cols[0]), int(off[0]), int(vec_off[0])
+        L = kernels._panel_view(data, o, cp, 0, 0, n, n)[0]
+        x = vv[0, v0:v0 + n].clone()
+        if transpose:
+            return lambda: torch.linalg.solve_triangular(L.mT, x, upper=True)
+        return lambda: torch.linalg.solve_triangular(L, x, upper=False)
+    return None
+
+
 class TimedOps:
     """Records a pair of CUDA events around every call of `ops`, to sum
-    the device time per kernel (or per twin) over one run of a path."""
+    the device time per kernel (or per twin) over one run of a path;
+    with `costs`, also each call's bytes and operations (cost()) and, for
+    the kernels that have one, its library call (library_call()), timed
+    after the run."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, costs: bool = False):
         self.ops = ops
+        self.costs = costs
         self.events = {name: [] for name in NAMES}
+        self.work = {name: [0.0, 0.0] for name in NAMES}
+        self.libs = {name: [] for name in NAMES}
         for name in NAMES:
             setattr(self, name, functools.partial(self._timed, name))
 
     def _timed(self, name, *args):
+        if self.costs:
+            lib = library_call(name, args)
+            if lib is not None:
+                self.libs[name].append(lib)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         getattr(self.ops, name)(*args)
         b.record()
         self.events[name].append((a, b))
+        if self.costs:
+            by, op = cost(name, args)
+            self.work[name][0] += by
+            self.work[name][1] += op
 
     def ms(self):
         torch.cuda.synchronize()
         return {k: sum(a.elapsed_time(b) for a, b in v)
                 for k, v in self.events.items() if v}
+
+    def bounds(self):
+        return {k: bound(*self.work[k]) for k, v in self.events.items()
+                if v}
+
+    def library_ms(self):
+        """Per kernel, the summed time of the library calls replaying its
+        calls (None unless every call of it had one)."""
+        out = {}
+        for k, v in self.events.items():
+            if v and len(self.libs[k]) == len(v):
+                out[k] = sum(time_ms(f, 3, warmup=1) for f in self.libs[k])
+            elif v:
+                out[k] = None
+        return out
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -337,6 +550,77 @@ def sparse_lower(solver, data: np.ndarray):
     n = solver.order
     return sp.csr_matrix((data.astype(np.float64)[idx[keep]],
                           (row[keep], col[keep])), shape=(n, n))
+
+
+def sparse_matrix(solver, data: np.ndarray):
+    """scipy CSR of the whole symmetric matrix held in `data`."""
+    import scipy.sparse as sp
+    lo = sparse_lower(solver, data)
+    return (lo + lo.T - sp.diags(lo.diagonal())).tocsr()
+
+
+SCHUR_T = 50000  # the end of FLAT+Schur 50k's elimination range
+
+
+def split_span(s, pname: str) -> int:
+    """The partial ops' split: the end of the elimination range on
+    FLAT+Schur 50k, a lump boundary near the middle elsewhere."""
+    if pname == "flat_schur50k":
+        return SCHUR_T
+    return int(s.skel.lump_to_span[max(1, s.skel.num_lumps // 2)])
+
+
+def pcg_path(s, d, b, precond: str, t: int = SCHUR_T, tol: float = 1e-12,
+             max_iters: int = 200) -> dict:
+    """The mixed direct/iterative solve (examples/pcg_sample.py) through
+    the port's entry points: factor_up_to(t) -> solve_l_up_to ->
+    preconditioner init -> pcg on the corner with add_mv_from(t) as the
+    operator -> solve_lt_up_to. Returns the solution, the iterations and
+    host seconds of the init and of the pcg loop (synchronised)."""
+    o = s.span_vector_offset(t)
+    part = s.factor_up_to(d, t)
+    v = s.solve_l_up_to(part, t, b)
+    pre = getattr(TO, precond)(s, t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre.init(part)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+
+    def embed(x):
+        full = torch.zeros_like(v)
+        full[o:] = x
+        return full
+
+    x, _, it = TO.pcg(
+        lambda r: pre.apply(embed(r))[o:],
+        lambda p: s.add_mv_from(part, t, embed(p), torch.zeros_like(v))[o:],
+        v[o:], tol, max_iters)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    v = v.clone()
+    v[o:] = x
+    return {"x": s.solve_lt_up_to(part, t, v), "iterations": it,
+            "init_s": t1 - t0, "pcg_s": t2 - t1}
+
+
+def partial_ops(s, pname, d, b, ops) -> None:
+    """The partial ops of a path through `ops`: the up-to solves on
+    factor_up_to's output, the from-solves on factor_from's and on the
+    pseudo-factor's, add_mv from 0 and from the split."""
+    t = split_span(s, pname)
+    tl, nl = s._lump_of_span(t), s.skel.num_lumps
+    fu = s.program("factor", 0, tl)(d)
+    ff = s.program("factor", tl, nl)(fu)
+    pf = s.program("pseudo", t, s.skel.num_spans)(fu)
+    for bb in (b, b[..., :1].contiguous()):
+        s.program("solve_l", 0, tl)(fu, bb, ops=ops)
+        s.program("solve_lt", 0, tl)(fu, bb, ops=ops)
+        for f in (ff, pf):
+            s.program("solve_l", tl, nl)(f, bb, ops=ops)
+            s.program("solve_lt", tl, nl)(f, bb, ops=ops)
+        s.program("add_mv", 0)(d, bb, bb * 0.5, 0.7, ops=ops)
+        s.program("add_mv", tl)(d, bb, bb * 0.5, -1.3, ops=ops)
 
 
 def sparse_residuals(solver, data, f, x=None, b=None, seed=0):
@@ -464,6 +748,8 @@ def main() -> int:
             b = torch.from_numpy(rhs[pname].astype(np_dt)).to(dev)[None]
             f = s.factor_program()(d, ops=chk)
             s.solve_program()(f, b, ops=chk)
+            if pname in ("meri7", "grid100", "flat_schur50k", "wide_below"):
+                partial_ops(s, pname, d, b, chk)
             torch.cuda.synchronize()
             for k in NAMES:
                 check(chk.rel[k] <= KERNEL_RTOL[dt],
@@ -614,6 +900,141 @@ def main() -> int:
         launches={k: v[0] for k, v in c_schur.items()},
         grid_launches={k: v[2] for k, v in c_schur.items()})
 
+    # 10b. partial identities, f64: factor_from(factor_up_to(d, t), t)
+    # against factor(d), and the four partial solves and the corner
+    # mat-vec against the port's CPU twins (MERI, GRID)
+    part_info = {}
+    for pname in ("meri7", "grid100", "flat_schur50k"):
+        s = probs[pname]
+        t = split_span(s, pname)
+        d = torch.from_numpy(d64[pname]).to(dev)
+        full = s.factor(d)
+        fu = s.factor_up_to(d, t)
+        ff = s.factor_from(fu, t)
+        frel, _ = rel_abs(ff, full)
+        check(frel <= 1e-12, f"{pname}: up_to + from vs factor, rel {frel}")
+        row = {"split_span": t, "up_to_from_vs_factor_rel": frel,
+               "bitwise": bool(torch.equal(ff, full))}
+        if pname != "flat_schur50k":
+            twin = cpu if pname == "grid100" else T.solver_from_skeleton(
+                T.skeleton_arrays(s.skel), s.permutation,
+                s.sparse_elim_ranges, device="cpu")
+            bg = torch.from_numpy(rhs[pname]).to(dev)
+            bc = torch.from_numpy(rhs[pname])
+            for m, f in (("solve_l_up_to", fu), ("solve_lt_up_to", fu),
+                         ("solve_l_from", ff), ("solve_lt_from", ff)):
+                r, _ = rel_abs(getattr(s, m)(f, t, bg).cpu(),
+                               getattr(twin, m)(f.cpu(), t, bc))
+                check(r <= 1e-10, f"{pname} {m} vs CPU twin: rel {r}")
+                row[f"{m}_rel_vs_cpu_twin"] = r
+            r, _ = rel_abs(s.add_mv_from(d, t, bg, bg, 0.5).cpu(),
+                           twin.add_mv_from(d.cpu(), t, bc, bc, 0.5))
+            check(r <= 1e-10, f"{pname} add_mv_from vs CPU twin: rel {r}")
+            row["add_mv_from_rel_vs_cpu_twin"] = r
+        part_info[pname] = row
+    log("partial_identities", limits={"up_to_from": 1e-12,
+                                      "vs_cpu_twin": 1e-10}, **part_info)
+
+    # 10c. PCG on FLAT+Schur 50k, f64, each preconditioner: the path
+    # counted, then timed; residuals of the full system from K5 (add_mv
+    # from span 0, every bucket) and from a sparse product
+    d = torch.from_numpy(d64["flat_schur50k"]).to(dev)
+    b_np = rhs["flat_schur50k"][:, 0].copy()
+    b1 = torch.from_numpy(b_np).to(dev)
+    A50 = sparse_matrix(schur50, d64["flat_schur50k"])
+    pcg_info, c_pcg = {}, {}
+    for pre in PRECONDS:
+        def run():
+            out = pcg_path(schur50, d, b1, pre)
+            return out, schur50.add_mv_from(d, 0, out["x"],
+                                            torch.zeros_like(b1))
+        (out, mv), c = counted(f"pcg_{pre}", run)
+        x_np = out["x"].cpu().numpy()
+        r_k5 = float((mv - b1).norm() / b1.norm())
+        r_sp = float(np.linalg.norm(A50 @ x_np - b_np) / np.linalg.norm(b_np))
+        check(r_k5 <= 1e-10 and r_sp <= 1e-10,
+              f"PCG {pre}: residual {r_k5} (K5), {r_sp} (sparse)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = pcg_path(schur50, d, b1, pre)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        check(again["iterations"] == out["iterations"],
+              f"PCG {pre}: iterations differ between two runs")
+        c_pcg[f"pcg_{pre}"] = c
+        pcg_info[pre] = {
+            "iterations": out["iterations"], "residual_k5": r_k5,
+            "residual_sparse": r_sp, "path_ms": path_s * 1e3,
+            "init_ms": again["init_s"] * 1e3, "pcg_ms": again["pcg_s"] * 1e3,
+            "ms_per_iteration": again["pcg_s"] * 1e3 /
+            max(again["iterations"], 1),
+            "launches": {k: v[0] for k, v in c.items() if v[0]}}
+    log("pcg_schur50k", card=name_limit, dtype="float64", tol=1e-12,
+        max_iters=200, limit=1e-10, corner_order=schur50.order -
+        schur50.span_vector_offset(SCHUR_T),
+        pseudo_factor_bound_ms=bound(*pseudo_cost(schur50, SCHUR_T))[0],
+        **pcg_info)
+
+    # 10d. refinement: an f32 factor of FLAT+Schur 50k, f64 residuals
+    # through K5; the iterations needed for 1e-10
+    d32 = torch.from_numpy(d64["flat_schur50k"].astype(np.float32)).to(dev)
+
+    def refined():
+        f32 = schur50.factor(d32)
+        res = []
+        for k in range(5):
+            x = schur50.solve_refined(d, f32, b1, iterations=k)
+            r = schur50.add_mv_from(d, 0, x, torch.zeros_like(b1))
+            res.append((float((r - b1).norm() / b1.norm()), x))
+        return f32, res
+    (f32, res), c_ref = counted("refined_schur50k", refined)
+    need = next((k for k, (r, _) in enumerate(res) if r <= 1e-10), None)
+    check(need is not None, f"refinement never reached 1e-10: "
+          f"{[r for r, _ in res]}")
+    r_sp = float(np.linalg.norm(A50 @ res[need][1].cpu().numpy() - b_np) /
+                 np.linalg.norm(b_np))
+    check(r_sp <= 1e-10, f"refined residual (sparse) {r_sp}")
+    ref_ms = time_ms(lambda: schur50.solve_refined(d, f32, b1, need), 5)
+    log("refined_schur50k", card=name_limit, limit=1e-10,
+        iterations_needed=need, residual_by_iterations=[r for r, _ in res],
+        residual_sparse=r_sp, solve_refined_ms=ref_ms,
+        launches={k: v[0] for k, v in c_ref.items() if v[0]})
+
+    # 10e. the differentiable solve on MERI, f64: <grad, d> against a
+    # central difference along random directions (live slots of the
+    # data, and the rhs); check_factor
+    fsolve = meri.make_differentiable_solve()
+    d = torch.from_numpy(d64["meri7"]).to(dev)
+    b = torch.from_numpy(rhs["meri7"]).to(dev)
+    g = np.random.RandomState(11)
+    w = torch.from_numpy(g.rand(meri.order, 3)).to(dev)
+    ri, _ = meri.skel.data_coords()
+    dh = torch.from_numpy((ri != meri.order) *
+                          (2 * g.rand(meri.data_size) - 1)).to(dev)
+    db = torch.from_numpy(2 * g.rand(meri.order, 3) - 1).to(dev)
+    h, bb = d.clone().requires_grad_(), b.clone().requires_grad_()
+    (w * fsolve(h, bb)).sum().backward()
+    eps = 1e-4
+    diff = {}
+    for what, an, plus, minus in (
+            ("data", (h.grad * dh).sum(), (d + eps * dh, b),
+             (d - eps * dh, b)),
+            ("rhs", (bb.grad * db).sum(), (d, b + eps * db),
+             (d, b - eps * db))):
+        fd = ((w * fsolve(*plus)).sum() - (w * fsolve(*minus)).sum()) / \
+            (2 * eps)
+        r = float((an - fd).abs() / fd.abs())
+        check(r <= 1e-6, f"diff_solve {what}: <grad, d> vs central "
+              f"difference, rel {r}")
+        diff[what] = {"grad_dot_d": float(an), "central_difference": float(fd),
+                      "rel": r}
+    f = meri.factor(d)
+    bad = f.clone()
+    bad[int(meri.skel.damp_indices()[5])] *= -1
+    check(meri.check_factor(f) and not meri.check_factor(bad),
+          "check_factor: true on a factor, false with a negative diagonal")
+    log("diff_solve", limit=1e-6, eps=eps, check_factor_ok=True, **diff)
+
     # 11. times: kernels vs twins on the card (CUDA events, after warm-up)
     for label, pname, batch, reps, twins in (
             ("meri_single", "meri7", 1, 20, True),
@@ -641,8 +1062,10 @@ def main() -> int:
 
     # per-kernel device time over one f64 factor + solve of the case that
     # runs the kernel: MERI for K1, K2, K3; FLAT for K1-wide, K3-wide;
-    # FLAT+Schur 5k for K4
+    # FLAT+Schur 5k for K4; beside each kernel's bound from the same run
+    # and its library call, where one computes the same function
     per, per_case = {"kernels": {}, "twins": {}}, {}
+    bounds, library = {}, {}
     for pname, names in (("meri7", ("bucket_factor", "segmented_subtract",
                                     "bucket_solve")),
                          ("flat1000", ("wide_factor", "wide_solve")),
@@ -652,17 +1075,69 @@ def main() -> int:
         bb = torch.from_numpy(rhs[pname]).to(dev)[None]
         got = {}
         for impl, ops in (("kernels", kernels), ("twins", kernels.TWINS)):
-            for _ in range(2):  # warm-up, then the measured run
-                tops = TimedOps(ops)
+            # the warm-up run also takes the costs and the library calls
+            # (they read index arrays back to the host), then the
+            # measured run
+            for warm in (True, False):
+                tops = TimedOps(ops, costs=warm and impl == "kernels")
                 s.solve_program()(s.factor_program()(dd, ops=tops), bb,
                                   ops=tops)
+                if warm and impl == "kernels":
+                    bd, lib = tops.bounds(), tops.library_ms()
             got[impl] = tops.ms()
             for k in names:
                 per[impl][k] = got[impl][k]
-                per_case[k] = pname
+                per_case[k] = f"{pname} f64 factor+solve"
+            if impl == "kernels":
+                for k in names:
+                    bounds[k], library[k] = bd[k], lib[k]
         log("time_per_kernel", case=f"{pname} f64 factor+solve",
             card=name_limit, kernels_ms=got["kernels"],
-            twins_ms=got["twins"])
+            twins_ms=got["twins"],
+            bound_ms={k: bounds[k][0] for k in names},
+            library_ms={k: library[k] for k in names})
+
+    # the new kernels on the PCG path of FLAT+Schur 50k, f64, nrhs 1:
+    # K3-rest narrow over solve_l_up_to + solve_lt_up_to, K3-rest wide
+    # over solve_l_from + solve_lt_from on the pseudo-factored corner, K5
+    # over add_mv_from(0) (the residual), K5 wide over add_mv_from(t)
+    s = schur50
+    tl, nl = s._lump_of_span(SCHUR_T), s.skel.num_lumps
+    dd = torch.from_numpy(d64["flat_schur50k"]).to(dev)[None]
+    bb = b1[None, :, None].contiguous()
+    zz = torch.zeros_like(bb)
+    part = s.program("factor", 0, tl)(dd)
+    pf = s.program("pseudo", SCHUR_T, s.skel.num_spans)(part)
+    runs = {
+        "tri_solve": ("solve_l_up_to + solve_lt_up_to", lambda ops: s.program(
+            "solve_lt", 0, tl)(part, s.program("solve_l", 0, tl)(
+                part, bb, ops=ops), ops=ops)),
+        "wide_tri_solve": ("solve_l_from + solve_lt_from, pseudo-factored "
+                           "corner", lambda ops: s.program(
+                               "solve_lt", tl, nl)(pf, s.program(
+                                   "solve_l", tl, nl)(pf, bb, ops=ops),
+                                   ops=ops)),
+        "add_mv": ("add_mv_from(0)", lambda ops: s.program("add_mv", 0)(
+            dd, bb, zz, 1.0, ops=ops)),
+        "wide_add_mv": ("add_mv_from(t) on factor_up_to's corner",
+                        lambda ops: s.program("add_mv", tl)(
+                            part, bb, zz, 1.0, ops=ops))}
+    for k, (what, run) in runs.items():
+        got = {}
+        for impl, ops in (("kernels", kernels), ("twins", kernels.TWINS)):
+            for warm in (True, False):
+                tops = TimedOps(ops, costs=warm and impl == "kernels")
+                run(tops)
+                if warm and impl == "kernels":
+                    bounds[k] = tops.bounds()[k]
+                    library[k] = tops.library_ms()[k]
+            got[impl] = tops.ms()[k]
+        per["kernels"][k], per["twins"][k] = got["kernels"], got["twins"]
+        per_case[k] = f"flat_schur50k f64 nrhs 1 {what}"
+        log("time_per_kernel", case=per_case[k], card=name_limit,
+            kernel=k, kernel_ms=got["kernels"], twin_ms=got["twins"],
+            bound_ms=bounds[k][0], bound_by=bounds[k][1],
+            library_ms=library[k])
 
     # 12. trace: device time per CUDA kernel and the device's idle share,
     # factor and solve apart; the trace's count of each wrapper's grids
@@ -672,15 +1147,22 @@ def main() -> int:
             ("meri_batch16", "meri7", 16, 5),
             ("grid_single", "grid100", 1, 5),
             ("flat_single", "flat1000", 1, 5),
-            ("schur50k_single", "flat_schur50k", 1, 3)):
-        s = probs[pname]
-        dd = batched(d64[pname], batch, dev)
-        bb = torch.from_numpy(rhs[pname]).to(dev).expand(batch, -1, -1) \
-            .contiguous()
-        fp, sp = s.factor_program(), s.solve_program()
-        fprod = fp(dd)
-        for what, fn in (("factor", lambda: fp(dd)),
-                         ("solve", lambda: sp(fprod, bb))):
+            ("schur50k_single", "flat_schur50k", 1, 3),
+            *((f"pcg_{p}", p, 1, 2) for p in PRECONDS)):
+        if label.startswith("pcg_"):
+            d = torch.from_numpy(d64["flat_schur50k"]).to(dev)
+            todo = (("path", functools.partial(pcg_path, schur50, d, b1,
+                                                pname)),)
+        else:
+            s = probs[pname]
+            dd = batched(d64[pname], batch, dev)
+            bb = torch.from_numpy(rhs[pname]).to(dev) \
+                .expand(batch, -1, -1).contiguous()
+            fp, sp = s.factor_program(), s.solve_program()
+            fprod = fp(dd)
+            todo = (("factor", functools.partial(fp, dd)),
+                    ("solve", functools.partial(sp, fprod, bb)))
+        for what, fn in todo:
             kernels.reset_counts()
             fn()
             torch.cuda.synchronize()
@@ -692,22 +1174,26 @@ def main() -> int:
                 check(n == grids[k], f"{label} {what}: the trace shows {n} "
                       f"grids of {k} per call, its counter {grids[k]}")
             del tr["launches_per_call_by_kernel"]
-            log("trace", case=label, op=what, batch=batch, nrhs=3,
+            log("trace", case=label, op=what, batch=batch,
+                nrhs=1 if label.startswith("pcg_") else 3,
                 dtype="float64", card=name_limit,
                 grid_launches_per_call={k: v for k, v in grids.items() if v},
                 **tr)
 
-    paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur}
+    paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur,
+             **c_pcg, "refined_schur50k": c_ref}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k][0] for c in paths.values()),
-         "launches_by_path": {p: c[k][0] for p, c in paths.items()},
+         "launches_by_path": {p: c[k][0] for p, c in paths.items()
+                              if c[k][0]},
          "grid_launches": sum(c[k][2] for c in paths.values()),
          "max_abs_err": max_abs[k],
          "max_rel_err": {c: e["max_rel"][k] for c, e in errs.items()
                          if k in e["max_rel"]},
          "ms": per["kernels"][k], "plain_ms": per["twins"][k],
-         "timed_on": f"{per_case[k]} f64 factor+solve"}
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": library[k], "timed_on": per_case[k]}
         for k, src, rep in KERNELS]}
     print(json.dumps(record), flush=True)
     print(card(), flush=True)

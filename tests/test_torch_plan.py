@@ -82,13 +82,14 @@ def test_skeleton_carries_over():
     """solver_from_skeleton rebuilds the JAX solver's exact layout."""
     js, _ = solvers("meri2")
     ts = T.solver_from_skeleton(T.skeleton_arrays(js.skel), js.permutation,
-                                js.sparse_elim_ranges)
+                                js.sparse_elim_ranges, device="cpu")
     a, b = T.skeleton_arrays(js.skel), T.skeleton_arrays(ts.skel)
     assert all(np.array_equal(a[k], b[k]) for k in a)
     bad = dict(a)
     bad["col_stride"] = bad["col_stride"] + 1
     with pytest.raises(ValueError):
-        T.solver_from_skeleton(bad, js.permutation, js.sparse_elim_ranges)
+        T.solver_from_skeleton(bad, js.permutation, js.sparse_elim_ranges,
+                               device="cpu")
 
 
 @pytest.mark.parametrize("name", ["meri3", "elim_range"])
@@ -126,20 +127,36 @@ def test_solve_csr_skips_sentinels():
 
 
 def test_refusals_at_create_time():
+    """Nothing that the JAX package builds is refused any more: the REF
+    backend (the default of Settings) factors and solves, a wide
+    supernode takes the blocked path, and a skeleton that factors only
+    up to a span (fill policy NONE) builds and factors up to it."""
     gen = SparseMatGenerator.gen_flat(4, 1.0, seed=0)
     ss = gen.to_structure()
-    with pytest.raises(NotImplementedError, match="reference-backend"):
-        T.create_solver(T.Settings(), np.full(4, 3), ss)
+    ref = T.create_solver(T.Settings(), np.full(4, 3), ss, device="cpu")
+    assert ref.backend_type == T.BackendType.REF
+    data = np.asarray(ref.skel.damp(np.random.RandomState(0).rand(
+        ref.data_size), 0.0, 20.0))
+    f = ref.factor(torch.from_numpy(data)).numpy()
+    dense = ref.skel.densify(data, fill_upper_half=True)
+    L = np.tril(ref.skel.densify(f))
+    assert np.abs(L @ L.T - dense).max() < 1e-10
+    x = ref.solve(torch.from_numpy(f),
+                  torch.ones(ref.order, dtype=torch.float64)).numpy()
+    assert np.abs(dense @ x - 1).max() < 1e-10
     # one dense supernode of width 800 pads to 1024: no refusal, it
     # takes the blocked wide path
     wide = T.create_solver(T.Settings(backend=T.BackendType.PLANNED),
-                           np.full(4, 200), ss)
+                           np.full(4, 200), ss, device="cpu")
     assert [lb.cp for lv in wide.backend._factor_schedule(
         0, wide.skel.num_lumps) for lb in lv[0]] == [1024]
-    with pytest.raises(NotImplementedError, match="partial-ops"):
-        T.create_solver(T.Settings(backend=T.BackendType.PLANNED,
-                                   add_fill_policy=T.AddFillPolicy.NONE),
-                        np.full(4, 3), ss)
+    none = T.create_solver(T.Settings(backend=T.BackendType.PLANNED,
+                                      add_fill_policy=T.AddFillPolicy.NONE),
+                           np.full(4, 3), ss, device="cpu")
+    assert none.can_factor_up_to == 0
+    d0 = torch.from_numpy(np.random.RandomState(1).rand(none.data_size) *
+                          none.skel.padding_mask())
+    assert torch.equal(none.factor_up_to(d0, 0), d0)  # an empty range
 
 
 def test_port_imports_no_jax():
