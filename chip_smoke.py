@@ -9,7 +9,8 @@ plain PyTorch twin on the card at every bucket shape of the main path,
 and drives the planned factor + solve (create_solver -> Solver.factor
 -> Solver.solve) on the reference's benchmark problems:
 
-  MERI n=7     single f64 and f32, batch 16 (K1, K2, K3)
+  MERI n=7     single f64 and f32, batch 16 (K1, K2, K3; the partial
+               ops batched too)
   GRID 100x100 single f64, against the port's CPU twins
   FLAT n=1000  single f64 and f32, batch 8: one 3,000-wide supernode
                (K1-wide, K3-wide) under a narrow one (K1, K2, K3)
@@ -623,6 +624,25 @@ def partial_ops(s, pname, d, b, ops) -> None:
         s.program("add_mv", tl)(d, bb, bb * 0.5, -1.3, ops=ops)
 
 
+def partial_batch_bitwise(s, pname, datas, rb) -> None:
+    """Checks that every item of a batched factor_up_to, partial solve
+    and add_mv_from equals the same call on that item alone, bitwise."""
+    t = split_span(s, pname)
+    fu = s.factor_up_to(datas, t)
+    ff = s.factor_from(fu, t)
+    runs = [("factor_up_to", fu, lambda i: s.factor_up_to(datas[i], t)),
+            ("add_mv_from", s.add_mv_from(datas, t, rb, rb, 0.5),
+             lambda i: s.add_mv_from(datas[i], t, rb[i], rb[i], 0.5))]
+    for m, f in (("solve_l_up_to", fu), ("solve_lt_up_to", fu),
+                 ("solve_l_from", ff), ("solve_lt_from", ff)):
+        runs.append((m, getattr(s, m)(f, t, rb),
+                     lambda i, m=m, f=f: getattr(s, m)(f[i], t, rb[i])))
+    for m, got, single in runs:
+        for i in range(datas.shape[0]):
+            check(torch.equal(got[i], single(i)),
+                  f"{pname} batch item {i} {m} differs")
+
+
 def sparse_residuals(solver, data, f, x=None, b=None, seed=0):
     """Residuals from sparse products, for orders where a dense matrix
     does not fit: the factor's on a random probe z,
@@ -748,7 +768,7 @@ def main() -> int:
             b = torch.from_numpy(rhs[pname].astype(np_dt)).to(dev)[None]
             f = s.factor_program()(d, ops=chk)
             s.solve_program()(f, b, ops=chk)
-            if pname in ("meri7", "grid100", "flat_schur50k", "wide_below"):
+            if pname != "flat_schur5k":
                 partial_ops(s, pname, d, b, chk)
             torch.cuda.synchronize()
             for k in NAMES:
@@ -833,7 +853,9 @@ def main() -> int:
         d1 = datas[0]
         check(torch.equal(s.factor(d1), s.factor(d1)),
               f"{pname}: two factors of one buffer differ")
+        partial_batch_bitwise(s, pname, datas, rb)
         log("batch", case=pname, items=nb, bitwise_equal_to_single=True,
+            partial_ops_bitwise_equal_to_single=True,
             determinism_bitwise=True)
     check(torch.equal(f, meri.factor(d)), "MERI factor differs from phase 5")
 
@@ -1167,13 +1189,20 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             grids = {k: v.grid_launches for k, v in kernels.COUNTS.items()}
-            tr = trace(fn, reps)
-            seen = tr["launches_per_call_by_kernel"]
-            for k, names in GRIDS.items():
-                n = sum(seen.get(e, 0) for e in names)
-                check(n == grids[k], f"{label} {what}: the trace shows {n} "
-                      f"grids of {k} per call, its counter {grids[k]}")
-            del tr["launches_per_call_by_kernel"]
+            # the profiler has been seen to drop a few kernel records of a
+            # trace (2 of 5 calls' segmented-subtract grids, once), so a
+            # trace that disagrees with the counters is taken once more
+            for tries in (1, 2):
+                tr = trace(fn, reps)
+                seen = tr.pop("launches_per_call_by_kernel")
+                off = {k: sum(seen.get(e, 0) for e in names)
+                       for k, names in GRIDS.items()}
+                off = {k: n for k, n in off.items() if n != grids[k]}
+                if not off:
+                    break
+            check(not off, f"{label} {what}: the trace shows {off} grids per "
+                  f"call, the counters {grids}")
+            tr["traces_taken"] = tries
             log("trace", case=label, op=what, batch=batch,
                 nrhs=1 if label.startswith("pcg_") else 3,
                 dtype="float64", card=name_limit,
