@@ -65,10 +65,10 @@ import numpy as np
 import torch
 
 import baspacho_tpu_torch as T
-import baspacho_tpu_torch.optimizer as TO
 from baspacho_tpu_torch import native
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import PlannedBackend
+from baspacho_tpu_torch.testing.flows import pcg_flow
 from baspacho_tpu_torch.testing.problems import (flat1000, flat_schur5k,
                                                  flat_schur50k, grid100,
                                                  meri7, spd_data,
@@ -109,8 +109,10 @@ GRIDS = {"bucket_factor": ("chol_inv_kernel", "below_kernel", "prod_kernel"),
          "wide_add_mv": ("wide_mv_tile_kernel", "wide_mv_post_kernel")}
 PRECONDS = ("IdentityPrecond", "BlockJacobiPrecond",
             "BlockGaussSeidelPrecond", "LowerPrecSolvePrecond")
+# the narrow K5 runs on the refined path: PCG's operator covers only the
+# corner, one wide panel
 _PCG_COMMON = {"bucket_factor", "dense_update", "tri_solve",
-               "segmented_subtract", "add_mv", "wide_add_mv"}
+               "segmented_subtract", "wide_add_mv"}
 # the wrappers each main path must launch
 PATH_KERNELS = {
     "meri7": {"bucket_factor", "segmented_subtract", "bucket_solve"},
@@ -281,11 +283,23 @@ def _host(t) -> np.ndarray:
     return np.asarray(t.tolist(), dtype=np.float64)
 
 
+def _gathered(below_idx, rows, rp: int, order: int) -> tuple:
+    """(the below_idx entries a call reads: the real below rows of its
+    panels; the distinct vector rows they name, each read once however
+    many panels gather it). The sentinel `order` names no row."""
+    if rp == 0:
+        return 0, 0
+    live = torch.arange(rp, device=rows.device) < rows[:, None]
+    idx = below_idx.view(-1, rp)[live]
+    return int(idx.numel()), int(torch.unique(idx[idx != order]).numel())
+
+
 def cost(name: str, args) -> tuple:
     """(bytes, operations) that one wrapper call must move and do at the
     least, from its arguments: each input element read once, each output
-    written once (index arrays included), the operations its real
-    (unpadded) panels need. Reads its index arrays back to the host."""
+    written once (the index arrays it reads included), the operations its
+    real (unpadded) panels need. Reads its index arrays back to the
+    host."""
     data = args[0]
     item, batch = data.element_size(), data.shape[0]
     if name == "segmented_subtract":
@@ -321,23 +335,34 @@ def cost(name: str, args) -> tuple:
         return (batch * item * el.sum() + 8 * 3 * off.numel(),
                 batch * ops.sum())
     if name in ("bucket_solve", "wide_solve", "tri_solve", "wide_tri_solve"):
-        vv, off, rows, cols, below_idx, rp = (args[1], args[4], args[5],
-                                              args[6], args[8], args[10])
+        vv, off, rows, cols, below_idx, rp, transpose = (
+            args[1], args[4], args[5], args[6], args[8], args[10], args[11])
         nrhs = vv.shape[2]
         n, r = _host(cols), _host(rows) * (rp > 0)
-        el = n * (n + 1) / 2 + r * n + 2 * n * nrhs + r * nrhs
+        # L pass: the RHS rows in and out, below . x out to y; Lt pass:
+        # the RHS rows in and out, the gathered rows in (no y)
+        el = n * (n + 1) / 2 + r * n + 2 * n * nrhs
+        idx, rows_in = 4 * off.numel(), 0
+        if transpose:
+            live, rows_in = _gathered(below_idx, rows, rp, vv.shape[1])
+            idx += live
+        else:
+            el = el + r * nrhs
         ops = n * n * nrhs + 2 * r * n * nrhs
-        return (batch * item * el.sum() +
-                8 * (4 * off.numel() + below_idx.numel()), batch * ops.sum())
+        return (batch * item * (el.sum() + rows_in * nrhs) + 8 * idx,
+                batch * ops.sum())
     if name in ("add_mv", "wide_add_mv"):
         x, off, rows, cols, below_idx, rp = (args[1], args[5], args[6],
                                              args[7], args[9], args[11])
         nrhs = x.shape[2]
         n, r = _host(cols), _host(rows) * (rp > 0)
-        el = n * (n + 1) / 2 + r * n + 3 * n * nrhs + 2 * r * nrhs
+        # x's own rows in, out's rows in and out, below . x out to y, the
+        # gathered rows of x in
+        el = n * (n + 1) / 2 + r * n + 3 * n * nrhs + r * nrhs
+        live, rows_in = _gathered(below_idx, rows, rp, x.shape[1])
         ops = 2 * n * n * nrhs + 4 * r * n * nrhs
-        return (batch * item * el.sum() +
-                8 * (4 * off.numel() + below_idx.numel()), batch * ops.sum())
+        return (batch * item * (el.sum() + rows_in * nrhs) +
+                8 * (4 * off.numel() + live), batch * ops.sum())
     raise KeyError(name)
 
 
@@ -463,12 +488,15 @@ def _short(name: str) -> str:
     return m.group(1) if m else name[:60]
 
 
+TRACE_LEAD_IN_S = 0.05
+
+
 def trace(fn, reps: int):
     """Runs fn() `reps` times under torch.profiler (after one warm-up
-    call) and reads the device activity off the trace: device time and
-    launches per kernel name, the number of device activities, and the
-    busy time as
-    the union of their intervals on the trace timeline. The idle share is
+    call and a lead-in) and reads the device activity off the trace:
+    device time and launches per kernel name, the number of device
+    activities, and the busy time as the union of their intervals on the
+    trace timeline. The idle share is
     1 - busy / (last end - first start) over the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -476,6 +504,10 @@ def trace(fn, reps: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler loses, in about 1 trace of 100, the device records
+        # of the launches of its first few ms (tools/trace_loss.py), so
+        # the host waits before the first call
+        time.sleep(TRACE_LEAD_IN_S)
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -573,36 +605,19 @@ def split_span(s, pname: str) -> int:
 
 def pcg_path(s, d, b, precond: str, t: int = SCHUR_T, tol: float = 1e-12,
              max_iters: int = 200) -> dict:
-    """The mixed direct/iterative solve (examples/pcg_sample.py) through
-    the port's entry points: factor_up_to(t) -> solve_l_up_to ->
-    preconditioner init -> pcg on the corner with add_mv_from(t) as the
-    operator -> solve_lt_up_to. Returns the solution, the iterations and
-    host seconds of the init and of the pcg loop (synchronised)."""
-    o = s.span_vector_offset(t)
-    part = s.factor_up_to(d, t)
-    v = s.solve_l_up_to(part, t, b)
-    pre = getattr(TO, precond)(s, t)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pre.init(part)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    """The mixed direct/iterative solve (testing/flows.py, the flow that
+    tests/test_torch_pcg.py holds against the JAX package) on the card.
+    Returns the solution, the iterations and host seconds of the
+    preconditioner's init and of the pcg loop (synchronised)."""
+    stamps = {}
 
-    def embed(x):
-        full = torch.zeros_like(v)
-        full[o:] = x
-        return full
-
-    x, _, it = TO.pcg(
-        lambda r: pre.apply(embed(r))[o:],
-        lambda p: s.add_mv_from(part, t, embed(p), torch.zeros_like(v))[o:],
-        v[o:], tol, max_iters)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    v = v.clone()
-    v[o:] = x
-    return {"x": s.solve_lt_up_to(part, t, v), "iterations": it,
-            "init_s": t1 - t0, "pcg_s": t2 - t1}
+    def mark(stage):
+        torch.cuda.synchronize()
+        stamps[stage] = time.perf_counter()
+    x, it, _ = pcg_flow(s, d, b, precond, t, tol, max_iters, mark=mark)
+    return {"x": x, "iterations": it,
+            "init_s": stamps["init"] - stamps["up_to"],
+            "pcg_s": stamps["pcg"] - stamps["init"]}
 
 
 def partial_ops(s, pname, d, b, ops) -> None:
@@ -966,11 +981,9 @@ def main() -> int:
     A50 = sparse_matrix(schur50, d64["flat_schur50k"])
     pcg_info, c_pcg = {}, {}
     for pre in PRECONDS:
-        def run():
-            out = pcg_path(schur50, d, b1, pre)
-            return out, schur50.add_mv_from(d, 0, out["x"],
-                                            torch.zeros_like(b1))
-        (out, mv), c = counted(f"pcg_{pre}", run)
+        out, c = counted(f"pcg_{pre}",
+                         functools.partial(pcg_path, schur50, d, b1, pre))
+        mv = schur50.add_mv_from(d, 0, out["x"], torch.zeros_like(b1))
         x_np = out["x"].cpu().numpy()
         r_k5 = float((mv - b1).norm() / b1.norm())
         r_sp = float(np.linalg.norm(A50 @ x_np - b_np) / np.linalg.norm(b_np))
@@ -998,22 +1011,23 @@ def main() -> int:
         **pcg_info)
 
     # 10d. refinement: an f32 factor of FLAT+Schur 50k, f64 residuals
-    # through K5; the iterations needed for 1e-10
+    # through K5; the iterations needed for 1e-10, then that solve alone
+    # counted (the residual checks' launches stay out of its counts)
     d32 = torch.from_numpy(d64["flat_schur50k"].astype(np.float32)).to(dev)
-
-    def refined():
-        f32 = schur50.factor(d32)
-        res = []
-        for k in range(5):
-            x = schur50.solve_refined(d, f32, b1, iterations=k)
-            r = schur50.add_mv_from(d, 0, x, torch.zeros_like(b1))
-            res.append((float((r - b1).norm() / b1.norm()), x))
-        return f32, res
-    (f32, res), c_ref = counted("refined_schur50k", refined)
+    f32 = schur50.factor(d32)
+    res = []
+    for k in range(5):
+        x = schur50.solve_refined(d, f32, b1, iterations=k)
+        r = schur50.add_mv_from(d, 0, x, torch.zeros_like(b1))
+        res.append((float((r - b1).norm() / b1.norm()), x))
     need = next((k for k, (r, _) in enumerate(res) if r <= 1e-10), None)
     check(need is not None, f"refinement never reached 1e-10: "
           f"{[r for r, _ in res]}")
-    r_sp = float(np.linalg.norm(A50 @ res[need][1].cpu().numpy() - b_np) /
+    x_ref, c_ref = counted("refined_schur50k", lambda: schur50.solve_refined(
+        d, schur50.factor(d32), b1, need))
+    check(torch.equal(x_ref, res[need][1]),
+          "refined solve differs from its first run")
+    r_sp = float(np.linalg.norm(A50 @ x_ref.cpu().numpy() - b_np) /
                  np.linalg.norm(b_np))
     check(r_sp <= 1e-10, f"refined residual (sparse) {r_sp}")
     ref_ms = time_ms(lambda: schur50.solve_refined(d, f32, b1, need), 5)
@@ -1189,20 +1203,13 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             grids = {k: v.grid_launches for k, v in kernels.COUNTS.items()}
-            # the profiler has been seen to drop a few kernel records of a
-            # trace (2 of 5 calls' segmented-subtract grids, once), so a
-            # trace that disagrees with the counters is taken once more
-            for tries in (1, 2):
-                tr = trace(fn, reps)
-                seen = tr.pop("launches_per_call_by_kernel")
-                off = {k: sum(seen.get(e, 0) for e in names)
-                       for k, names in GRIDS.items()}
-                off = {k: n for k, n in off.items() if n != grids[k]}
-                if not off:
-                    break
+            tr = trace(fn, reps)
+            seen = tr.pop("launches_per_call_by_kernel")
+            off = {k: sum(seen.get(e, 0) for e in names)
+                   for k, names in GRIDS.items()}
+            off = {k: n for k, n in off.items() if n != grids[k]}
             check(not off, f"{label} {what}: the trace shows {off} grids per "
-                  f"call, the counters {grids}")
-            tr["traces_taken"] = tries
+                  f"call, the counters {grids}; per kernel {seen}")
             log("trace", case=label, op=what, batch=batch,
                 nrhs=1 if label.startswith("pcg_") else 3,
                 dtype="float64", card=name_limit,

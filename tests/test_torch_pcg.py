@@ -1,6 +1,7 @@
 """The mixed direct/iterative solve of examples/pcg_sample.py (the
-reference's PCG_Sample.cpp) in the port against the JAX package, with
-each of the four preconditioners, on both backends (f64, CPU twins):
+reference's PCG_Sample.cpp) in the port (testing/flows.py, the flow
+chip_smoke.py runs on the card) against the JAX package, with each of
+the four preconditioners, on both backends (f64, CPU twins):
 
   factor_up_to(t) -> solve_l_up_to -> preconditioner init -> pcg with
   add_mv_from(part, t) as the operator -> solve_lt_up_to
@@ -22,6 +23,7 @@ from baspacho_tpu.testing import SparseMatGenerator as JGen
 import baspacho_tpu_torch as T
 import baspacho_tpu_torch.optimizer as TO
 from baspacho_tpu_torch.testing import SparseMatGenerator, random_spd_data
+from baspacho_tpu_torch.testing.flows import pcg_flow
 
 torch.set_num_threads(1)
 
@@ -74,38 +76,14 @@ def jax_flow(s, data, rhs, precond):
     return np.asarray(sol), int(it), float(r2)
 
 
-def port_flow(s, data, rhs, precond):
-    t = s.sparse_elim_ranges[-1]
-    o = s.span_vector_offset(t)
-    part = s.factor_up_to(torch.from_numpy(data), t)
-    v = s.solve_l_up_to(part, t, torch.from_numpy(rhs))
-    pre = getattr(TO, precond)(s, t)
-    pre.init(part)
-
-    def embed(x):
-        full = torch.zeros_like(v)
-        full[o:] = x
-        return full
-
-    def apply_inv_m(x):
-        return pre.apply(embed(x))[o:]
-
-    def apply_a(x):
-        full = embed(x)
-        return s.add_mv_from(part, t, full, torch.zeros_like(full))[o:]
-
-    x, r2, it = TO.pcg(apply_inv_m, apply_a, v[o:], TOL, MAX_ITERS)
-    v = v.clone()
-    v[o:] = x
-    return s.solve_lt_up_to(part, t, v), it, float(r2)
-
-
 @pytest.mark.parametrize("precond", PRECONDS)
 @pytest.mark.parametrize("backend", ["REF", "PLANNED"])
 def test_pcg_sample_matches_jax(backend, precond):
     js, ts, data, rhs = solvers(backend)
     want, it_j, r2_j = jax_flow(js, data, rhs, precond)
-    got, it_t, r2_t = port_flow(ts, data, rhs, precond)
+    got, it_t, r2_t = pcg_flow(ts, torch.from_numpy(data),
+                               torch.from_numpy(rhs), precond, tol=TOL,
+                               max_iters=MAX_ITERS)
     thresh = TOL * TOL * float(rhs[ts.span_vector_offset(
         ts.sparse_elim_ranges[-1]):] @ rhs[ts.span_vector_offset(
             ts.sparse_elim_ranges[-1]):])
