@@ -2,10 +2,12 @@
 
 Batched supernodal sparse Cholesky on an NVIDIA Hopper GPU: the host
 symbolic analysis (a numpy-only copy of baspacho_tpu's) emits static
-level schedules; the numeric factor and solve run through three
+level schedules; the numeric factor, solves and mat-vec run through
 hand-written CUDA kernels (ops/kernels.py, csrc/), with plain PyTorch
-twins on the CPU. The package imports torch and numpy, never jax and
-never baspacho_tpu.
+twins on the CPU. On top, the Levenberg-Marquardt optimizer
+(optimizer/, its gradient / Hessian assembly a kernel too) and BAL
+bundle adjustment (bal.py). The package imports torch and numpy, never
+jax and never baspacho_tpu.
 """
 
 from .sparse_structure import SparseStructure

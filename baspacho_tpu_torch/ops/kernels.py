@@ -13,6 +13,9 @@ launch counters.
   K3-rest wide_tri_solve csrc/tri_solve.cu           panels cp > 512
   K5 add_mv              csrc/add_mv.cu              panels cp <= 512
   K5 wide_add_mv         csrc/add_mv.cu              panels cp > 512
+  K6 grad_hess           csrc/grad_hess.cu           the LM optimizer's
+                                                     gradient / Hessian
+                                                     assembly
 
 Each wrapper takes the same arguments on either device. For a tensor on
 the CPU it runs the plain PyTorch twin beside it; for a CUDA tensor it
@@ -47,7 +50,7 @@ CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu",
            "wide_factor.cu", "wide_solve.cu", "dense_level.cu",
-           "tri_solve.cu", "add_mv.cu")
+           "tri_solve.cu", "add_mv.cu", "grad_hess.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu)
@@ -65,7 +68,7 @@ class LaunchCount:
 COUNTS = {name: LaunchCount() for name in (
     "bucket_factor", "wide_factor", "segmented_subtract", "bucket_solve",
     "wide_solve", "dense_update", "tri_solve", "wide_tri_solve", "add_mv",
-    "wide_add_mv")}
+    "wide_add_mv", "grad_hess")}
 
 
 def reset_counts() -> None:
@@ -177,6 +180,8 @@ def _lib() -> ctypes.CDLL:
             "bs_wide_add_mv": [i32, vp, i64, vp, i64, vp, i64, vp, i64, i64,
                                vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                i32, i32, f64, vp],
+            "bs_grad_hess": [i32, vp, i64, i32, vp, vp, i64, i32, i32, i32,
+                             vp, vp, vp, vp, vp, vp, vp, vp, i64, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -268,7 +273,10 @@ def bucket_factor_twin(data, prod, off, rows, cols, cp: int, rp: int,
     pad_eye = ((ii == jj) & (ii >= cols[:, None, None])).to(dt)  # (B,cp,cp)
     diag_in = panels[:, :, :cp] + pad_eye
     sym = torch.tril(diag_in) + torch.tril(diag_in, -1).mT
-    L, _ = torch.linalg.cholesky_ex(sym)
+    L, info = torch.linalg.cholesky_ex(sym)
+    # NaN where a panel is not positive definite, as the kernel's
+    # sqrt / division and the JAX package's unrolled Cholesky give
+    L = torch.where((info > 0)[..., None, None], torch.nan, L)
     eye = torch.eye(cp, dtype=dt, device=dev).expand_as(L)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     store = torch.where(ii >= jj, L - pad_eye, 0.0) + \
@@ -416,8 +424,9 @@ class _WideTwinSteps:
             xt[:, i, k0:k0 + nb, k0:k0 + nb] = 0
             if w:
                 a = t[:, :w, :w]
-                L, _ = torch.linalg.cholesky_ex(torch.tril(a) +
-                                                torch.tril(a, -1).mT)
+                L, info = torch.linalg.cholesky_ex(torch.tril(a) +
+                                                   torch.tril(a, -1).mT)
+                L = torch.where((info > 0)[..., None, None], torch.nan, L)
                 eye = torch.eye(w, dtype=t.dtype, device=t.device)
                 linv = torch.linalg.solve_triangular(
                     L, eye.expand_as(L), upper=False)
@@ -936,6 +945,84 @@ def wide_add_mv_twin(*args) -> None:
     _add_mv_plain(*args)
 
 
+# ----------------------------------------------------------------------
+# K6 grad_hess
+# ----------------------------------------------------------------------
+GH_SMEM_BYTES = 48 * 1024  # static shared-memory limit of gh_block_kernel
+GH_BLOCK_THREADS = 256     # threads of gh_block_kernel (csrc/grad_hess.cu)
+GH_MAX_CHUNK = 64          # records staged at a time by gh_block_kernel
+
+
+def grad_hess(W, hdata, grad, plan) -> None:
+    """Adds one factor family's contributions into the Hessian data and
+    the gradient, in place: per factor f, J_k^T J_l of every pair of its
+    live slots into hdata (transposed where the block is stored so) and
+    J_k^T r into grad. W is the family's (F, rdim, tdw) buffer of
+    weighted Jacobians and residual, `plan` its ops.assembly
+    FamilyAssembly. Every destination element is summed by one thread in
+    a fixed order: no atomics, the same bits from run to run."""
+    if W.shape[1:] != (plan.rdim, plan.tdw):
+        raise ValueError(f"grad_hess: W is {tuple(W.shape)}, the plan wants "
+                         f"(F, {plan.rdim}, {plan.tdw})")
+    if W.device.type == "cpu":
+        return grad_hess_twin(W, hdata, grad, plan)
+    h, g = plan.hess, plan.grad
+    _check_cuda("grad_hess", [W, hdata, grad],
+                [plan.tab_a, plan.tab_b, *(getattr(s, k) for s in (h, g)
+                                           for k in ("off", "stride", "rows",
+                                                     "cols", "ptr", "rec",
+                                                     "short", "long"))])
+    lib, code, st = _lib(), _DTYPE_CODE[W.dtype], _stream(W)
+    item = W.element_size()
+    COUNTS["grad_hess"].launches += 1
+    for out, seg in ((hdata, h), (grad, g)):
+        for ids, long_mode in ((seg.short, 0), (seg.long, 1)):
+            n = ids.shape[0]
+            if n == 0:
+                continue
+            chunk = 0
+            if long_mode:
+                room = GH_SMEM_BYTES // item - GH_BLOCK_THREADS
+                chunk = min(GH_MAX_CHUNK,
+                            room // (plan.rdim * seg.max_rc_long))
+                if chunk < 1:
+                    raise ValueError("grad_hess: a block of "
+                                     f"{seg.max_rc_long} rows + columns at "
+                                     f"rdim {plan.rdim} does not fit in "
+                                     "shared memory")
+            err = lib.bs_grad_hess(
+                code, W.data_ptr(), plan.tdw, plan.rdim, out.data_ptr(),
+                ids.data_ptr(), n, long_mode, chunk, seg.max_rc_long,
+                seg.off.data_ptr(), seg.stride.data_ptr(),
+                seg.rows.data_ptr(), seg.cols.data_ptr(), seg.ptr.data_ptr(),
+                seg.rec.data_ptr(), plan.tab_a.data_ptr(),
+                plan.tab_b.data_ptr(), plan.Q, st)
+            COUNTS["grad_hess"].grid_launches += 1
+            _raise_on("grad_hess", err)
+
+
+def grad_hess_twin(W, hdata, grad, plan) -> None:
+    """Plain twin of K6: Optimizer._accumulate_family of the JAX package
+    in torch, the gradient's einsums and index_add_ first, then each
+    pair's."""
+    COUNTS["grad_hess"].twin_calls += 1
+    dev = W.device
+    r = W[:, :, -1]
+    for a, td, vec_off in plan.vecs:
+        g = torch.einsum("bri,br->bi", W[:, :, a:a + td], r)
+        idx = vec_off[:, None] + torch.arange(td, device=dev)
+        grad.index_add_(0, idx.reshape(-1), g.reshape(-1))
+    for a, ti, b, tj, off, stride, flip in plan.pairs:
+        h = torch.einsum("bri,brj->bij", W[:, :, a:a + ti],
+                         W[:, :, b:b + tj])
+        e = torch.arange(ti * tj, device=dev)
+        rr, cc = e // tj, e % tj
+        plain = off[:, None] + rr * stride[:, None] + cc
+        flipped = off[:, None] + cc * stride[:, None] + rr
+        idx = torch.where(flip[:, None], flipped, plain)
+        hdata.index_add_(0, idx.reshape(-1), h.reshape(-1))
+
+
 # the plain twins under the wrappers' names, for running a whole path
 # through them (timing and comparison on the card)
 TWINS = SimpleNamespace(bucket_factor=bucket_factor_twin,
@@ -947,4 +1034,5 @@ TWINS = SimpleNamespace(bucket_factor=bucket_factor_twin,
                         tri_solve=tri_solve_twin,
                         wide_tri_solve=wide_tri_solve_twin,
                         add_mv=add_mv_twin,
-                        wide_add_mv=wide_add_mv_twin)
+                        wide_add_mv=wide_add_mv_twin,
+                        grad_hess=grad_hess_twin)

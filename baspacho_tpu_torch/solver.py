@@ -80,14 +80,17 @@ def _not_ported(what: str, slice_: str):
 def resolve_device(device=None) -> torch.device:
     """The device a solver runs on: the one named, else the CUDA card.
     Without a card and without a named device it raises rather than
-    carrying on on the CPU (device="cpu" runs the plain twins)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    carrying on on the CPU (device="cpu" runs the plain twins). A CUDA
+    device comes back with its index (the current card's when none is
+    named), as the tensors on it report theirs."""
+    if device is None and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the solver runs on the GPU unless a device is "
             "named; pass device='cpu' to run the plain PyTorch versions")
-    return torch.device("cuda")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 class Solver:

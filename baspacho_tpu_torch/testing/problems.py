@@ -134,3 +134,71 @@ def spd_data(solver, seed, dtype=np.float64) -> np.ndarray:
                            np.float64)
     return np.asarray(solver.skel.damp(data, 0.0, solver.order * 1.5),
                       dtype=dtype)
+
+
+# ----------------------------------------------------------------------
+# factor graphs of the optimizer layer. `O` is the optimizer module of
+# the package to build with (baspacho_tpu_torch.optimizer, or
+# baspacho_tpu.optimizer in the tests); `opt_kw` goes to its Optimizer
+# (the port's takes `device`). Residuals use only operators both
+# packages' arrays share.
+# ----------------------------------------------------------------------
+def spring_chain(O, n=12, seed=0, outlier_loss=None, **opt_kw):
+    """The 1-D spring chain of tests/test_optimizer.py:17-35 (reference
+    examples/OptimizeSimple.cpp): x_i pulled to unit spacing, x_0
+    anchored at 0; with `outlier_loss`, also an outlier factor pulling
+    x_4 to 100 under that loss (test_optimizer.py:84-95)."""
+    rng = np.random.RandomState(seed)
+    opt = O.Optimizer(**opt_kw)
+    xs = opt.add_variable_family(O.VariableFamily(rng.rand(n, 1) * 10,
+                                                  name="x"))
+    opt.add_factor_family(lambda a, b: (b - a) - 1.0,
+                          [(xs, np.arange(n - 1)), (xs, np.arange(1, n))])
+    opt.add_factor_family(lambda a: a, [(xs, np.array([0]))])
+    if outlier_loss is not None:
+        opt.add_factor_family(lambda a: a - 100.0, [(xs, np.array([4]))],
+                              loss=outlier_loss)
+    return opt, xs
+
+
+def se3_ba(O, n_cams=4, n_pts=30, seed=0, **opt_kw):
+    """The SE3 bundle adjustment of tests/test_optimizer.py:98-142:
+    cameras as SE3 poses (identity rotations), points in R^3 seen by
+    every camera through a pinhole, points Schur-eliminated, the first
+    camera held by a prior. The observations are computed in numpy (with
+    identity rotations the pose only translates), so both packages get
+    the same bits."""
+    rng = np.random.RandomState(seed)
+    pts_gt = rng.rand(n_pts, 3) * 2 + np.array([0, 0, 4.0])
+    cams_gt = []
+    for i in range(n_cams):
+        t = np.array([i * 0.5 - n_cams * 0.25, 0.1 * rng.randn(), 0.0])
+        cams_gt.append(np.array([0, 0, 0, 1.0, *t]))
+    cams_gt = np.stack(cams_gt)
+    obs_cam = np.repeat(np.arange(n_cams), n_pts)
+    obs_pt = np.tile(np.arange(n_pts), n_cams)
+    p = pts_gt[obs_pt] + cams_gt[obs_cam, 4:]
+    obs_uv = p[:, :2] / p[:, 2:3]
+
+    def project(cam, pt):
+        q = O.SE3.transform(cam, pt)
+        return q[:2] / q[2]
+
+    opt = O.Optimizer(**opt_kw)
+    pts = opt.add_variable_family(O.VariableFamily(
+        pts_gt + rng.randn(n_pts, 3) * 0.05, name="pts"))
+    cams = opt.add_variable_family(O.VariableFamily(
+        cams_gt, tangent_dim=6, tangent_step=O.SE3.tangent_step,
+        name="cams"))
+    opt.add_factor_family(lambda pt, cam, uv: project(cam, pt) - uv,
+                          [(pts, obs_pt), (cams, obs_cam)], consts=(obs_uv,))
+    opt.add_factor_family(lambda cam, target: 10.0 * (cam - target),
+                          [(cams, np.array([0]))], consts=(cams_gt[:1],))
+    opt.set_elimination_families([pts])
+    return opt, pts, cams
+
+
+# BAL 871 x 527,480 as bench.py:564-566 (`bal_full`) makes it: the shape
+# of the public BAL dataset's Venice-871 problem, synthetic
+BAL871 = dict(n_cams=871, n_pts=527480, track_len=5, seed=1,
+              track_mode="window", window=24, loop_frac=0.03, noise=1.0)

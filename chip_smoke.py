@@ -35,6 +35,16 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                f64 residuals through K5
   diff_solve   the differentiable solve on MERI against a central
                difference; check_factor
+  SE3 BA       the LM optimizer's assembled gradient and Hessian (K6)
+               against J^T r and J^T J computed densely; the demo twins
+               (baspacho_tpu_torch/examples) on the default device
+  BAL 871      LM on the 871-camera, 527,480-point scene (2,637,400
+               observations, order 1,590,279), f64, PLANNED, through
+               build_ba_optimizer -> build_solver -> optimize: directly
+               (3 iterations) and with the partial factor + PCG and
+               BlockJacobi (2), counted, host ms per stage; the first
+               damped system's residuals; a bitwise rerun; K6 against
+               its twin (f64, f32) and itself, timed, traced
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -68,10 +78,12 @@ import baspacho_tpu_torch as T
 from baspacho_tpu_torch import native
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import PlannedBackend
-from baspacho_tpu_torch.testing.flows import pcg_flow
+from baspacho_tpu_torch.testing.flows import (ba_optimizer, ba_settings,
+                                              dense_normal_equations,
+                                              k6_vs_twin, pcg_flow)
 from baspacho_tpu_torch.testing.problems import (flat1000, flat_schur5k,
                                                  flat_schur50k, grid100,
-                                                 meri7, spd_data,
+                                                 meri7, se3_ba, spd_data,
                                                  wide_below)
 
 _PB = "baspacho_tpu/ops/planned_backend.py"
@@ -91,6 +103,8 @@ KERNELS = [
      f"{_PB}:1192"),
     ("add_mv", "baspacho_tpu_torch/csrc/add_mv.cu", f"{_PB}:3078"),
     ("wide_add_mv", "baspacho_tpu_torch/csrc/add_mv.cu", f"{_PB}:3078"),
+    ("grad_hess", "baspacho_tpu_torch/csrc/grad_hess.cu",
+     "baspacho_tpu/optimizer/optimizer.py:334"),
 ]
 NAMES = [k for k, _, _ in KERNELS]
 # the __global__ functions each wrapper launches (csrc/*.cu)
@@ -106,7 +120,8 @@ GRIDS = {"bucket_factor": ("chol_inv_kernel", "below_kernel", "prod_kernel"),
          "wide_tri_solve": ("tri_wide_pre_kernel", "tri_wide_inv_kernel",
                             "tri_wide_step_kernel", "tri_wide_post_kernel"),
          "add_mv": ("mv_kernel",),
-         "wide_add_mv": ("wide_mv_tile_kernel", "wide_mv_post_kernel")}
+         "wide_add_mv": ("wide_mv_tile_kernel", "wide_mv_post_kernel"),
+         "grad_hess": ("gh_warp_kernel", "gh_block_kernel")}
 PRECONDS = ("IdentityPrecond", "BlockJacobiPrecond",
             "BlockGaussSeidelPrecond", "LowerPrecSolvePrecond")
 # the narrow K5 runs on the refined path: PCG's operator covers only the
@@ -128,7 +143,20 @@ PATH_KERNELS = {
     "refined_schur50k": {"bucket_factor", "wide_factor", "dense_update",
                          "segmented_subtract", "bucket_solve", "wide_solve",
                          "add_mv", "wide_add_mv"},
+    # LM on BAL 871: K6, then the factor (points on a dense level, pair
+    # levels, wide corner lumps) and the solve, or the partial factor,
+    # the up-to solves and the corner mat-vec
+    "bal_lm_direct": {"grad_hess", "bucket_factor", "wide_factor",
+                      "dense_update", "segmented_subtract", "bucket_solve",
+                      "wide_solve"},
+    "bal_lm_pcg": {"grad_hess", "bucket_factor", "dense_update",
+                   "segmented_subtract", "tri_solve", "add_mv",
+                   "wide_add_mv"},
 }
+# the LM runs on BAL 871 damp additively (the reference's lambda * (1 +
+# diag)): the scene leaves camera 870 unobserved, a zero Hessian block
+# that the JAX package's diag * (1 + lambda) leaves singular
+BAL_DAMP = {"damp_additive": True}
 # the least time of a call: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA H100 SXM data sheet: HBM3
 # 3.35 TB/s; 67 TFLOP/s in f64 on the tensor cores and in f32 off them)
@@ -351,6 +379,18 @@ def cost(name: str, args) -> tuple:
         ops = n * n * nrhs + 2 * r * n * nrhs
         return (batch * item * (el.sum() + rows_in * nrhs) + 8 * idx,
                 batch * ops.sum())
+    if name == "grad_hess":
+        # W read once, the touched Hessian and gradient elements read and
+        # written once, the plan's index arrays; a multiply-add per row
+        # of W per element of every record's block
+        W, _, _, plan = args
+        idx = plan.tab_a.numel() + plan.tab_b.numel() + sum(
+            getattr(sg, k).numel() for sg in (plan.hess, plan.grad)
+            for k in ("off", "stride", "rows", "cols", "ptr", "rec", "short",
+                      "long"))
+        return (item * (W.numel() + 2 * (plan.hess.elements +
+                                         plan.grad.elements)) + 8 * idx,
+                2 * (plan.hess.macs + plan.grad.macs))
     if name in ("add_mv", "wide_add_mv"):
         x, off, rows, cols, below_idx, rp = (args[1], args[5], args[6],
                                              args[7], args[9], args[11])
@@ -411,7 +451,32 @@ def library_call(name: str, args):
         if transpose:
             return lambda: torch.linalg.solve_triangular(L.mT, x, upper=True)
         return lambda: torch.linalg.solve_triangular(L, x, upper=False)
+    if name == "grad_hess":
+        return k6_library_call(*args)
     return None
+
+
+def k6_library_call(W, hdata, grad, plan):
+    """K6's function in PyTorch calls, two per block pair (an einsum and
+    an index_add_, the JAX package's formula) on copies of the outputs;
+    the scatter indices are built here, outside the timed call."""
+    dev, jobs, r = W.device, [], W[:, :, -1]
+    hd, gd = hdata.clone(), grad.clone()
+    for a, td, vec_off in plan.vecs:
+        idx = (vec_off[:, None] + torch.arange(td, device=dev)).reshape(-1)
+        jobs.append((gd, idx, "bri,br->bi", W[:, :, a:a + td], r))
+    for a, ti, b, tj, off, stride, flip in plan.pairs:
+        e = torch.arange(ti * tj, device=dev)
+        rr, cc = e // tj, e % tj
+        idx = torch.where(flip[:, None], off[:, None] + cc * stride[:, None]
+                          + rr, off[:, None] + rr * stride[:, None] + cc)
+        jobs.append((hd, idx.reshape(-1), "bri,brj->bij", W[:, :, a:a + ti],
+                     W[:, :, b:b + tj]))
+
+    def run():
+        for out, idx, eq, x, y in jobs:
+            out.index_add_(0, idx, torch.einsum(eq, x, y).reshape(-1))
+    return run
 
 
 class TimedOps:
@@ -704,6 +769,273 @@ def factor_solve(s, d, b):
 def batched(data_np, batch, dev):
     d = torch.from_numpy(data_np).to(dev)
     return torch.stack([d * (1.0 + 0.01 * i) for i in range(batch)])
+
+
+def stage_clock(stamps: list):
+    """A mark(stage) callback for Optimizer.mark: synchronises the card
+    and appends (stage, host seconds) to `stamps`."""
+    def mark(stage):
+        torch.cuda.synchronize()
+        stamps.append((stage, time.perf_counter()))
+    return mark
+
+
+def lm_breakdown(stamps: list) -> list:
+    """Host ms per stage of an optimize() run from its stamps (the first
+    is the start): one entry for the first gradient / Hessian, then one
+    per LM iteration (its trials' damp + factor, solve and retract +
+    cost, summed, then the next point's Jacobians and K6)."""
+    iters, cur, prev = [], {}, stamps[0][1]
+    for stage, t in stamps[1:]:
+        cur[stage] = cur.get(stage, 0.0) + (t - prev) * 1e3
+        prev = t
+        if stage == "damp_factor":
+            cur["trials"] = cur.get("trials", 0) + 1
+        if stage == "assembly":
+            iters.append(cur)
+            cur = {}
+    return iters + ([cur] if cur else [])
+
+
+def reset_values(opt, values0) -> None:
+    for fam, v in zip(opt.families, values0):
+        fam.values = v.clone()
+
+
+def bal_setup(dev):
+    """BAL 871 x 527,480 through build_ba_optimizer -> build_solver on
+    the card, PLANNED, f64, with the host seconds of each set-up stage,
+    the first-call device programs of both LM paths included."""
+    from baspacho_tpu_torch.bal import make_random_bal
+    from baspacho_tpu_torch.testing.problems import BAL871
+    t0 = time.perf_counter()
+    prob = make_random_bal(**BAL871)
+    t1 = time.perf_counter()
+    stamps = [("start", time.perf_counter())]
+    opt = ba_optimizer(prob, ba_settings(T.BackendType.PLANNED, 1), dev,
+                       mark=stage_clock(stamps))
+    s = opt.solver
+    nl, tl = s.skel.num_lumps, s._lump_of_span(opt.elim_end_span)
+    sched = s.backend._factor_schedule(0, nl)
+    s.backend._solve_schedule(0, nl)
+    s.factor_program()
+    s.solve_program()
+    for op, a, b in (("factor", 0, tl), ("solve_l", 0, tl),
+                     ("solve_lt", 0, tl)):
+        s.program(op, a, b)
+    s.program("add_mv", tl)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    unseen = sorted(set(range(prob.num_cameras)) -
+                    set(prob.obs_cam.tolist()))
+    info = {
+        "cameras": prob.num_cameras, "points": prob.num_points,
+        "observations": prob.num_observations, "unobserved_cameras": unseen,
+        "order": s.order, "data_size": s.data_size, "lumps": nl,
+        "levels": [{"dense": lv[3] is not None,
+                    "buckets": [[b.cp, b.rp, len(b.off)] for b in lv[0]]}
+                   for lv in sched],
+        "k6_plan": [{"rdim": p.rdim, "tdw": p.tdw,
+                     "hess_blocks": p.hess.ptr.numel() - 1,
+                     "hess_long": p.hess.long.numel(),
+                     "grad_blocks": p.grad.ptr.numel() - 1,
+                     "grad_long": p.grad.long.numel(),
+                     "records": p.hess.rec.numel() + p.grad.rec.numel()}
+                    for _, p in opt._plans],
+        "problem_s": t1 - t0,
+        "graph_and_create_solver_s": stamps[1][1] - stamps[0][1],
+        "assembly_plans_s": stamps[2][1] - stamps[1][1],
+        "programs_s": t2 - stamps[2][1]}
+    return opt, [f.values.clone() for f in opt.families], info
+
+
+def bal_phase(dev, name_limit: str) -> dict:
+    """LM on BAL 871 x 527,480, f64, PLANNED, on the card: the direct
+    path counted (3 iterations, per-stage host ms), the residuals of the
+    first damped system, a bitwise rerun of one iteration, the partial
+    factor + PCG path with BlockJacobi counted (2 iterations), K6 against
+    its twin (f64, f32) and against itself, K6 timed. Returns what the
+    record and the trace phase need."""
+    opt, values0, info = bal_setup(dev)
+    s = opt.solver
+    log("bal871_setup", card=name_limit, **info)
+    out = {"opt": opt, "values0": values0}
+
+    # the direct LM path, counted
+    direct = ba_settings(T.BackendType.PLANNED, 3, **BAL_DAMP)
+    stamps = [("start", time.perf_counter())]
+    opt.mark = stage_clock(stamps)
+    st, out["c_direct"] = counted("bal_lm_direct",
+                                  lambda: opt.optimize(direct))
+    opt.mark = None
+    costs = st["costs"]
+    check(st["iters"] >= 1 and all(b < a for a, b in zip(costs, costs[1:])),
+          f"BAL 871 direct LM: the cost must fall on every accepted step: "
+          f"{costs}")
+    check(all(bool(torch.isfinite(f.values).all()) for f in opt.families),
+          "BAL 871 direct LM: non-finite values")
+    log("bal871_lm_direct", card=name_limit, dtype="float64",
+        settings={"max_iters": 3, **BAL_DAMP}, iterations=st["iters"],
+        costs=costs, stages_ms=lm_breakdown(stamps),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches={k: v[0] for k, v in out["c_direct"].items() if v[0]})
+
+    # residuals of the first damped system: the factor's on a random
+    # probe (L from a scipy sparse product, A z from K5), the solve's
+    # through add_mv_from(0)
+    reset_values(opt, values0)
+    vals = [f.values for f in opt.families]
+    _, grad, hdata = opt.compute_grad_hess(vals)
+    idx = torch.from_numpy(s.skel.damp_indices()).to(dev)
+    lam = direct.init_damping
+    damped = hdata.clone()
+    damped[idx] = damped[idx] * (1.0 + lam) + lam
+    f = s.factor(damped)
+    x = s.solve(f, -grad)
+    r = s.add_mv_from(damped, 0, x, torch.zeros_like(x)) + grad
+    solve_res = float(r.norm() / grad.norm())
+    z = torch.from_numpy(np.random.RandomState(0).rand(s.order)).to(dev)
+    az = s.add_mv_from(damped, 0, z, torch.zeros_like(z)).cpu().numpy()
+    L = sparse_lower(s, f.cpu().numpy())
+    zn = z.cpu().numpy()
+    factor_res = float(np.linalg.norm(L @ (L.T @ zn) - az) /
+                       np.linalg.norm(az))
+    check(factor_res <= 1e-10 and solve_res <= 1e-10,
+          f"BAL 871 damped system: factor residual {factor_res}, solve "
+          f"residual {solve_res}")
+    del L, damped, f, x, r
+    log("bal871_residuals", limit=1e-10, damping=lam, **BAL_DAMP,
+        factor_residual_probe=factor_res, solve_residual=solve_res)
+
+    # one LM iteration twice from the same start: the same bits
+    one = ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP)
+    runs = []
+    for _ in range(2):
+        reset_values(opt, values0)
+        c = opt.optimize(one)["costs"]
+        runs.append((c, [f.values.clone() for f in opt.families]))
+    check(runs[0][0] == runs[1][0] == costs[:2] and
+          all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])),
+          "BAL 871: a rerun of the first LM iteration differs")
+    log("bal871_rerun", bitwise_equal=True, costs=runs[0][0])
+    del runs
+
+    # the partial factor + PCG path with BlockJacobi, counted
+    reset_values(opt, values0)
+    pcg = ba_settings(T.BackendType.PLANNED, 2, pcg=True, **BAL_DAMP)
+    stamps = [("start", time.perf_counter())]
+    opt.mark = stage_clock(stamps)
+    st, out["c_pcg"] = counted("bal_lm_pcg", lambda: opt.optimize(pcg))
+    opt.mark = None
+    pc = st["costs"]
+    check(st["iters"] >= 1 and all(b < a for a, b in zip(pc, pc[1:])),
+          f"BAL 871 PCG LM: the cost must fall on every accepted step: {pc}")
+    log("bal871_lm_pcg", card=name_limit, dtype="float64",
+        settings={"max_iters": 2, "precond": "BlockJacobiPrecond",
+                  "pcg_tol": pcg.pcg_tol, "pcg_max_iters": pcg.pcg_max_iters,
+                  **BAL_DAMP},
+        iterations=st["iters"], costs=pc, pcg_iterations=st["pcg_iters"],
+        stages_ms=lm_breakdown(stamps),
+        launches={k: v[0] for k, v in out["c_pcg"].items() if v[0]})
+
+    # K6 against its twin on BAL 871's assembly (the twin's index_add_
+    # sums with atomics on the card: a tolerance), and against itself
+    reset_values(opt, values0)
+    terms = opt.jacobians([f.values for f in opt.families])
+    out["terms"] = terms
+    rel, absd = {}, 0.0
+    for dt in (torch.float64, torch.float32):
+        r, a, same = k6_vs_twin(opt, terms, dt)
+        check(r <= KERNEL_RTOL[dt], f"grad_hess vs twin on BAL 871 {dt}: "
+              f"rel {r}")
+        check(same, f"grad_hess on BAL 871 {dt}: two runs differ")
+        rel[f"bal871_{str(dt)[6:]}"], absd = r, max(absd, a)
+    out["rel"], out["abs"] = rel, absd
+    log("bal871_k6_vs_twin", limits={"float64": 1e-10, "float32": 1e-4},
+        max_rel=rel, bitwise_rerun=True)
+
+    # K6 timed over one assembly (both families), f64, beside its twin,
+    # its bound and the einsum + index_add_ calls
+    h0 = torch.zeros(s.data_size, dtype=torch.float64, device=dev)
+    g0 = torch.zeros(s.order, dtype=torch.float64, device=dev)
+    got = {}
+    for impl, ops in (("kernels", kernels), ("twins", kernels.TWINS)):
+        for warm in (True, False):
+            tops = TimedOps(ops, costs=warm and impl == "kernels")
+            for (_, W), (_, plan) in zip(terms, opt._plans):
+                tops.grad_hess(W, h0.clone(), g0.clone(), plan)
+            if warm and impl == "kernels":
+                out["bound"] = tops.bounds()["grad_hess"]
+                out["library_ms"] = tops.library_ms()["grad_hess"]
+        got[impl] = tops.ms()["grad_hess"]
+    out["ms"], out["plain_ms"] = got["kernels"], got["twins"]
+    log("time_per_kernel", case="bal871 f64 one assembly", card=name_limit,
+        kernel="grad_hess", kernel_ms=got["kernels"], twin_ms=got["twins"],
+        bound_ms=out["bound"][0], bound_by=out["bound"][1],
+        library_ms=out["library_ms"],
+        library_call="torch.einsum + Tensor.index_add_, two calls per "
+                     "block pair and per gradient slot")
+    del h0, g0
+    return out
+
+
+def se3_dense_check(dev) -> dict:
+    """The assembled gradient and Hessian of the SE3 bundle adjustment of
+    tests/test_optimizer.py against J^T r and J^T J computed densely, on
+    the card."""
+    import baspacho_tpu_torch.optimizer as TO
+    opt = se3_ba(TO, device=dev)[0]
+    opt.build_solver(TO.OptimizerSettings(backend=T.BackendType.PLANNED))
+    vals = [f.values for f in opt.families]
+    _, grad, hdata = opt.compute_grad_hess(vals)
+    g, H = dense_normal_equations(opt, vals)
+    hd = opt.solver.skel.densify(hdata.cpu().numpy(), fill_upper_half=True)
+    gr = float(np.abs(grad.cpu().numpy() - g).max() / np.abs(g).max())
+    hr = float(np.abs(hd - H).max() / np.abs(H).max())
+    check(gr <= 1e-12 and hr <= 1e-12,
+          f"SE3 BA assembly vs dense: grad rel {gr}, hessian rel {hr}")
+    return {"grad_rel": gr, "hessian_rel": hr, "limit": 1e-12}
+
+
+def demo_twins() -> dict:
+    """The demo twins (baspacho_tpu_torch/examples) on the card, through
+    their default device; their own output is dropped."""
+    import contextlib
+    import io
+    from baspacho_tpu_torch.examples import (diff_solve, optimize_ba,
+                                             optimize_simple)
+    with contextlib.redirect_stdout(io.StringIO()):
+        simple = optimize_simple.main([])
+        ba = optimize_ba.main([])
+        diff = diff_solve.main(["--steps", "400"])
+    out = {"optimize_simple_costs": simple["costs"],
+           "optimize_ba_costs": ba["costs"],
+           "diff_solve_loss_first_last": [diff["losses"][0],
+                                          diff["losses"][-1]]}
+    check(simple["final_cost"] < 1e-16 and
+          all(b < a for a, b in zip(ba["costs"], ba["costs"][1:])) and
+          diff["losses"][-1] < 0.5 * diff["losses"][0],
+          f"demo twins on the card: {out}")
+    return out
+
+
+def trace_checked(label: str, what: str, fn, reps: int, **fields) -> None:
+    """Traces fn (trace()) and checks that the trace's count of each
+    wrapper's grids equals the wrappers' own grid-launch counters over
+    one call."""
+    kernels.reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    grids = {k: v.grid_launches for k, v in kernels.COUNTS.items()}
+    tr = trace(fn, reps)
+    seen = tr.pop("launches_per_call_by_kernel")
+    off = {k: sum(seen.get(e, 0) for e in names)
+           for k, names in GRIDS.items()}
+    off = {k: n for k, n in off.items() if n != grids[k]}
+    check(not off, f"{label} {what}: the trace shows {off} grids per "
+          f"call, the counters {grids}; per kernel {seen}")
+    log("trace", case=label, op=what, **fields,
+        grid_launches_per_call={k: v for k, v in grids.items() if v}, **tr)
 
 
 def main() -> int:
@@ -1071,6 +1403,17 @@ def main() -> int:
           "check_factor: true on a factor, false with a negative diagonal")
     log("diff_solve", limit=1e-6, eps=eps, check_factor_ok=True, **diff)
 
+    # 10f. the LM optimizer: the SE3 BA's assembly against the dense
+    # normal equations; LM on BAL 871 x 527,480 (direct and PCG), K6
+    # against its twin, timed
+    log("se3_ba_dense", card=name_limit, **se3_dense_check(dev))
+    log("demos", card=name_limit, **demo_twins())
+    bal = bal_phase(dev, name_limit)
+    c_direct, c_balpcg = bal["c_direct"], bal["c_pcg"]
+    max_abs["grad_hess"] = bal["abs"]
+    for case, r in bal["rel"].items():
+        errs[case] = {"max_rel": {"grad_hess": r}}
+
     # 11. times: kernels vs twins on the card (CUDA events, after warm-up)
     for label, pname, batch, reps, twins in (
             ("meri_single", "meri7", 1, 20, True),
@@ -1175,6 +1518,12 @@ def main() -> int:
             bound_ms=bounds[k][0], bound_by=bounds[k][1],
             library_ms=library[k])
 
+    per["kernels"]["grad_hess"] = bal["ms"]
+    per["twins"]["grad_hess"] = bal["plain_ms"]
+    bounds["grad_hess"], library["grad_hess"] = bal["bound"], \
+        bal["library_ms"]
+    per_case["grad_hess"] = "bal871 f64 one assembly (2 families)"
+
     # 12. trace: device time per CUDA kernel and the device's idle share,
     # factor and solve apart; the trace's count of each wrapper's grids
     # must equal the wrappers' own grid-launch counters
@@ -1199,25 +1548,27 @@ def main() -> int:
             todo = (("factor", functools.partial(fp, dd)),
                     ("solve", functools.partial(sp, fprod, bb)))
         for what, fn in todo:
-            kernels.reset_counts()
-            fn()
-            torch.cuda.synchronize()
-            grids = {k: v.grid_launches for k, v in kernels.COUNTS.items()}
-            tr = trace(fn, reps)
-            seen = tr.pop("launches_per_call_by_kernel")
-            off = {k: sum(seen.get(e, 0) for e in names)
-                   for k, names in GRIDS.items()}
-            off = {k: n for k, n in off.items() if n != grids[k]}
-            check(not off, f"{label} {what}: the trace shows {off} grids per "
-                  f"call, the counters {grids}; per kernel {seen}")
-            log("trace", case=label, op=what, batch=batch,
-                nrhs=1 if label.startswith("pcg_") else 3,
-                dtype="float64", card=name_limit,
-                grid_launches_per_call={k: v for k, v in grids.items() if v},
-                **tr)
+            trace_checked(label, what, fn, reps, batch=batch,
+                          nrhs=1 if label.startswith("pcg_") else 3,
+                          dtype="float64", card=name_limit)
+    # BAL 871: K6 over one assembly, and one LM iteration from the start
+    # (optimize(max_iters=1): Jacobians, K6, damp + factor, solve,
+    # retract + cost, Jacobians and K6 at the new point)
+    opt = bal["opt"]
+    one = ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP)
+
+    def lm_iteration():
+        reset_values(opt, bal["values0"])
+        opt.optimize(one)
+    trace_checked("bal871", "k6_assembly",
+                  lambda: opt.assemble(bal["terms"], torch.float64), 3,
+                  dtype="float64", card=name_limit)
+    trace_checked("bal871", "lm_iteration", lm_iteration, 1,
+                  dtype="float64", card=name_limit)
 
     paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur,
-             **c_pcg, "refined_schur50k": c_ref}
+             **c_pcg, "refined_schur50k": c_ref, "bal_lm_direct": c_direct,
+             "bal_lm_pcg": c_balpcg}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k][0] for c in paths.values()),

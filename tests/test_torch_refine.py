@@ -141,7 +141,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert T.create_solver(planned, np.full(6, 2), ss,
                            device="cpu").device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert T.create_solver(planned, np.full(6, 2), ss).device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    # with the card's index, as the tensors on it report their device
+    # (an index-less "cuda" refused every tensor on cuda:0)
+    card = torch.device("cuda", 0)
+    assert T.create_solver(planned, np.full(6, 2), ss).device == card
     assert T.solver_from_skeleton(arrays, ref.permutation, []) \
-        .device.type == "cuda"
-    assert T.Solver(ref.skel, [], ref.permutation).device.type == "cuda"
+        .device == card
+    assert T.Solver(ref.skel, [], ref.permutation).device == card
+    assert T.create_solver(planned, np.full(6, 2), ss,
+                           device="cuda").device == card
