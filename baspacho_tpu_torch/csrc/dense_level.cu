@@ -8,208 +8,276 @@
 // sum_o x_o[row] . x_o[col] over the level's origins o, where x_o is the
 // origin's solved below block (left in the data by the bucket factor).
 // It does not carry over the JAX package's mechanisms (a dense compact U
-// built by one-hot GEMMs or W W^T, 2 R^2 Kp flops when the origins' rows
-// are spread), and it needs no product buffer.
+// built by one-hot GEMMs or W W^T), and it needs no product buffer.
 //
-// One CTA per (touched span b, tile of compact rows, batch item) owns
-// the target column block of b: rows of every touched span a >= b
-// (compact rows [cs_b, R), tiled by rt rows in shared memory), columns
-// of b. It walks the origins whose below rows hold b (list entries, in
-// origin order), kGroup at a time: the group's products x[tail rows] .
-// x[b rows]^T, spread over all threads, are computed together into
-// registers, then added into the shared accumulator entry by entry with
-// a barrier between entries, so every element is summed in one fixed
-// order (origin order, but for groups larger than one round), one
-// thread at a time: no atomics, bitwise reproducible. Then it subtracts the accumulator into
-// the target slices (chain (a, lump of b) of the target panel, found by
-// binary search among b's slices). The CTAs' targets are disjoint.
+// A destination-sorted segmented reduction, as K6 (grad_hess.cu). The
+// host (ops/schedule.py DenseUpdate) makes one record for each target
+// span-block (a, b), a >= b, and each origin o whose below rows hold both
+// spans, sorted by destination with origin order kept inside one:
 //
-// Work: the level's true product volume (sum over origins and spans b of
-// tail rows x |b| x width), about 5e8 multiply-adds on the 50,000-origin
-// Schur level. Bound by latency: one round trip to device memory per
-// group of kGroup list entries (the next group's entries are read
-// meanwhile) and one barrier per entry, hidden across the CTAs on an SM.
+//   rec[p] = (xb, da << 32 | ld << 16 | n): x_o[b] starts at data offset
+//            xb, x_o[a] at xb + da, both with row stride ld (the origin's
+//            padded width), n columns (origins wider than the host's
+//            slice cap are cut into k-slices, consecutive records)
+//
+//   D[off + r * ld_t + c] -= sum_records sum_k x_o[a][r][k] x_o[b][c][k]
+//
+// An origin wider than 512 columns (a blocked wide panel: few origins of
+// hundreds to thousands of columns) would have every destination re-read
+// its rows from memory: 45 GB on BAL 871's cp-3072 level. Its product x
+// x^T is one matrix product instead (the wrapper's, as K1-wide's
+// updates), and its records (n = 0) name a block of that buffer: xb its
+// first element, ld its row stride. They go to destinations of their own,
+// a warp each, subtracted before the others.
+//
+// for the destination's |a| x |b| elements at off with row stride ld_t.
+// dense_warp_kernel: a warp per short destination (at most 32 records),
+// lanes over its elements, G = 32 / elements lane groups summing
+// interleaved records, combined by shuffles in group order.
+// dense_block_kernel: a CTA per long destination (BAL 871's camera
+// blocks: hundreds to ~3,000 points each); chunks of records' x rows are
+// staged in shared memory by cp.async, double-buffered so that one
+// chunk's loads overlap the previous chunk's products; G = 256 / elements
+// thread groups sum interleaved records, combined in group order. Every
+// element is owned by one thread, with no atomics and no barrier per
+// record: reruns agree bitwise, and targets are disjoint across
+// destinations.
+//
+// Bound on BAL 871's point level (f64): x read once, 0.57 GB, ~0.17 ms
+// at 3.35 TB/s; ~1.9 G multiply-adds, ~0.06 ms at 67 TFLOP/s; the 7.9 M
+// records add 0.13 GB. Each x block is read by ~15 records (5 camera
+// spans per point), so the kernel's distance from the bound depends on
+// how many of those re-reads hit L2. The earlier one-CTA-per-span design
+// took 128 ms there on an H100 (PERF.md), one barrier per origin.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kSmemBudget = 96 * 1024;  // accumulator bytes per CTA
-constexpr int kGroup = 16;    // list entries whose products overlap
-constexpr int kSlots = 2;     // products per thread and round
-constexpr int kThreads = 512;
+constexpr int kWarpThreads = 256;   // 8 warps, one short destination each
+constexpr int kBlockThreads = 256;  // one long destination
+constexpr int kStageBytes = 32 * 1024;  // each of the two stage buffers
 
-__device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t lo,
-                                               int64_t hi, int64_t v) {
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+struct Rec {
+  int64_t xa, xb;
+  int ld, n;
+};
+
+__device__ __forceinline__ Rec rec_at(const int64_t* rec, int64_t p) {
+  const int64_t xb = rec[2 * p], m = rec[2 * p + 1];
+  return Rec{xb + (m >> 32), xb, (int)((m >> 16) & 0xffff),
+             (int)(m & 0xffff)};
 }
 
 template <typename T>
-__global__ void dense_level_kernel(
-    T* data, int64_t bstride, const int64_t* list_ptr, const int64_t* ent_x,
-    const int64_t* ent_row, const int64_t* ent_nrow, const int64_t* ent_ld,
-    const int64_t* ent_n, const int64_t* crow, const int64_t* sp_cs,
-    const int64_t* sp_size, const int64_t* sp_ld, const int64_t* slice_ptr,
-    const int64_t* sl_cs, const int64_t* sl_size, const int64_t* sl_off,
-    int64_t R, int rt) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);
-  // per list entry of a group (double-buffered: the next group's entries
-  // are read while the current group is summed): first tail row in crow,
-  // offsets of the tail's first row and of span b's first row, the
-  // origin's row stride and width, the count of products
-  __shared__ int64_t m_row[2][kGroup], m_xa[2][kGroup], m_xb[2][kGroup];
-  __shared__ int m_ld[2][kGroup], m_n[2][kGroup], m_cnt[2][kGroup];
-  const int64_t s = blockIdx.x;
-  const int sb = (int)sp_size[s];
-  const int64_t lo = sp_cs[s] + (int64_t)blockIdx.y * rt;
-  if (lo >= R) return;  // uniform over the CTA
-  const int64_t hi = lo + rt < R ? lo + rt : R;
-  const bool whole = blockIdx.y == 0 && hi == R;  // every tail row is ours
-  const int nacc = (int)(hi - lo) * sb;
-  T* D = data + (int64_t)blockIdx.z * bstride;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int t = tid; t < nacc; t += nt) acc[t] = T(0);
+__device__ __forceinline__ void cp_async_el(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
 
-  // the entry's tail rows inside [lo, hi): read into registers, stored
-  // to the buffer after the current group is summed
-  struct Meta { int64_t row, xa, xb; int ld, n, cnt; };
-  auto fetch = [&](int64_t e) {
-    const int64_t r0 = ent_row[e], ld = ent_ld[e], x = ent_x[e];
-    int64_t a = r0, z = r0 + ent_nrow[e];
-    if (!whole) {  // crow ascends along an origin's rows
-      a = lower_bound(crow, a, z, lo);
-      z = lower_bound(crow, a, z, hi);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T>
+__global__ void dense_warp_kernel(T* data, int64_t bstride,
+                                  const T* __restrict__ prod,
+                                  int64_t pstride,
+                                  const int64_t* __restrict__ list,
+                                  int64_t n_list,
+                                  const int64_t* __restrict__ rec,
+                                  const int64_t* __restrict__ dst_off,
+                                  const int64_t* __restrict__ dst_ld,
+                                  const int64_t* __restrict__ dst_rows,
+                                  const int64_t* __restrict__ dst_cols,
+                                  const int64_t* __restrict__ dst_ptr) {
+  const int64_t w =
+      (int64_t)blockIdx.x * (kWarpThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (w >= n_list) return;  // uniform over the warp
+  T* D = data + (int64_t)blockIdx.y * bstride;
+  const T* Pb = prod + (int64_t)blockIdx.y * pstride;
+  const int64_t s = list[w];
+  const int R = (int)dst_rows[s], C = (int)dst_cols[s], E = R * C;
+  const int64_t off = dst_off[s], ldt = dst_ld[s];
+  const int64_t p0 = dst_ptr[s], p1 = dst_ptr[s + 1];
+  const int ET = E < 32 ? E : 32, G = 32 / ET;
+  const int g = lane / ET, el = lane % ET;
+  for (int e0 = 0; e0 < E; e0 += ET) {
+    const int e = e0 + el;
+    const bool live = g < G && e < E;
+    T acc = T(0);
+    if (live) {
+      const int r = e / C, c = e % C;
+      for (int64_t p = p0 + g; p < p1; p += G) {
+        const Rec x = rec_at(rec, p);
+        if (x.n == 0) {  // a wide origin's product, from the buffer
+          acc += Pb[x.xb + (int64_t)r * x.ld + c];
+          continue;
+        }
+        const T* xa = D + x.xa + (int64_t)r * x.ld;
+        const T* xb = D + x.xb + (int64_t)c * x.ld;
+        T dot = T(0);
+        for (int k = 0; k < x.n; ++k) dot += xa[k] * xb[k];
+        acc += dot;
+      }
     }
-    return Meta{a, x + (a - r0) * ld, x, (int)ld, (int)ent_n[e],
-                (int)(z - a) * sb};
+    T tot = acc;
+    for (int gg = 1; gg < G; ++gg)
+      tot += __shfl_sync(0xffffffffu, acc, gg * ET + el);
+    if (g == 0 && e < E) D[off + (e / C) * ldt + e % C] -= tot;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+    dense_block_kernel(T* data, int64_t bstride,
+                       const int64_t* __restrict__ list,
+                       const int64_t* __restrict__ rec,
+                       const int64_t* __restrict__ dst_off,
+                       const int64_t* __restrict__ dst_ld,
+                       const int64_t* __restrict__ dst_rows,
+                       const int64_t* __restrict__ dst_cols,
+                       const int64_t* __restrict__ dst_ptr,
+                       const int64_t* __restrict__ dst_nk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int CH = kStageBytes / sizeof(T);
+  T* const buf0 = reinterpret_cast<T*>(smem_raw);  // chunks 0, 2, ...
+  T* const buf1 = buf0 + CH;                        // chunks 1, 3, ...
+  T* const part = buf1 + CH;  // kBlockThreads group sums
+  const int tid = threadIdx.x, nt = kBlockThreads;
+  T* D = data + (int64_t)blockIdx.y * bstride;
+  const int64_t s = list[blockIdx.x];
+  const int R = (int)dst_rows[s], C = (int)dst_cols[s], E = R * C;
+  const int nk = (int)dst_nk[s];
+  const int64_t off = dst_off[s], ldt = dst_ld[s];
+  const int64_t p0 = dst_ptr[s], p1 = dst_ptr[s + 1];
+  // a record's staged values: x_o[a] (R rows), then x_o[b] (C rows), nk
+  // columns each (zero past the record's n)
+  const int per = (R + C) * nk, cap = CH / per;
+  const int nchunk = (int)((p1 - p0 + cap - 1) / cap);
+  const int ET = E < nt ? E : nt, G = nt / ET;
+
+  auto stage = [&](int ci) {
+    T* b = (ci & 1) ? buf1 : buf0;
+    const int64_t c0 = p0 + (int64_t)ci * cap;
+    const int n = (int)(p1 - c0 < cap ? p1 - c0 : cap);
+    for (int i = tid; i < n * per; i += nt) {
+      const int j = i / per, rem = i - j * per;
+      const int row = rem / nk, k = rem - row * nk;
+      const Rec x = rec_at(rec, c0 + j);
+      if (k < x.n)
+        cp_async_el(b + i, D + (row < R ? x.xa + (int64_t)row * x.ld
+                                        : x.xb + (int64_t)(row - R) * x.ld) +
+                               k);
+      else
+        b[i] = T(0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
   };
-  auto store = [&](const Meta& m, int buf, int j) {
-    m_row[buf][j] = m.row;
-    m_xa[buf][j] = m.xa;
-    m_xb[buf][j] = m.xb;
-    m_ld[buf][j] = m.ld;
-    m_n[buf][j] = m.n;
-    m_cnt[buf][j] = m.cnt;
-  };
-  const int64_t e_beg = list_ptr[s], e_end = list_ptr[s + 1];
-  if (tid < kGroup && e_beg + tid < e_end) store(fetch(e_beg + tid), 0, tid);
-  __syncthreads();
-  for (int64_t e0 = e_beg; e0 < e_end; e0 += kGroup) {
-    const int buf = (int)((e0 - e_beg) / kGroup) & 1;
-    const int ng = e_end - e0 < kGroup ? (int)(e_end - e0) : kGroup;
-    const bool ahead = tid < kGroup && e0 + kGroup + tid < e_end;
-    Meta next{};
-    if (ahead) next = fetch(e0 + kGroup + tid);
-    // the group's products, concatenated entry by entry, are spread
-    // over all the threads (kSlots each per round), so their memory round
-    // trips overlap; then they are added entry by entry, a barrier
-    // between entries
-    int pref[kGroup + 1];
-    pref[0] = 0;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j)
-      pref[j + 1] = pref[j] + (j < ng ? m_cnt[buf][j] : 0);
-    for (int base = 0; base < pref[kGroup]; base += kSlots * nt) {
-      T val[kSlots];
-      int idx[kSlots], ent[kSlots];
-#pragma unroll
-      for (int q = 0; q < kSlots; ++q) {
-        const int p = base + q * nt + tid;
-        ent[q] = -1;
-        if (p < pref[kGroup]) {
-          int j = 0;
-#pragma unroll
-          for (int jj = 1; jj < kGroup; ++jj) j += p >= pref[jj];
-          const int t = p - pref[j], i = t / sb, c = t % sb;
-          const int64_t ld = m_ld[buf][j];
-          const T* xr = D + m_xa[buf][j] + i * ld;
-          const T* xc = D + m_xb[buf][j] + c * ld;
+
+  for (int e0 = 0; e0 < E; e0 += ET) {
+    const int g = tid / ET, e = e0 + tid % ET;
+    const bool live = g < G && e < E;
+    const int r = live ? e / C : 0, c = live ? e % C : 0;
+    T acc = T(0);
+    stage(0);
+    for (int ci = 0; ci < nchunk; ++ci) {
+      if (ci + 1 < nchunk) {
+        stage(ci + 1);  // its buffer was last read in chunk ci - 1
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* b = (ci & 1) ? buf1 : buf0;
+      const int64_t c0 = p0 + (int64_t)ci * cap;
+      const int n = (int)(p1 - c0 < cap ? p1 - c0 : cap);
+      if (live) {
+        for (int j = g; j < n; j += G) {
+          const T* xa = b + j * per + r * nk;
+          const T* xb = b + j * per + (R + c) * nk;
           T dot = T(0);
-          for (int k = 0; k < m_n[buf][j]; ++k) dot += xr[k] * xc[k];
-          val[q] = dot;
-          idx[q] = (int)(crow[m_row[buf][j] + i] - lo) * sb + c;
-          ent[q] = j;
+          for (int k = 0; k < nk; ++k) dot += xa[k] * xb[k];
+          acc += dot;
         }
       }
-      for (int j = 0; j < ng; ++j) {
-#pragma unroll
-        for (int q = 0; q < kSlots; ++q)
-          if (ent[q] == j) acc[idx[q]] += val[q];
-        __syncthreads();
-      }
+      __syncthreads();  // chunk ci's buffer may be refilled
     }
-    if (ahead) store(next, buf ^ 1, tid);
-    __syncthreads();  // the next group's entries are in place
-  }
-
-  const int64_t q0 = slice_ptr[s], q1 = slice_ptr[s + 1], ldt = sp_ld[s];
-  for (int t = tid; t < nacc; t += nt) {
-    const int64_t rr = lo + t / sb;
-    const int c = t % sb;
-    int64_t ql = q0, qh = q1;  // last slice starting at or before rr
-    while (ql < qh) {
-      const int64_t mid = (ql + qh) >> 1;
-      if (sl_cs[mid] <= rr) ql = mid + 1; else qh = mid;
+    part[tid] = acc;
+    __syncthreads();
+    if (tid < ET && e0 + tid < E) {
+      T tot = T(0);
+      for (int gg = 0; gg < G; ++gg) tot += part[gg * ET + tid];
+      const int ee = e0 + tid;
+      D[off + (ee / C) * ldt + ee % C] -= tot;
     }
-    const int64_t q = ql - 1;
-    if (q >= q0 && rr < sl_cs[q] + sl_size[q])
-      D[sl_off[q] + (rr - sl_cs[q]) * ldt + c] -= acc[t];
+    __syncthreads();
   }
 }
 
 template <typename T>
-int launch(void* data, int64_t bstride, const int64_t* list_ptr,
-           const int64_t* ent_x, const int64_t* ent_row,
-           const int64_t* ent_nrow, const int64_t* ent_ld,
-           const int64_t* ent_n, const int64_t* crow, const int64_t* sp_cs,
-           const int64_t* sp_size, const int64_t* sp_ld,
-           const int64_t* slice_ptr, const int64_t* sl_cs,
-           const int64_t* sl_size, const int64_t* sl_off, int64_t S,
-           int64_t R, int max_span, int batch, cudaStream_t stream) {
-  int64_t rt = kSmemBudget / ((int64_t)max_span * (int64_t)sizeof(T));
-  if (rt < 1) rt = 1;
-  if (rt > R) rt = R;
-  const int64_t tiles = (R + rt - 1) / rt;
-  const size_t smem = (size_t)rt * max_span * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      dense_level_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dense_level_kernel<T><<<dim3((unsigned)S, (unsigned)tiles, batch),
-                          kThreads, smem, stream>>>(
-      static_cast<T*>(data), bstride, list_ptr, ent_x, ent_row, ent_nrow,
-      ent_ld, ent_n, crow, sp_cs, sp_size, sp_ld, slice_ptr, sl_cs, sl_size,
-      sl_off, R, (int)rt);
+int launch(void* data, int64_t bstride, const void* prod, int64_t pstride,
+           const int64_t* list, int64_t n_list,
+           int long_mode, const int64_t* rec, const int64_t* dst_off,
+           const int64_t* dst_ld, const int64_t* dst_rows,
+           const int64_t* dst_cols, const int64_t* dst_ptr,
+           const int64_t* dst_nk, int batch, cudaStream_t stream) {
+  if (n_list <= 0) return 0;
+  if (!long_mode) {
+    const int64_t per_block = kWarpThreads / 32;
+    dense_warp_kernel<T><<<dim3((unsigned)((n_list + per_block - 1) /
+                                           per_block),
+                                batch),
+                           kWarpThreads, 0, stream>>>(
+        static_cast<T*>(data), bstride, static_cast<const T*>(prod),
+        pstride, list, n_list, rec, dst_off, dst_ld, dst_rows, dst_cols,
+        dst_ptr);
+  } else {
+    const size_t smem = 2 * kStageBytes + kBlockThreads * sizeof(T);
+    cudaError_t e = cudaFuncSetAttribute(
+        dense_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dense_block_kernel<T><<<dim3((unsigned)n_list, batch), kBlockThreads,
+                            smem, stream>>>(
+        static_cast<T*>(data), bstride, list, rec, dst_off, dst_ld, dst_rows,
+        dst_cols, dst_ptr, dst_nk);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64. Returns the cudaError_t of the launch.
-extern "C" int bs_dense_update(
-    int dtype, void* data, int64_t bstride, const int64_t* list_ptr,
-    const int64_t* ent_x, const int64_t* ent_row, const int64_t* ent_nrow,
-    const int64_t* ent_ld, const int64_t* ent_n, const int64_t* crow,
-    const int64_t* sp_cs, const int64_t* sp_size, const int64_t* sp_ld,
-    const int64_t* slice_ptr, const int64_t* sl_cs, const int64_t* sl_size,
-    const int64_t* sl_off, int64_t S, int64_t R, int max_span, int batch,
-    void* stream) {
+// dtype: 0 float32, 1 float64. long_mode 0: a warp per destination of
+// `list` (the only mode that reads prod, the wide origins' products,
+// pstride values per batch item); 1: a CTA per destination, whose staged
+// record, (rows + cols) x nk values, must fit in 32 KB in f64 (the host's
+// slice cap sees to it). Returns the cudaError_t of the launch.
+extern "C" int bs_dense_update(int dtype, void* data, int64_t bstride,
+                               const void* prod, int64_t pstride,
+                               const int64_t* list, int64_t n_list,
+                               int long_mode, const int64_t* rec,
+                               const int64_t* dst_off, const int64_t* dst_ld,
+                               const int64_t* dst_rows,
+                               const int64_t* dst_cols,
+                               const int64_t* dst_ptr, const int64_t* dst_nk,
+                               int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(data, bstride, list_ptr, ent_x, ent_row, ent_nrow,
-                         ent_ld, ent_n, crow, sp_cs, sp_size, sp_ld,
-                         slice_ptr, sl_cs, sl_size, sl_off, S, R, max_span,
-                         batch, s);
+    return launch<float>(data, bstride, prod, pstride, list, n_list,
+                         long_mode, rec, dst_off, dst_ld, dst_rows, dst_cols,
+                         dst_ptr, dst_nk, batch, s);
   if (dtype == 1)
-    return launch<double>(data, bstride, list_ptr, ent_x, ent_row, ent_nrow,
-                          ent_ld, ent_n, crow, sp_cs, sp_size, sp_ld,
-                          slice_ptr, sl_cs, sl_size, sl_off, S, R, max_span,
-                          batch, s);
+    return launch<double>(data, bstride, prod, pstride, list, n_list,
+                          long_mode, rec, dst_off, dst_ld, dst_rows,
+                          dst_cols, dst_ptr, dst_nk, batch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -159,18 +159,16 @@ def _lib() -> ctypes.CDLL:
             "bs_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
                               vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
                               i32, vp],
-            "bs_dense_update": [i32, vp, i64, vp, vp, vp, vp, vp, vp, vp, vp,
-                                vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
-                                vp],
+            "bs_dense_update": [i32, vp, i64, vp, i64, vp, i64, i32, vp,
+                                vp, vp, vp, vp, vp, vp, i32, vp],
             "bs_tri_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
                              vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
                              vp],
-            "bs_tri_wide_pre": [i32, i32, vp, i64, vp, i64, vp, vp, vp, vp,
-                                vp, vp, i64, i64, i32, i32, i32, i32, vp],
-            "bs_tri_wide_inv": [i32, i32, vp, i64, vp, vp, vp, i64, i32,
-                                i32, i32, vp],
-            "bs_tri_wide_step": [i32, i32, vp, i64, vp, vp, vp, vp, vp, i64,
-                                 i32, i32, i32, i32, i32, vp],
+            "bs_tri_wide_pre": [i32, i32, vp, i64, vp, i64, vp, vp, i64, vp,
+                                vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                                vp],
+            "bs_tri_wide_chain": [i32, i32, vp, i64, vp, vp, vp, vp, vp, vp,
+                                  i64, i32, i32, i32, vp],
             "bs_tri_wide_post": [i32, vp, i64, vp, i64, vp, i64, i64, vp,
                                  vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                  vp],
@@ -616,27 +614,39 @@ def dense_update(data, d) -> None:
     whose below rows hold both spans of x_o[a] . x_o[b]^T, in origin
     order. `d` is the level's DenseUpdate as device tensors
     (planned_backend.DevDense); x_o is read from the data, where the
-    bucket factor left it."""
+    bucket factor left it. The kernel runs over d's destination-sorted
+    records: one launch for the wide origins' products (a matrix product
+    per wide origin and batch item into a buffer first), one for the
+    short destinations (a warp each), one for the long ones (a CTA
+    each)."""
     if data.device.type == "cpu":
         return dense_update_twin(data, d)
     _check_cuda("dense_update", [data],
-                [d.list_ptr, d.ent_x, d.ent_row, d.ent_nrow, d.ent_ld,
-                 d.ent_n, d.crow, d.sp_cs, d.sp_size, d.sp_ld, d.slice_ptr,
-                 d.sl_cs, d.sl_size, d.sl_off])
-    S = d.sp_cs.shape[0]
-    if S == 0:
-        return
-    err = _lib().bs_dense_update(
-        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
-        d.list_ptr.data_ptr(), d.ent_x.data_ptr(), d.ent_row.data_ptr(),
-        d.ent_nrow.data_ptr(), d.ent_ld.data_ptr(), d.ent_n.data_ptr(),
-        d.crow.data_ptr(), d.sp_cs.data_ptr(), d.sp_size.data_ptr(),
-        d.sp_ld.data_ptr(), d.slice_ptr.data_ptr(), d.sl_cs.data_ptr(),
-        d.sl_size.data_ptr(), d.sl_off.data_ptr(), S, d.R, d.max_span,
-        data.shape[0], _stream(data))
+                [d.rec, d.dst_off, d.dst_ld, d.dst_rows, d.dst_cols,
+                 d.dst_ptr, d.dst_nk, d.dst_short, d.dst_long, d.dst_prod])
+    lib, code, st = _lib(), _DTYPE_CODE[data.dtype], _stream(data)
     COUNTS["dense_update"].launches += 1
-    COUNTS["dense_update"].grid_launches += 1
-    _raise_on("dense_update", err)
+    batch = data.shape[0]
+    prod = data.new_empty((batch, d.prod_size)) if d.prod_size else None
+    for xoff, rows, n, ld, pbase in d.wide:
+        for z in range(batch):  # per batch item: the bits of a single run
+            x = data[z].as_strided((rows, n), (ld, 1),
+                                   data[z].storage_offset() + xoff)
+            torch.matmul(x, x.mT, out=prod[z, pbase:pbase + rows * rows]
+                         .view(rows, rows))
+    for ids, long_mode in ((d.dst_prod, 0), (d.dst_short, 0),
+                           (d.dst_long, 1)):
+        if ids.shape[0] == 0:
+            continue
+        err = lib.bs_dense_update(
+            code, data.data_ptr(), data.shape[1],
+            prod.data_ptr() if prod is not None else None,
+            d.prod_size, ids.data_ptr(), ids.shape[0], long_mode,
+            d.rec.data_ptr(), d.dst_off.data_ptr(), d.dst_ld.data_ptr(),
+            d.dst_rows.data_ptr(), d.dst_cols.data_ptr(),
+            d.dst_ptr.data_ptr(), d.dst_nk.data_ptr(), batch, st)
+        COUNTS["dense_update"].grid_launches += 1
+        _raise_on("dense_update", err)
 
 
 TWIN_CHUNK_ELEMS = 1 << 22  # product elements per chunk of the K4 twin
@@ -712,15 +722,15 @@ def wide_tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
                    below_idx, cp: int, rp: int, transpose: bool, off_h,
                    cols_h) -> None:
     """tri_solve for wide panels (cp > 512, a multiple of WIDE_TILE), as
-    PlannedBackend._big_panel_solve: a chain of WIDE_TILE-wide diagonal
-    tiles. One launch gathers each panel's RHS rows into a (batch, B, cp,
-    nrhs) scratch xs (Lt pass: minus below^T vv[below_idx]), one inverts
-    every diagonal tile at once; then one launch per tile (forward in
-    the L pass, backward in the Lt pass) puts the tile's solution into
-    xsol and applies it to the rest of xs (L pass x[k1:n] -= L[k1:n,
-    k0:k1] s; Lt pass x[:k0] -= L[k0:k1, :k0]^T s); the last writes xsol
-    back and, in the L pass, y. off_h / cols_h are host copies of off /
-    cols."""
+    PlannedBackend._big_panel_solve, in three launches: one gathers each
+    panel's RHS rows into a (batch, B, cp, nrhs) scratch xs (Lt pass:
+    minus below^T vv[below_idx]) and zeroes the flags; one persistent
+    launch runs the chain of WIDE_TILE-wide tiles of every panel on the
+    device (csrc/tri_solve.cu: tiles claimed by ticket in column order,
+    each off-diagonal tile's product into a scratch slot of its own, each
+    diagonal tile's solution published with a flag); the last writes the
+    solution back and, in the L pass, y. off_h / cols_h are host copies
+    of off / cols (unused here: the twin's signature)."""
     use_y = _check_solve("wide_tri_solve", data, vv, y, rp, transpose)
     if data.device.type == "cpu":
         return wide_tri_solve_twin(data, vv, y, y_base, off, rows, cols,
@@ -735,11 +745,15 @@ def wide_tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
     COUNTS["wide_tri_solve"].launches += 1
     batch, order, nrhs = vv.shape
     B = off.shape[0]
+    K, P = cp // nb, B * batch
     lib, code, tr = _lib(), _DTYPE_CODE[data.dtype], int(transpose)
     d, dst, st = data.data_ptr(), data.shape[1], _stream(data)
-    xs = vv.new_empty((batch, B, cp, nrhs))
-    xsol = torch.zeros_like(xs)
-    tinv = vv.new_empty((batch, B, cp // nb, nb, nb))
+    # one float scratch (xs, xsol, the partial slots) and the flags
+    nx = P * cp * nrhs
+    scratch = vv.new_empty((2 * nx + P * K * K * nb * nrhs,))
+    xs, xsol, part = scratch[:nx], scratch[nx:2 * nx], scratch[2 * nx:]
+    flags = torch.empty(1 + P * K * (K + 1), dtype=torch.int32,
+                        device=vv.device)
 
     def ran(step, err):
         COUNTS["wide_tri_solve"].grid_launches += 1
@@ -747,17 +761,13 @@ def wide_tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
 
     ran("pre", lib.bs_tri_wide_pre(
         code, tr, d, dst, vv.data_ptr(), order * nrhs, xs.data_ptr(),
-        off.data_ptr(), rows.data_ptr(), cols.data_ptr(), vec_off.data_ptr(),
-        below_idx.data_ptr(), order, B, cp, rp, nrhs, batch, st))
-    ran("inverse", lib.bs_tri_wide_inv(
-        code, tr, d, dst, tinv.data_ptr(), off.data_ptr(), cols.data_ptr(),
-        B, cp, nb, batch, st))
-    tiles = [k0 for k0 in range(0, cp, nb) if k0 < max(cols_h)]
-    for k0 in (reversed(tiles) if transpose else tiles):
-        ran("step", lib.bs_tri_wide_step(
-            code, tr, d, dst, tinv.data_ptr(), xs.data_ptr(),
-            xsol.data_ptr(), off.data_ptr(), cols.data_ptr(), B, cp, k0, nb,
-            nrhs, batch, st))
+        flags.data_ptr(), flags.numel(), off.data_ptr(), rows.data_ptr(),
+        cols.data_ptr(), vec_off.data_ptr(), below_idx.data_ptr(), order, B,
+        cp, rp, nrhs, batch, st))
+    ran("chain", lib.bs_tri_wide_chain(
+        code, tr, d, dst, xs.data_ptr(), xsol.data_ptr(), part.data_ptr(),
+        flags.data_ptr(), off.data_ptr(), cols.data_ptr(), B, cp, nrhs,
+        batch, st))
     ran("post", lib.bs_tri_wide_post(
         code, d, dst, vv.data_ptr(), order * nrhs,
         y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,

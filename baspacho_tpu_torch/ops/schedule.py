@@ -20,9 +20,11 @@ A level's update runs through one of two mechanisms:
 
   pairs  each origin's product x . x^T goes to a product buffer, and the
          level's block pairs subtract it into the targets (K1 + K2);
-  dense  no product buffer and no pairs: the dense-level kernel (K4)
-         sums x_o[a] . x_o[b]^T over the origins that share the target
-         span-block (a, b), straight into the target panel.
+  dense  no pairs: the dense-level kernel (K4) sums x_o[a] . x_o[b]^T
+         over the origins that share the target span-block (a, b),
+         straight into the target panel, from records sorted by
+         destination (a wide origin's x x^T comes from one matrix
+         product instead).
 
 The port's rule (its own; the JAX package prices the two against TPU
 cost constants): a level goes dense when the volume of its origins'
@@ -138,6 +140,11 @@ class PairBucket:
     tgt_stride: np.ndarray  # (P,) per-pair target panel stride
 
 
+DENSE_LONG = 32      # K4 destinations with more records get a CTA each
+DENSE_NK = 32        # widest k-slice of one K4 record
+DENSE_STAGE = 4096   # values one record may stage in K4's CTA (32 KB f64)
+
+
 @dataclass
 class DenseUpdate:
     """One dense level's update, for the dense-level kernel (K4).
@@ -147,28 +154,38 @@ class DenseUpdate:
     lumps with below rows, in bucket order; their solved below blocks x
     (written in place by the bucket factor) are read from the data.
 
-    Per touched span b (index s into `tspans`), the list entries
-    [list_ptr[s], list_ptr[s + 1]) are the origins whose below rows
-    include b, in origin order; entry e points at the first row of b in
-    that origin (`ent_x`, flat data offset; `ent_row`, index into
-    `crow`) and counts the origin's rows from there to its end
-    (`ent_nrow`: the tail, whose spans are all >= b). The target of
-    span-block (a, b), a >= b, is slice q in [slice_ptr[s],
-    slice_ptr[s + 1]): rows of span a start at compact row sl_cs[q] and
-    at flat offset sl_off[q] (column 0 of b) with row stride sp_ld[s].
-    Slices of one span ascend in sl_cs."""
+    The target of span-block (a, b), a >= b, is slice q in
+    [slice_ptr[s], slice_ptr[s + 1]) of touched span b (index s into
+    `tspans`): rows of span a start at compact row sl_cs[q] and at flat
+    offset sl_off[q] (column 0 of b) with row stride sp_ld[s]. Slices of
+    one span ascend in sl_cs.
+
+    K4's plan, destination-sorted: one record per (destination (a, b),
+    origin o whose below rows hold both spans), origins in order within a
+    destination. A narrow origin's record names x_o's rows: rec[p] = (xb,
+    da << 32 | ld << 16 | n), x_o[b]'s first element (plus the slice's
+    first column) at data offset xb, x_o[a]'s at xb + da, row stride ld,
+    n columns; an origin wider than the destination's slice cap
+    (DENSE_NK, less where |a| + |b| is large: a record stages (|a| + |b|)
+    x width values, at most DENSE_STAGE) gives one record per k-slice. A
+    wide origin (panel wider than NARROW_MAX: hundreds to thousands of
+    columns, few origins, whose span-blocks would re-read x from memory
+    for every destination) has its product x x^T formed by one matrix
+    product into a buffer (`wide`: data offset, rows, width, stride and
+    buffer offset per wide origin; prod_size values per batch item); its
+    record names the block there: xb the buffer offset of (a, b)'s first
+    element, ld = its rows, n = 0. Its records go to destinations of
+    their own (dst_prod), subtracted first. Destination d subtracts the
+    sum of its records rec[dst_ptr[d]:dst_ptr[d + 1]] from dst_rows x
+    dst_cols elements at dst_off + i * dst_ld + j; dst_nk is its widest
+    record; dst_short / dst_long split the others at DENSE_LONG records.
+    The compact rows and origin groups serve the plain twin."""
     R: int
     max_span: int
     tspans: np.ndarray     # (S,) touched spans, ascending
     sp_cs: np.ndarray      # (S,) compact start
     sp_size: np.ndarray    # (S,) rows
     sp_ld: np.ndarray      # (S,) row stride of the span's lump panel
-    list_ptr: np.ndarray   # (S + 1,)
-    ent_x: np.ndarray      # (E,)
-    ent_row: np.ndarray    # (E,)
-    ent_nrow: np.ndarray   # (E,)
-    ent_ld: np.ndarray     # (E,) origin panel stride (its padded width)
-    ent_n: np.ndarray      # (E,) origin width
     crow: np.ndarray       # (N,) compact row of every origin below row
     slice_ptr: np.ndarray  # (S + 1,)
     sl_cs: np.ndarray      # (Q,)
@@ -176,8 +193,21 @@ class DenseUpdate:
     sl_off: np.ndarray     # (Q,)
     org_xoff: np.ndarray   # (O,) flat offset of each origin's below block
     org_rows: np.ndarray   # (O,) below rows
+    org_cols: np.ndarray   # (O,) width
     org_rptr: np.ndarray   # (O + 1,) extents into crow
     groups: list           # (cp, rp, first, end) origin ranges per bucket
+    rec: np.ndarray        # (M, 2) records, destination-sorted
+    dst_off: np.ndarray    # (T,)
+    dst_ld: np.ndarray     # (T,)
+    dst_rows: np.ndarray   # (T,)
+    dst_cols: np.ndarray   # (T,)
+    dst_nk: np.ndarray     # (T,)
+    dst_ptr: np.ndarray    # (T + 1,)
+    dst_short: np.ndarray  # destinations with <= DENSE_LONG records
+    dst_long: np.ndarray   # the others
+    dst_prod: np.ndarray   # destinations of wide origins' products
+    wide: list             # (xoff, rows, width, ld, pbase) per wide origin
+    prod_size: int         # product buffer values per batch item
 
 
 def _expand(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -185,6 +215,75 @@ def _expand(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     tot = int(counts.sum())
     ex = np.cumsum(counts) - counts
     return np.repeat(starts - ex, counts) + np.arange(tot, dtype=np.int64)
+
+
+def _dense_records(sp, org_of, grow, rptr, nch, xoff, ld, width, rows,
+                   span_size, tspans, sl_span, slice_ptr, sl_off, sp_ld,
+                   num_spans) -> dict:
+    """K4's destination-sorted records (DenseUpdate), vectorised. sp,
+    org_of, grow: span, origin and first row of every below chain of the
+    level's origins, origins in order; sl_span the span a of each slice."""
+    # every (chain a >= chain b) pair of one origin, by origin, then b
+    nc = len(sp)
+    cend = np.cumsum(nch)[org_of]
+    cnt = cend - np.arange(nc)
+    jb = np.repeat(np.arange(nc), cnt)
+    ia = _expand(np.arange(nc), cnt)
+    o = org_of[jb]
+    wide = ld[o] > NARROW_MAX
+    # destination: the slice of span a in touched span b's column; wide
+    # origins' products get destinations of their own
+    n_sl = np.diff(slice_ptr)
+    keys = np.repeat(np.arange(len(tspans)), n_sl) * num_spans + sl_span
+    key = np.searchsorted(tspans, sp[jb]) * num_spans + sp[ia]
+    dst = np.searchsorted(keys, key)
+    assert np.array_equal(keys[dst], key), "span-block without a target"
+    dkey = 2 * dst + wide
+    order = np.argsort(dkey, kind="stable")
+    dkey, o, ia, jb, wide = (x[order] for x in (dkey, o, ia, jb, wide))
+    dst = dkey >> 1
+    la, lb = grow[ia] - rptr[o], grow[jb] - rptr[o]  # rows in the origin
+    # a wide origin's product P = x x^T comes from a matrix product into
+    # a buffer, (rows x rows) per wide origin at wide_pbase
+    wide_org = np.flatnonzero(ld > NARROW_MAX)
+    psize = rows[wide_org] ** 2
+    pbase = np.zeros(len(ld), np.int64)
+    pbase[wide_org] = np.cumsum(psize) - psize
+    # k-slices: at most DENSE_NK columns, and DENSE_STAGE staged values
+    s_of = np.repeat(np.arange(len(tspans)), n_sl)
+    rows_d, cols_d = span_size[sl_span], span_size[tspans][s_of]
+    cap = np.minimum(DENSE_NK, DENSE_STAGE // (rows_d + cols_d))
+    if np.any(cap < 1):
+        raise ValueError("dense level: a span-block too large for K4's "
+                         "shared-memory stage")
+    n = np.where(wide, 0, width[o])
+    ns = np.where(wide, 1, (n + cap[dst] - 1) // cap[dst])
+    sl = np.repeat(np.arange(len(ns)), ns)
+    k0 = (np.arange(int(ns.sum())) - np.repeat(np.cumsum(ns) - ns, ns)) * \
+        cap[dst][sl]
+    nk = np.minimum(cap[dst][sl], n[sl] - k0)
+    xb = np.where(wide, pbase[o] + la * rows[o] + lb,
+                  xoff[o] + lb * ld[o])[sl] + k0
+    da = np.where(wide, 0, (la - lb) * ld[o])[sl]
+    lds = np.where(wide, rows[o], ld[o])[sl]
+    dkey = dkey[sl]
+    if np.any(lds >= 1 << 16) or np.any(da >= 1 << 31):
+        raise ValueError("dense level: an origin too wide for K4's records")
+    rec = np.stack([xb, (da << 32) | (lds << 16) | nk], axis=1)
+    used, start, count = np.unique(dkey, return_index=True,
+                                   return_counts=True)
+    d, prod = used >> 1, (used & 1).astype(bool)
+    long_ = ~prod & (count > DENSE_LONG)
+    return dict(
+        rec=rec, dst_off=sl_off[d], dst_ld=sp_ld[s_of[d]],
+        dst_rows=rows_d[d], dst_cols=cols_d[d],
+        dst_nk=np.maximum.reduceat(nk, start) if len(start) else start,
+        dst_ptr=np.append(start, len(dkey)),
+        dst_short=np.flatnonzero(~prod & ~long_),
+        dst_long=np.flatnonzero(long_), dst_prod=np.flatnonzero(prod),
+        wide=[(int(xoff[w]), int(rows[w]), int(width[w]), int(ld[w]),
+               int(pbase[w])) for w in wide_org],
+        prod_size=int(psize.sum()))
 
 
 class PlannedSchedule:
@@ -259,8 +358,9 @@ class PlannedSchedule:
 
     def _dense_update(self, lump_buckets) -> Optional[DenseUpdate]:
         """The level's DenseUpdate when the rule of the module docstring
-        sends it dense, else None (vectorized; linear in the origins'
-        below chains and rows)."""
+        sends it dense, else None (vectorized: the rule is linear in the
+        origins' below chains and rows, K4's records in the pairs of each
+        origin's below chains)."""
         sk = self.plan.skel
         span_size = sk.span_start[1:] - sk.span_start[:-1]
         org, xoff, ld, width, groups = [], [], [], [], []
@@ -306,14 +406,6 @@ class PlannedSchedule:
         crow = np.repeat(compact_start[sp] - grow, sz) + \
             np.arange(int(rptr[-1]), dtype=np.int64)
 
-        # list entries: one per (origin, below chain), by (span, origin)
-        order = np.argsort(sp, kind="stable")
-        e_org, e_row = org_of[order], grow[order]
-        e_loc = e_row - rptr[e_org]  # row of the span inside its origin
-        sidx = np.searchsorted(tspans, sp[order])
-        list_ptr = np.concatenate(
-            [[0], np.cumsum(np.bincount(sidx, minlength=len(tspans)))])
-
         # target slices: per touched span b of lump t, the touched chains
         # of t's column from b down (a >= b, spans ascending)
         tl = np.unique(sk.span_to_lump[tspans])
@@ -333,19 +425,20 @@ class PlannedSchedule:
         grp_end = bounds[np.searchsorted(bounds, own, side="right")]
         n_sl = grp_end - own
         q = _expand(own, n_sl)
+        slice_ptr = np.concatenate([[0], np.cumsum(n_sl)])
+        sl_cs, sl_size = compact_start[cs[q]], span_size[cs[q]]
+        sl_off = sk.chain_data[ch[q]] + \
+            np.repeat(sk.span_offset_in_lump[tspans], n_sl)
+        sp_ld = sk.col_stride[ct[own]].astype(np.int64)
+        plan = _dense_records(
+            sp, org_of, grow, rptr, nch, xoff, ld, width, rows, span_size,
+            tspans, cs[q], slice_ptr, sl_off, sp_ld, sk.num_spans)
         return DenseUpdate(
             R=R, max_span=int(tsize.max()), tspans=tspans,
-            sp_cs=compact_start[tspans], sp_size=tsize,
-            sp_ld=sk.col_stride[ct[own]].astype(np.int64),
-            list_ptr=list_ptr,
-            ent_x=xoff[e_org] + e_loc * ld[e_org], ent_row=e_row,
-            ent_nrow=rows[e_org] - e_loc, ent_ld=ld[e_org],
-            ent_n=width[e_org], crow=crow,
-            slice_ptr=np.concatenate([[0], np.cumsum(n_sl)]),
-            sl_cs=compact_start[cs[q]], sl_size=span_size[cs[q]],
-            sl_off=sk.chain_data[ch[q]] +
-            np.repeat(sk.span_offset_in_lump[tspans], n_sl),
-            org_xoff=xoff, org_rows=rows, org_rptr=rptr, groups=groups)
+            sp_cs=compact_start[tspans], sp_size=tsize, sp_ld=sp_ld,
+            crow=crow, slice_ptr=slice_ptr, sl_cs=sl_cs, sl_size=sl_size,
+            sl_off=sl_off, org_xoff=xoff, org_rows=rows, org_cols=width,
+            org_rptr=rptr, groups=groups, **plan)
 
     def _bucket_lumps(self, lds, with_below_idx: bool) -> List[LumpBucket]:
         """Group the lump ids by padded panel shape (fully vectorized)."""

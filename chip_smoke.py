@@ -23,6 +23,12 @@ and drives the planned factor + solve (create_solver -> Solver.factor
   WIDE_BELOW   a 540-wide lump (padded 1024) with 64 padded below rows
                on a dense level: K1-wide's below rows, K3-wide's below
                products and gather, K4 on a wide origin
+  K3-rest wide against its twin and itself on the 50k corner (cp 3072)
+               and WIDE_BELOW (cp 1024, below rows), f64 and f32, nrhs 1
+               and 3, batch 2; at most 3 grids per call, in the traces
+  K4 per level on every dense level of FLAT+Schur 50k and BAL 871 (its
+               point level and the two wide camera levels): against its
+               twin (f64, f32), against itself, timed, its bound
   partial      factor_up_to / factor_from / the four partial solves on
                MERI, GRID (against the CPU twins) and FLAT+Schur 50k
   PCG          the mixed direct/iterative solve on FLAT+Schur 50k, f64,
@@ -115,10 +121,10 @@ GRIDS = {"bucket_factor": ("chol_inv_kernel", "below_kernel", "prod_kernel"),
          "bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
          "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
                         "wide_ltpre_kernel", "wide_ltmv_kernel"),
-         "dense_update": ("dense_level_kernel",),
+         "dense_update": ("dense_warp_kernel", "dense_block_kernel"),
          "tri_solve": ("tri_l_kernel", "tri_lt_kernel"),
-         "wide_tri_solve": ("tri_wide_pre_kernel", "tri_wide_inv_kernel",
-                            "tri_wide_step_kernel", "tri_wide_post_kernel"),
+         "wide_tri_solve": ("tri_wide_pre_kernel", "tri_wide_chain_kernel",
+                            "tri_wide_post_kernel"),
          "add_mv": ("mv_kernel",),
          "wide_add_mv": ("wide_mv_tile_kernel", "wide_mv_post_kernel"),
          "grad_hess": ("gh_warp_kernel", "gh_block_kernel")}
@@ -307,6 +313,108 @@ class CheckedOps:
         self.shapes.add(("dense_update", d.R, int(d.sp_cs.shape[0])))
 
 
+class DenseCapture:
+    """The kernels, for a factor program, keeping at each dense level a
+    copy of the data K4 starts from (with the level's plan)."""
+
+    def __init__(self):
+        self.levels = []
+
+    def __getattr__(self, name):
+        return getattr(kernels, name)
+
+    def dense_update(self, data, d):
+        self.levels.append((data.clone(), d))
+        kernels.dense_update(data, d)
+
+
+def k4_levels(s, data, label: str, name_limit: str) -> list:
+    """K4 on every dense level of one factor of `data` (single, f64): the
+    update against its twin in f64 and f32 (CheckedOps), two runs from
+    the same data bitwise equal, its time (CUDA events, mean of 5 after 2
+    warm-up runs), the twin's (one run), and its bound from this level's
+    plan. Returns one row per dense level."""
+    cap = DenseCapture()
+    s.factor_program()(data[None], ops=cap)
+    sched = s.backend._factor_schedule(0, s.skel.num_lumps)
+    ids = [i for i, lv in enumerate(sched) if lv[3] is not None]
+    check(len(ids) == len(cap.levels) > 0, f"{label}: dense levels {ids}, "
+          f"K4 calls {len(cap.levels)}")
+    rows = []
+    for lvl, (snap, d) in zip(ids, cap.levels):
+        row = {"level": lvl, "origins": int(d.org_xoff.shape[0]), "R": d.R,
+               "records": int(d.rec.shape[0]),
+               "destinations": int(d.dst_off.shape[0]),
+               "long_destinations": int(d.dst_long.shape[0])}
+        for dt in (torch.float64, torch.float32):
+            chk = CheckedOps()
+            chk.dense_update(snap.to(dt), d)
+            r = chk.rel["dense_update"]
+            check(r <= KERNEL_RTOL[dt], f"dense_update vs twin on {label} "
+                  f"level {lvl} {dt}: rel {r}")
+            row[f"max_rel_{str(dt)[6:]}"] = r
+            row["max_abs"] = max(row.get("max_abs", 0.0),
+                                 chk.abs["dense_update"])
+            del chk
+        a, b = snap.clone(), snap.clone()
+        kernels.dense_update(a, d)
+        kernels.dense_update(b, d)
+        check(torch.equal(a, b), f"dense_update on {label} level {lvl}: "
+              "two runs differ")
+        del a, b
+        buf = snap.clone()
+        row["ms"] = time_ms(lambda: kernels.dense_update(buf, d), 5)
+        row["twin_ms"] = time_ms(lambda: kernels.dense_update_twin(buf, d),
+                                 1, warmup=1)
+        row["bound_ms"], row["bound_by"] = bound(*cost("dense_update",
+                                                       (buf, d)))
+        rows.append(row)
+        del buf, snap
+    log("k4_levels", case=label, card=name_limit, dtype="float64",
+        limits={"float64": 1e-10, "float32": 1e-4}, bitwise_rerun=True,
+        ms_per_factor=sum(r["ms"] for r in rows), levels=rows)
+    return rows
+
+
+def wide_tri_checks(probs, d64, dev) -> dict:
+    """K3-rest wide against its twin and against itself: on FLAT+Schur
+    50k's corner (cp 3072) and on WIDE_BELOW (cp 1024, below rows), f64
+    and f32, nrhs 1 and 3, batch 2, through solve_l_from / solve_lt_from
+    on factor_from's and the pseudo-factor's data."""
+    info = {}
+    for pname in ("flat_schur50k", "wide_below"):
+        s = probs[pname]
+        t = split_span(s, pname)
+        tl, nl = s._lump_of_span(t), s.skel.num_lumps
+        for dt in (torch.float64, torch.float32):
+            datas = batched(d64[pname], 2, dev).to(dt)
+            fu = s.program("factor", 0, tl)(datas)
+            fs = (s.program("factor", tl, nl)(fu),
+                  s.program("pseudo", t, s.skel.num_spans)(fu))
+            for nrhs in (1, 3):
+                rb = torch.from_numpy(np.random.RandomState(nrhs).rand(
+                    2, s.order, nrhs)).to(dev, dt)
+                chk = CheckedOps()
+                for f in fs:
+                    for op in ("solve_l", "solve_lt"):
+                        prog = s.program(op, tl, nl)
+                        prog(f, rb, ops=chk)
+                        check(torch.equal(prog(f, rb), prog(f, rb)),
+                              f"{pname} {op}_from {dt} nrhs {nrhs}: two "
+                              "runs differ")
+                r = chk.rel["wide_tri_solve"]
+                check(r <= KERNEL_RTOL[dt], f"wide_tri_solve vs twin on "
+                      f"{pname} {dt} nrhs {nrhs} batch 2: rel {r}")
+                check(any(sh[0] == "wide_tri_solve" for sh in chk.shapes),
+                      f"{pname}: no wide_tri_solve call")
+                info[f"{pname}_{str(dt)[6:]}_nrhs{nrhs}"] = {
+                    "max_rel": r, "shapes": sorted(
+                        sh for sh in chk.shapes if sh[0] == "wide_tri_solve")}
+    log("k3_rest_wide_vs_twin", limits={"float64": 1e-10, "float32": 1e-4},
+        batch=2, bitwise_rerun=True, **info)
+    return info
+
+
 def _host(t) -> np.ndarray:
     return np.asarray(t.tolist(), dtype=np.float64)
 
@@ -336,21 +444,24 @@ def cost(name: str, args) -> tuple:
         return (batch * item * width * (ns + 2 * nt) +
                 8 * (nt + seg_ptr.numel() + ns), batch * ns * width)
     if name == "dense_update":
+        # each origin's real below block x read once, the destinations'
+        # target elements read and written once, the plan's records and
+        # destination arrays; a multiply-add per record, element of its
+        # destination and column (this run's records), and per element
+        # of a wide origin's lower product and column
         d = args[1]
-        s_of = torch.repeat_interleave(
-            torch.arange(d.sp_cs.shape[0], device=data.device),
-            d.list_ptr.diff())
-        sz = d.sp_size[s_of]
-        x_el = int((sz * d.ent_n).sum())
-        macs = int((d.ent_nrow * sz * d.ent_n).sum())
-        q_of = torch.repeat_interleave(
-            torch.arange(d.sp_cs.shape[0], device=data.device),
-            d.slice_ptr.diff())
-        t_el = int((d.sl_size * d.sp_size[q_of]).sum())
+        x_el = int((d.org_rows * d.org_cols).sum())
+        t_el = int((d.dst_rows * d.dst_cols).sum())
+        dst = torch.repeat_interleave(
+            torch.arange(d.dst_off.shape[0], device=data.device),
+            d.dst_ptr.diff())
+        macs = int((d.dst_rows[dst] * d.dst_cols[dst] *
+                    (d.rec[:, 1] & 0xffff)).sum())
+        # a wide origin's product: its lower triangle
+        macs += sum(r * (r + 1) // 2 * n for _, r, n, _, _ in d.wide)
         idx = sum(getattr(d, k).numel() for k in (
-            "list_ptr", "ent_x", "ent_row", "ent_nrow", "ent_ld", "ent_n",
-            "crow", "sp_cs", "sp_size", "sp_ld", "slice_ptr", "sl_cs",
-            "sl_size", "sl_off"))
+            "rec", "dst_off", "dst_ld", "dst_rows", "dst_cols", "dst_nk",
+            "dst_ptr", "dst_short", "dst_long", "dst_prod"))
         return (batch * item * (x_el + 2 * t_el) + 8 * idx,
                 2 * batch * macs)
     if name in ("bucket_factor", "wide_factor"):
@@ -484,7 +595,9 @@ class TimedOps:
     the device time per kernel (or per twin) over one run of a path;
     with `costs`, also each call's bytes and operations (cost()) and, for
     the kernels that have one, its library call (library_call()), timed
-    after the run."""
+    after the run, and the calls themselves, replayed back to back as
+    the library calls are (replay_ms()), so the two compare like for
+    like: the events around a single call also hold its host work."""
 
     def __init__(self, ops, costs: bool = False):
         self.ops = ops
@@ -492,6 +605,7 @@ class TimedOps:
         self.events = {name: [] for name in NAMES}
         self.work = {name: [0.0, 0.0] for name in NAMES}
         self.libs = {name: [] for name in NAMES}
+        self.calls = {name: [] for name in NAMES}
         for name in NAMES:
             setattr(self, name, functools.partial(self._timed, name))
 
@@ -500,6 +614,7 @@ class TimedOps:
             lib = library_call(name, args)
             if lib is not None:
                 self.libs[name].append(lib)
+            self.calls[name].append(args)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -519,6 +634,14 @@ class TimedOps:
     def bounds(self):
         return {k: bound(*self.work[k]) for k, v in self.events.items()
                 if v}
+
+    def replay_ms(self, name: str) -> float:
+        """The recorded calls of one kernel replayed back to back, timed
+        as library_ms times the library calls (they update their outputs
+        in place again, which changes no time)."""
+        calls = self.calls[name]
+        fn = getattr(self.ops, name)
+        return time_ms(lambda: [fn(*a) for a in calls], 3, warmup=1)
 
     def library_ms(self):
         """Per kernel, the summed time of the library calls replaying its
@@ -899,9 +1022,14 @@ def bal_phase(dev, name_limit: str) -> dict:
     check(factor_res <= 1e-10 and solve_res <= 1e-10,
           f"BAL 871 damped system: factor residual {factor_res}, solve "
           f"residual {solve_res}")
-    del damped, f, x, r
+    del f, x, r
     log("bal871_residuals", limit=1e-10, damping=lam, **BAL_DAMP,
         factor_residual_probe=factor_res, solve_residual=solve_res)
+
+    # K4 on each dense level of that system's factor (the point level and
+    # the wide camera levels): against its twin, against itself, timed
+    out["k4"] = k4_levels(s, damped, "bal871", name_limit)
+    del damped
 
     # one LM iteration twice from the same start: the same bits
     one = ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP)
@@ -963,12 +1091,14 @@ def bal_phase(dev, name_limit: str) -> dict:
             if warm and impl == "kernels":
                 out["bound"] = tops.bounds()["grad_hess"]
                 out["library_ms"] = tops.library_ms()["grad_hess"]
+                out["back_to_back_ms"] = tops.replay_ms("grad_hess")
         got[impl] = tops.ms()["grad_hess"]
     out["ms"], out["plain_ms"] = got["kernels"], got["twins"]
     log("time_per_kernel", case="bal871 f64 one assembly", card=name_limit,
         kernel="grad_hess", kernel_ms=got["kernels"], twin_ms=got["twins"],
         bound_ms=out["bound"][0], bound_by=out["bound"][1],
         library_ms=out["library_ms"],
+        kernel_back_to_back_ms=out["back_to_back_ms"],
         library_call="torch.einsum + Tensor.index_add_, two calls per "
                      "block pair and per gradient slot")
     del h0, g0
@@ -1023,6 +1153,10 @@ def trace_checked(label: str, what: str, fn, reps: int, **fields) -> None:
     fn()
     torch.cuda.synchronize()
     grids = {k: v.grid_launches for k, v in kernels.COUNTS.items()}
+    calls = kernels.COUNTS["wide_tri_solve"].launches
+    check(grids["wide_tri_solve"] <= 3 * calls, f"{label} {what}: "
+          f"wide_tri_solve launched {grids['wide_tri_solve']} grids in "
+          f"{calls} calls (at most 3 each)")
     tr = trace(fn, reps)
     seen = tr.pop("launches_per_call_by_kernel")
     off = {k: sum(seen.get(e, 0) for e in names)
@@ -1156,6 +1290,10 @@ def main() -> int:
     log("wide_below", factor_residual=fr, solve_residual=sr,
         launches={k: v[0] for k, v in c_wb.items()})
 
+    # 4d. K3-rest wide against its twin and itself, batch 2, on the 50k
+    # corner and WIDE_BELOW
+    wide_tri_checks(probs, d64, dev)
+
     # 5. MERI n=7, f64, single: the main path, counted
     d = torch.from_numpy(d64["meri7"]).to(dev)
     b = torch.from_numpy(rhs["meri7"]).to(dev)
@@ -1264,6 +1402,9 @@ def main() -> int:
         f32_factor_residual_probe=fr32, determinism_bitwise=True,
         launches={k: v[0] for k, v in c_schur.items()},
         grid_launches={k: v[2] for k, v in c_schur.items()})
+
+    # 10a. K4 on the 50k level: against its twin, against itself, timed
+    k4_50k = k4_levels(schur50, d, "flat_schur50k", name_limit)
 
     # 10b. partial identities, f64: factor_from(factor_up_to(d, t), t)
     # against factor(d), and the four partial solves and the corner
@@ -1440,7 +1581,7 @@ def main() -> int:
     # FLAT+Schur 5k for K4; beside each kernel's bound from the same run
     # and its library call, where one computes the same function
     per, per_case = {"kernels": {}, "twins": {}}, {}
-    bounds, library = {}, {}
+    bounds, library, back_to_back = {}, {}, {}
     for pname, names in (("meri7", ("bucket_factor", "segmented_subtract",
                                     "bucket_solve")),
                          ("flat1000", ("wide_factor", "wide_solve")),
@@ -1459,6 +1600,8 @@ def main() -> int:
                                   ops=tops)
                 if warm and impl == "kernels":
                     bd, lib = tops.bounds(), tops.library_ms()
+                    b2b = {k: tops.replay_ms(k) for k in names
+                           if lib[k] is not None}
             got[impl] = tops.ms()
             for k in names:
                 per[impl][k] = got[impl][k]
@@ -1466,11 +1609,13 @@ def main() -> int:
             if impl == "kernels":
                 for k in names:
                     bounds[k], library[k] = bd[k], lib[k]
+                back_to_back.update(b2b)
         log("time_per_kernel", case=f"{pname} f64 factor+solve",
             card=name_limit, kernels_ms=got["kernels"],
             twins_ms=got["twins"],
             bound_ms={k: bounds[k][0] for k in names},
-            library_ms={k: library[k] for k in names})
+            library_ms={k: library[k] for k in names},
+            kernels_back_to_back_ms=b2b)
 
     # the new kernels on the PCG path of FLAT+Schur 50k, f64, nrhs 1:
     # K3-rest narrow over solve_l_up_to + solve_lt_up_to, K3-rest wide
@@ -1506,19 +1651,37 @@ def main() -> int:
                 if warm and impl == "kernels":
                     bounds[k] = tops.bounds()[k]
                     library[k] = tops.library_ms()[k]
+                    if library[k] is not None:
+                        back_to_back[k] = tops.replay_ms(k)
             got[impl] = tops.ms()[k]
         per["kernels"][k], per["twins"][k] = got["kernels"], got["twins"]
         per_case[k] = f"flat_schur50k f64 nrhs 1 {what}"
         log("time_per_kernel", case=per_case[k], card=name_limit,
             kernel=k, kernel_ms=got["kernels"], twin_ms=got["twins"],
             bound_ms=bounds[k][0], bound_by=bounds[k][1],
-            library_ms=library[k])
+            library_ms=library[k],
+            kernel_back_to_back_ms=back_to_back.get(k))
 
     per["kernels"]["grad_hess"] = bal["ms"]
     per["twins"]["grad_hess"] = bal["plain_ms"]
     bounds["grad_hess"], library["grad_hess"] = bal["bound"], \
         bal["library_ms"]
+    back_to_back["grad_hess"] = bal["back_to_back_ms"]
     per_case["grad_hess"] = "bal871 f64 one assembly (2 families)"
+    # K4 where it costs most: BAL 871's point level (its other levels and
+    # the Schur levels beside it)
+    k4_bal = bal["k4"]
+    pt = k4_bal[0]
+    max_abs["dense_update"] = max(max_abs["dense_update"],
+                                  *(r["max_abs"] for r in k4_50k + k4_bal))
+    by_case = {"dense_update": {
+        per_case["dense_update"]: per["kernels"]["dense_update"],
+        **{f"flat_schur50k level {r['level']}": r["ms"] for r in k4_50k},
+        **{f"bal871 level {r['level']}": r["ms"] for r in k4_bal}}}
+    per["kernels"]["dense_update"], per["twins"]["dense_update"] = \
+        pt["ms"], pt["twin_ms"]
+    bounds["dense_update"] = (pt["bound_ms"], pt["bound_by"])
+    per_case["dense_update"] = f"bal871 f64 level {pt['level']} (points)"
 
     # 12. trace: device time per CUDA kernel and the device's idle share,
     # factor and solve apart; the trace's count of each wrapper's grids
@@ -1576,7 +1739,11 @@ def main() -> int:
                          if k in e["max_rel"]},
          "ms": per["kernels"][k], "plain_ms": per["twins"][k],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": library[k], "timed_on": per_case[k]}
+         "library_ms": library[k], "timed_on": per_case[k],
+         # where a library call is timed: the kernel's calls replayed
+         # back to back, as the library calls are
+         "ms_back_to_back": back_to_back.get(k),
+         **({"ms_by_case": by_case[k]} if k in by_case else {})}
         for k, src, rep in KERNELS]}
     print(json.dumps(record), flush=True)
     print(card(), flush=True)

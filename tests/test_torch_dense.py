@@ -77,7 +77,11 @@ def test_wide_origin_sends_its_level_dense():
     wide = [lb for lb in lbs if lb.cp > NARROW_MAX]
     assert [(lb.cp, lb.rp, int(lb.rows[0])) for lb in wide] == \
         [(1024, 64, 36)]
-    assert sorted(set(dense.ent_ld.tolist())) == [128, 1024]
+    # the narrow origin's records read its rows (stride 128), the wide
+    # one's its 36 x 36 product (stride 36)
+    assert [(w[1], w[3]) for w in dense.wide] == [(36, 1024)]
+    ld = (dense.rec[:, 1] >> 16) & 0xffff
+    assert sorted(set(ld.tolist())) == [36, 128]
     forced = PlannedBackend(ts.plan, assembly="pairs")
     assert forced._factor_schedule(0, ts.skel.num_lumps)[0][3] is not None
     assert all(lv[3] is None for lv in levels(ts)[1:])
@@ -176,30 +180,162 @@ def test_k4_twin_against_loop(name):
     assert rel(got[0].numpy(), want) < 1e-13
 
 
-@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def bal_case():
+    """A small BAL scene whose point level goes dense (sum rows^2 / R^2
+    ~ 15): (port solver, its first dense level)."""
+    if "bal" not in _cache:
+        from baspacho_tpu_torch.bal import make_random_bal
+        from baspacho_tpu_torch.testing.flows import ba_optimizer, ba_settings
+        prob = make_random_bal(n_cams=6, n_pts=60, track_len=3)
+        opt = ba_optimizer(prob, ba_settings(T.BackendType.PLANNED, 1), "cpu")
+        dense = [lv for lv in levels(opt.solver) if lv[3] is not None]
+        _cache["bal"] = (opt.solver, dense[0])
+    return _cache["bal"]
+
+
+def dense_level(name):
+    """(port solver, level tuple) of the dense level the plan tests use."""
+    if name == "bal":
+        return bal_case()
+    ts = case(name)[1]
+    return ts, levels(ts)[0]
+
+
+def decode(du):
+    """Per record: (xa, xb, ld, n) as stored, whether it names a wide
+    origin's product, its destination, its origin, the rows of x_o[a] and
+    x_o[b] in the origin, its first column and its columns."""
+    xb, m = du.rec[:, 0], du.rec[:, 1]
+    xa, ld, n = xb + (m >> 32), (m >> 16) & 0xffff, m & 0xffff
+    dst = np.repeat(np.arange(len(du.dst_off)), np.diff(du.dst_ptr))
+    prod = n == 0
+    by_off = np.argsort(du.org_xoff)
+    o = by_off[np.searchsorted(du.org_xoff[by_off], xb, side="right") - 1]
+    base = du.org_xoff[o]
+    if du.wide:  # a product record's xb is an offset into the buffer
+        w_org = np.searchsorted(du.org_xoff[by_off],
+                                [w[0] for w in du.wide])
+        w_org, w_pb = by_off[w_org], np.array([w[4] for w in du.wide])
+        w = np.searchsorted(w_pb, xb, side="right") - 1
+        o = np.where(prod, w_org[np.maximum(w, 0)], o)
+        base = np.where(prod, w_pb[np.maximum(w, 0)], du.org_xoff[o])
+    row_b, k0 = np.divmod(xb - base, ld)
+    row_a = np.where(prod, row_b, (xa - k0 - base) // ld)
+    row_b, k0 = np.where(prod, k0, row_b), np.where(prod, 0, k0)
+    cols = np.where(prod, du.org_cols[o], n)
+    return xa, xb, ld, n, prod, dst, o, row_a, row_b, k0, cols
+
+
+def k4_records_numpy(buf, du):
+    """buf less K4's update, from the destination-sorted records alone:
+    each record's product x_o[a] x_o[b]^T over its columns (a wide
+    origin's from its x x^T, formed here), subtracted at its destination
+    (numpy, grouped by destination shape)."""
+    out = buf.copy()
+    xa, xb, ld, n, prod, dst, _, _, _, _, _ = decode(du)
+    pbuf = np.zeros(max(du.prod_size, 1))
+    for xoff, rows, w, pld, pbase in du.wide:
+        x = buf[xoff:xoff + rows * pld].reshape(rows, pld)[:, :w]
+        pbuf[pbase:pbase + rows * rows] = (x @ x.T).ravel()
+    R, C = du.dst_rows[dst], du.dst_cols[dst]
+    for r_, c_ in sorted(set(zip(R.tolist(), C.tolist()))):
+        sel = np.flatnonzero((R == r_) & (C == c_))
+        k = np.arange(max(int(n[sel].max()), 1))
+        live = (k < n[sel, None])[:, None, :]
+
+        def gather(x, h):
+            idx = x[sel, None, None] + np.arange(h)[:, None] * \
+                ld[sel, None, None] + k
+            return np.where(live, buf[np.where(live, idx, 0)], 0.0)
+        blk = np.einsum("mrk,mck->mrc", gather(xa, r_), gather(xb, c_))
+        pidx = xb[sel, None, None] + np.arange(r_)[:, None] * \
+            ld[sel, None, None] + np.arange(c_)
+        blk = np.where(prod[sel, None, None],
+                       pbuf[np.where(prod[sel, None, None], pidx, 0)], blk)
+        d = dst[sel]
+        tgt = du.dst_off[d, None, None] + np.arange(r_)[:, None] * \
+            du.dst_ld[d, None, None] + np.arange(c_)
+        np.subtract.at(out, tgt, blk)
+    return out
+
+
+@pytest.mark.parametrize("name", [*sorted(PROBLEMS), "bal"])
+def test_k4_records_match_twin(name):
+    """K4's plan evaluated record by record in numpy gives the twin's
+    buffer (the kernel evaluates the same records on the card)."""
+    ts, (_, _, _, du) = dense_level(name)
+    buf = np.random.RandomState(5).rand(ts.data_size) * \
+        ts.skel.padding_mask()
+    got = torch.from_numpy(buf.copy())[None]
+    kernels.dense_update_twin(got, DevDense(du, "cpu"))
+    assert rel(k4_records_numpy(buf, du), got[0].numpy()) < 1e-12
+
+
+@pytest.mark.parametrize("name", [*sorted(PROBLEMS), "bal"])
 def test_dense_plan_invariants(name):
-    _, ts, _, _ = case(name)
+    ts, (lbs, _, _, du) = dense_level(name)
     sk = ts.skel
-    du = levels(ts)[0][3]
     span_size = np.diff(sk.span_start)
     assert du.R == int(span_size[du.tspans].sum()) == int(du.sp_size.sum())
-    # one list entry per (origin, below chain); entries in origin order
-    nd = sk.lump_to_span[1:] - sk.lump_to_span[:-1]
-    members = np.concatenate([np.asarray(lb.members)[lb.rows > 0]
-                              for lb in levels(ts)[0][0] if lb.rp])
-    chains = (sk.chain_col_ptr[members + 1] - sk.chain_col_ptr[members] -
-              nd[members]).sum()
-    assert len(du.ent_x) == chains == du.list_ptr[-1]
     for s in range(len(du.tspans)):
-        a, b = du.list_ptr[s], du.list_ptr[s + 1]
-        assert np.all(np.diff(du.ent_row[a:b]) > 0)
         qa, qb = du.slice_ptr[s], du.slice_ptr[s + 1]
         assert du.sl_cs[qa] == du.sp_cs[s] and np.all(
             np.diff(du.sl_cs[qa:qb]) > 0)
     # compact rows ascend along each origin's rows
+    members = np.concatenate([np.asarray(lb.members)[lb.rows > 0]
+                              for lb in lbs if lb.rp])
+    assert len(members) == len(du.org_xoff)
     for o in range(len(du.org_rows)):
         c = du.crow[du.org_rptr[o]:du.org_rptr[o + 1]]
         assert np.all(np.diff(c) > 0) and c.max() < du.R
+    # records sorted by destination, none empty, targets disjoint within
+    # each launch (the wide origins' products, then the rest)
+    xa, xb, ld, n, prod, dst, o, row_a, row_b, k0, cols = decode(du)
+    assert np.all(np.diff(du.dst_ptr) > 0) and du.dst_ptr[-1] == len(xb)
+    cnt = np.diff(du.dst_ptr)
+    groups = (du.dst_prod, np.concatenate([du.dst_short, du.dst_long]))
+    for ids in groups:
+        assert len(np.unique(du.dst_off[ids])) == len(ids)
+    assert np.array_equal(np.sort(np.concatenate(groups)),
+                          np.arange(len(cnt)))
+    assert np.all(cnt[du.dst_long] > 32) and np.all(cnt[du.dst_short] <= 32)
+    assert np.array_equal(prod, np.isin(dst, du.dst_prod))
+    wide_org = np.flatnonzero(np.isin(du.org_xoff, [w[0] for w in du.wide]))
+    assert np.array_equal(prod, np.isin(o, wide_org))
+    assert len(du.wide) == \
+        sum(lb.cp > NARROW_MAX for lb in lbs for _ in range(len(lb.off)))
+    # origin order inside a destination (an origin's k-slices in order)
+    same = dst[1:] == dst[:-1]
+    step = (o[1:] > o[:-1]) | ((o[1:] == o[:-1]) & (k0[1:] > k0[:-1]))
+    assert np.all(step[same])
+    # every (a >= b, o) pair once, its k-slices covering the origin
+
+    def span_of(rows):
+        cr = du.crow[du.org_rptr[o] + rows]
+        return du.tspans[np.searchsorted(du.sp_cs, cr, side="right") - 1]
+    a, b = span_of(row_a), span_of(row_b)
+    got = {}
+    for t in zip(o.tolist(), a.tolist(), b.tolist(), k0.tolist(),
+                 cols.tolist()):
+        got.setdefault(t[:3], []).append(t[3:])
+    want = set()
+    for oi in range(len(du.org_xoff)):
+        cr = du.crow[du.org_rptr[oi]:du.org_rptr[oi + 1]]
+        sp = np.unique(du.tspans[np.searchsorted(du.sp_cs, cr,
+                                                 side="right") - 1])
+        want |= {(oi, int(x), int(y)) for i, x in enumerate(sp)
+                 for y in sp[:i + 1]}
+    assert set(got) == want
+    for (oi, _, _), sl in got.items():
+        assert sum(w for _, w in sl) == du.org_cols[oi]
+        assert [k for k, _ in sl] == sorted(k for k, _ in sl)
+    # rows of x_o[a] and x_o[b] start their spans; destinations are |a| x |b|
+    first = lambda rows, s: du.crow[du.org_rptr[o] + rows] == \
+        du.sp_cs[np.searchsorted(du.tspans, s)]  # noqa: E731
+    assert np.all(first(row_a, a)) and np.all(first(row_b, b))
+    assert np.array_equal(du.dst_rows[dst], span_size[a])
+    assert np.array_equal(du.dst_cols[dst], span_size[b])
+    assert np.all(n * (du.dst_rows[dst] + du.dst_cols[dst]) <= 4096)
 
 
 @pytest.mark.parametrize("name", ["meri2", "meri3", "grid10", "flat"])

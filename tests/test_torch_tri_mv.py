@@ -137,6 +137,152 @@ def test_tri_twin_matches_diag_solve(cp, rp, nrhs, transpose):
         assert rel(got[z].numpy(), want[z]) < RTOL
 
 
+WIDE_N = {1024: 1000, 3072: 2985}  # real columns of the wide model panels
+
+
+def chain_items(K, transpose):
+    """K3-rest wide's work items (row tile, column tile) of one panel in
+    ticket order, as csrc/tri_solve.cu's tri_wide_chain_kernel orders
+    them: row by row in the L pass ((k, 0..k-2), then diag k), the mirror
+    in the Lt pass, by columns from the last ((K-1..k+2, k), then diag
+    k); the adjacent tile (k, k-1) belongs to a diagonal item."""
+    items = []
+    for g in range(K):
+        k = K - 1 - g if transpose else g
+        items += [(u, k) for u in range(K - 1, k + 1, -1)] if transpose \
+            else [(k, j) for j in range(k - 1)]
+        items.append((k, k))
+    return items
+
+
+def chain_deps(item, K, transpose):
+    """The items whose output an item reads: diagonal items (their
+    solutions) and off-diagonal items (their partial slots)."""
+    row, col = item
+    if row != col:
+        src = row if transpose else col
+        return [(src, src)]
+    adj = row + 1 if transpose else row - 1
+    srcs = range(K - 1, row + 1, -1) if transpose else range(row - 1)
+    own = [(u, row) if transpose else (row, u) for u in srcs]
+    return own + ([(adj, adj)] if 0 <= adj < K else [])
+
+
+def chain_model(L, x, transpose, K, nb=128):
+    """The chain's arithmetic in numpy on one panel's real lower triangle
+    L (n x n) and RHS rows x (n x nrhs): items in ticket order; an
+    off-diagonal item (k, j) keeps its partial L[k, j] s_j (Lt: L[k, j]^T
+    s_k) in a slot of its own; a diagonal item subtracts its partials in
+    source order, then its adjacent tile's product, and multiplies by its
+    tile's inverse. Every item reads only what an earlier ticket made
+    (a missing key raises)."""
+    n = L.shape[0]
+    kn = -(-n // nb)
+    t = lambda k: slice(k * nb, min(n, (k + 1) * nb))  # noqa: E731
+    s, part = {}, {}
+    for row, col in chain_items(K, transpose):
+        if row >= kn:
+            continue
+        if row == col:
+            adj = row + 1 if transpose else row - 1
+            srcs = range(kn - 1, row + 1, -1) if transpose \
+                else range(row - 1)
+            b = x[t(row)].copy()
+            for src in srcs:
+                b -= part[(row, src)]
+            if 0 <= adj < kn:
+                b -= L[t(adj), t(row)].T @ s[adj] if transpose \
+                    else L[t(row), t(adj)] @ s[adj]
+            tinv = np.linalg.inv(np.tril(L[t(row), t(row)]))
+            s[row] = (tinv.T if transpose else tinv) @ b
+        else:
+            src, tgt = (row, col) if transpose else (col, row)
+            blk = L[t(row), t(col)]
+            part[(tgt, src)] = (blk.T if transpose else blk) @ s[src]
+    return np.concatenate([s[k] for k in range(kn)])
+
+
+def wide_panel(cp, rp):
+    """One wide panel (cp 1024 or 3072, WIDE_N real columns, rp padded
+    below rows, 9 real) with garbage above the diagonal and in the
+    padding: (data, bucket, order)."""
+    key = ("wide", cp, rp)
+    if key not in _cache:
+        rng = np.random.RandomState(cp + rp)
+        n, r = WIDE_N[cp], 9 if rp else 0
+        p = rng.rand(cp + rp, cp)  # garbage everywhere ...
+        p[:n, :n] = np.triu(p[:n, :n], 1) + np.diag(1 + rng.rand(n)) + \
+            np.tril(rng.rand(n, n) - 0.5, -1) * (2.0 / n)  # ... but L
+        p[cp:cp + r, :n] = rng.rand(r, n) - 0.5
+        order = n + 40
+        bidx = np.full((1, max(rp, 1)), order, dtype=np.int32)
+        bidx[0, :r] = np.sort(rng.choice(np.arange(n, order), r,
+                                         replace=False))
+        lb = LumpBucket(rp=rp, cp=cp, off=np.array([0], np.int32),
+                        rows=np.array([r], np.int32),
+                        cols=np.array([n], np.int32),
+                        vec_off=np.array([0], np.int32), below_idx=bidx)
+        lb.members = np.array([0])
+        _cache[key] = (p.reshape(-1), lb, order)
+    return _cache[key]
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("nrhs", [1, 3])
+@pytest.mark.parametrize("rp", [0, 16])
+@pytest.mark.parametrize("cp", [1024, 3072])
+def test_wide_chain_model_matches_twin(cp, rp, nrhs, transpose):
+    """K3-rest wide's scheme (tickets in column order, partials summed in
+    source order, each diagonal tile's inverse), modelled in numpy with
+    the wrapper's gather and below terms around it, equals the twin
+    (_tri_plain) on a panel whose strict upper and padding hold garbage:
+    vv, and y in the L pass."""
+    data, lb, order = wide_panel(cp, rp)
+    n, r = int(lb.cols[0]), int(lb.rows[0])
+    P = data.reshape(cp + rp, cp)
+    L, below = np.tril(P[:n, :n]), P[cp:cp + r, :n]
+    bidx = lb.below_idx[0, :r]
+    vv = np.random.RandomState(nrhs).rand(order, nrhs)
+    x = vv[:n].copy()
+    if transpose:
+        x -= below.T @ vv[bidx]
+    want = vv.copy()
+    want[:n] = chain_model(L, x, transpose, cp // 128)
+    got = torch.from_numpy(vv.copy())[None]
+    y = torch.full((1, rp, nrhs), np.nan, dtype=torch.float64)
+    b = _dev_bucket(lb, "cpu")
+    kernels._tri_plain(torch.from_numpy(data)[None], got, y, 0, b.off,
+                       b.rows, b.cols, b.vec_off, b.below_idx, cp, rp,
+                       transpose)
+    assert rel(got[0].numpy(), want) < RTOL
+    if rp and not transpose:
+        assert rel(y[0, :r].numpy(), below @ want[:n]) < RTOL
+        assert not y[0, r:].numpy().any()
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("problems", [1, 3])
+def test_wide_chain_items_wait_only_on_earlier_tickets(problems, transpose):
+    """Every item of the chain reads only what items with smaller tickets
+    make, for every tile count up to the 3072-wide corner's 24 and any
+    number of interleaved panels (ticket = item * problems + panel), and
+    each diagonal's partials are all made: a CTA then never waits on a
+    ticket no running CTA holds."""
+    for K in range(1, 25):
+        items = chain_items(K, transpose)
+        adjacent = {(k, k - 1) for k in range(1, K)}
+        assert sorted(items) == sorted(
+            (k, j) for k in range(K) for j in range(k + 1)
+            if (k, j) not in adjacent)
+        ticket = {}
+        for li, it in enumerate(items):
+            for p in range(problems):
+                ticket[(p, it)] = li * problems + p
+        for (p, it), tk in ticket.items():
+            for d in chain_deps(it, K, transpose):
+                assert ticket[(p, d)] < tk
+
+
 def _mv_oracle(data, x, out, tlb, order, alpha):
     """out + alpha M x for the bucket's panels, dense numpy."""
     res = out.copy()
