@@ -10,25 +10,21 @@
 // It does not carry over the JAX package's mechanisms (a dense compact U
 // built by one-hot GEMMs or W W^T), and it needs no product buffer.
 //
-// A destination-sorted segmented reduction, as K6 (grad_hess.cu). The
-// host (ops/schedule.py DenseUpdate) makes one record for each target
-// span-block (a, b), a >= b, and each origin o whose below rows hold both
-// spans, sorted by destination with origin order kept inside one:
+// Narrow origins (panels of at most 512 columns): a destination-sorted
+// segmented reduction, as K6 (grad_hess.cu). The host (ops/schedule.py
+// DenseUpdate) makes one record for each target span-block (a, b),
+// a >= b, and each narrow origin o whose below rows hold both spans,
+// sorted by destination with origin order kept inside one (spans wider
+// than 32 rows are cut into pieces of 32, each piece pair a destination):
 //
-//   rec[p] = (xb, da << 32 | ld << 16 | n): x_o[b] starts at data offset
-//            xb, x_o[a] at xb + da, both with row stride ld (the origin's
-//            padded width), n columns (origins wider than the host's
-//            slice cap are cut into k-slices, consecutive records)
+//   rec[p] = (xb, dr << 32 | ld << 16 | n): x_o[b] starts at data offset
+//            xb, x_o[a] dr rows further (dr < 0 where a piece of a
+//            diagonal block lies above its column piece), both with row
+//            stride ld (the origin's padded width), n columns (origins
+//            wider than 32 columns are cut into k-slices, consecutive
+//            records)
 //
 //   D[off + r * ld_t + c] -= sum_records sum_k x_o[a][r][k] x_o[b][c][k]
-//
-// An origin wider than 512 columns (a blocked wide panel: few origins of
-// hundreds to thousands of columns) would have every destination re-read
-// its rows from memory: 45 GB on BAL 871's cp-3072 level. Its product x
-// x^T is one matrix product instead (the wrapper's, as K1-wide's
-// updates), and its records (n = 0) name a block of that buffer: xb its
-// first element, ld its row stride. They go to destinations of their own,
-// a warp each, subtracted before the others.
 //
 // for the destination's |a| x |b| elements at off with row stride ld_t.
 // dense_warp_kernel: a warp per short destination (at most 32 records),
@@ -42,6 +38,19 @@
 // element is owned by one thread, with no atomics and no barrier per
 // record: reruns agree bitwise, and targets are disjoint across
 // destinations.
+//
+// Wide origins (a blocked wide panel: few origins of hundreds to
+// thousands of columns) would have every destination re-read their rows
+// from memory, 45 GB on BAL 871's cp-3072 level. dense_wide_kernel forms
+// such an origin's x x^T in 64 x 64 tiles of its below rows instead, one
+// CTA per tile (every tile with a row chain at or past its column chain),
+// from 32-column stages of both row blocks loaded by cp.async and double
+// buffered; four warps each hold a 32 x 32 block in registers, summed by
+// the f64 tensor cores (mma.m8n8k4, fixed order) or, in f32, by FMAs in
+// the same order of columns. Each element (i, j) whose row chain a is at
+// or past its column chain b is subtracted straight into its target:
+// pt[a (a + 1) / 2 + b] + rin[i] * cld[b] + rin[j]. One launch per wide
+// origin, before the narrow records: targets are disjoint inside a launch.
 //
 // Bound on BAL 871's point level (f64): x read once, 0.57 GB, ~0.17 ms
 // at 3.35 TB/s; ~1.9 G multiply-adds, ~0.06 ms at 67 TFLOP/s; the 7.9 M
@@ -58,6 +67,10 @@ namespace {
 constexpr int kWarpThreads = 256;   // 8 warps, one short destination each
 constexpr int kBlockThreads = 256;  // one long destination
 constexpr int kStageBytes = 32 * 1024;  // each of the two stage buffers
+constexpr int kTile = 64;          // dense_wide_kernel: tile edge
+constexpr int kTk = 32;            // columns per stage
+constexpr int kTld = kTk + 4;      // padded stage row: conflict-free frags
+constexpr int kWideThreads = 128;  // 2 x 2 warps of 32 x 32
 
 struct Rec {
   int64_t xa, xb;
@@ -66,19 +79,25 @@ struct Rec {
 
 __device__ __forceinline__ Rec rec_at(const int64_t* rec, int64_t p) {
   const int64_t xb = rec[2 * p], m = rec[2 * p + 1];
-  return Rec{xb + (m >> 32), xb, (int)((m >> 16) & 0xffff),
-             (int)(m & 0xffff)};
+  const int ld = (int)((m >> 16) & 0xffff);
+  return Rec{xb + (m >> 32) * ld, xb, ld, (int)(m & 0xffff)};
 }
 
+// one element, global -> shared; src_bytes 0 writes a zero
 template <typename T>
-__device__ __forceinline__ void cp_async_el(T* dst, const T* src) {
+__device__ __forceinline__ void cp_async_el(T* dst, const T* src,
+                                            int src_bytes = sizeof(T)) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if (sizeof(T) == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(src));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes));
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 template <int N>
@@ -88,8 +107,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 template <typename T>
 __global__ void dense_warp_kernel(T* data, int64_t bstride,
-                                  const T* __restrict__ prod,
-                                  int64_t pstride,
                                   const int64_t* __restrict__ list,
                                   int64_t n_list,
                                   const int64_t* __restrict__ rec,
@@ -103,7 +120,6 @@ __global__ void dense_warp_kernel(T* data, int64_t bstride,
   const int lane = threadIdx.x & 31;
   if (w >= n_list) return;  // uniform over the warp
   T* D = data + (int64_t)blockIdx.y * bstride;
-  const T* Pb = prod + (int64_t)blockIdx.y * pstride;
   const int64_t s = list[w];
   const int R = (int)dst_rows[s], C = (int)dst_cols[s], E = R * C;
   const int64_t off = dst_off[s], ldt = dst_ld[s];
@@ -118,10 +134,6 @@ __global__ void dense_warp_kernel(T* data, int64_t bstride,
       const int r = e / C, c = e % C;
       for (int64_t p = p0 + g; p < p1; p += G) {
         const Rec x = rec_at(rec, p);
-        if (x.n == 0) {  // a wide origin's product, from the buffer
-          acc += Pb[x.xb + (int64_t)r * x.ld + c];
-          continue;
-        }
         const T* xa = D + x.xa + (int64_t)r * x.ld;
         const T* xb = D + x.xb + (int64_t)c * x.ld;
         T dot = T(0);
@@ -180,7 +192,7 @@ __global__ void __launch_bounds__(kBlockThreads)
       else
         b[i] = T(0);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
 
   for (int e0 = 0; e0 < E; e0 += ET) {
@@ -223,9 +235,143 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
+// One warp's 32 x 32 block over four columns of a stage: acc[mi][nj][i]
+// is the element (mi * 8 + lane / 4, nj * 8 + (lane % 4) * 2 + i); A and
+// B point at the warp's first row of each row block, at the first column.
 template <typename T>
-int launch(void* data, int64_t bstride, const void* prod, int64_t pstride,
-           const int64_t* list, int64_t n_list,
+struct WarpMma;
+
+template <>
+struct WarpMma<double> {
+  // the m8n8k4 f64 fragments: A row lane / 4, column lane % 4; B (the
+  // transpose of the column block's rows) column lane / 4, row lane % 4
+  static __device__ __forceinline__ void step(double (&acc)[4][4][2],
+                                              const double* A,
+                                              const double* B, int lane) {
+    double a[4], b[4];
+    const int at = (lane >> 2) * kTld + (lane & 3);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) a[m] = A[m * 8 * kTld + at];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) b[m] = B[m * 8 * kTld + at];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        asm volatile(
+            "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
+            "{%2}, {%3}, {%0, %1};\n"
+            : "+d"(acc[mi][nj][0]), "+d"(acc[mi][nj][1])
+            : "d"(a[mi]), "d"(b[nj]));
+  }
+};
+
+template <>
+struct WarpMma<float> {
+  static __device__ __forceinline__ void step(float (&acc)[4][4][2],
+                                              const float* A, const float* B,
+                                              int lane) {
+    const int ra = (lane >> 2) * kTld, rb = ((lane & 3) * 2) * kTld;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float a[4], b[4][2];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        a[m] = A[m * 8 * kTld + ra + k];
+        b[m][0] = B[m * 8 * kTld + rb + k];
+        b[m][1] = B[m * 8 * kTld + rb + kTld + k];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          acc[mi][nj][0] += a[mi] * b[nj][0];
+          acc[mi][nj][1] += a[mi] * b[nj][1];
+        }
+    }
+  }
+};
+
+// A wide origin's update: x (rows x n, row stride ld) at data offset
+// xoff; tile[t] = I << 32 | J names a 64 x 64 tile of x x^T; rch / rin:
+// each below row's chain (0-based in the origin) and row inside its span;
+// pt: each chain pair's target (a >= b, at a (a + 1) / 2 + b); cld: each
+// chain's target row stride.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    dense_wide_kernel(T* data, int64_t bstride, int64_t xoff, int64_t ld,
+                      int n, int64_t rows, const int64_t* __restrict__ tile,
+                      const int64_t* __restrict__ rch,
+                      const int64_t* __restrict__ rin,
+                      const int64_t* __restrict__ pt,
+                      const int64_t* __restrict__ cld) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);  // 2 x (128 rows x kTld)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  T* D = data + (int64_t)blockIdx.y * bstride;
+  const T* X = D + xoff;
+  const int64_t tl = tile[blockIdx.x];
+  const int64_t r0 = (tl >> 32) * kTile, c0 = (tl & 0xffffffff) * kTile;
+  const int nchunk = (n + kTk - 1) / kTk;
+
+  // stage rows r0.. (shared rows 0-63) and c0.. (64-127), columns
+  // k0..k0+31; rows past `rows` and columns past n are zero
+  auto stage = [&](int ci) {
+    T* b = sm + (ci & 1) * 2 * kTile * kTld;
+    const int k0 = ci * kTk;
+    for (int i = tid; i < 2 * kTile * kTk; i += kWideThreads) {
+      const int r = i / kTk, k = i % kTk;
+      const int64_t row = r < kTile ? r0 + r : c0 + r - kTile;
+      const bool ok = row < rows && k0 + k < n;
+      cp_async_el(b + r * kTld + k, ok ? X + row * ld + k0 + k : X,
+                  ok ? (int)sizeof(T) : 0);
+    }
+    cp_async_commit();
+  };
+
+  T acc[4][4][2];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) acc[mi][nj][0] = acc[mi][nj][1] = T(0);
+  stage(0);
+  for (int ci = 0; ci < nchunk; ++ci) {
+    if (ci + 1 < nchunk) {
+      stage(ci + 1);  // its buffer was last read in chunk ci - 1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* A = sm + (ci & 1) * 2 * kTile * kTld + wm * 32 * kTld;
+    const T* B = sm + (ci & 1) * 2 * kTile * kTld + (kTile + wn * 32) * kTld;
+#pragma unroll
+    for (int kk = 0; kk < kTk; kk += 4)
+      WarpMma<T>::step(acc, A + kk, B + kk, lane);
+    __syncthreads();  // chunk ci's buffer may be refilled
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    const int64_t i = r0 + wm * 32 + mi * 8 + (lane >> 2);
+    if (i >= rows) continue;
+    const int64_t a = rch[i], ra = rin[i];
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t j = c0 + wn * 32 + nj * 8 + (lane & 3) * 2 + h;
+        if (j >= rows) continue;
+        const int64_t b = rch[j];
+        if (b > a) continue;
+        D[pt[a * (a + 1) / 2 + b] + ra * cld[b] + rin[j]] -= acc[mi][nj][h];
+      }
+  }
+}
+
+template <typename T>
+int launch(void* data, int64_t bstride, const int64_t* list, int64_t n_list,
            int long_mode, const int64_t* rec, const int64_t* dst_off,
            const int64_t* dst_ld, const int64_t* dst_rows,
            const int64_t* dst_cols, const int64_t* dst_ptr,
@@ -237,9 +383,8 @@ int launch(void* data, int64_t bstride, const void* prod, int64_t pstride,
                                            per_block),
                                 batch),
                            kWarpThreads, 0, stream>>>(
-        static_cast<T*>(data), bstride, static_cast<const T*>(prod),
-        pstride, list, n_list, rec, dst_off, dst_ld, dst_rows, dst_cols,
-        dst_ptr);
+        static_cast<T*>(data), bstride, list, n_list, rec, dst_off, dst_ld,
+        dst_rows, dst_cols, dst_ptr);
   } else {
     const size_t smem = 2 * kStageBytes + kBlockThreads * sizeof(T);
     cudaError_t e = cudaFuncSetAttribute(
@@ -254,15 +399,30 @@ int launch(void* data, int64_t bstride, const void* prod, int64_t pstride,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_wide(void* data, int64_t bstride, int64_t xoff, int64_t ld, int n,
+                int64_t rows, const int64_t* tile, int64_t n_tile,
+                const int64_t* rch, const int64_t* rin, const int64_t* pt,
+                const int64_t* cld, int batch, cudaStream_t stream) {
+  if (n_tile <= 0) return 0;
+  const size_t smem = 2 * 2 * kTile * kTld * sizeof(T);
+  cudaError_t e = cudaFuncSetAttribute(
+      dense_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dense_wide_kernel<T><<<dim3((unsigned)n_tile, batch), kWideThreads, smem,
+                         stream>>>(static_cast<T*>(data), bstride, xoff, ld,
+                                   n, rows, tile, rch, rin, pt, cld);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 float64. long_mode 0: a warp per destination of
-// `list` (the only mode that reads prod, the wide origins' products,
-// pstride values per batch item); 1: a CTA per destination, whose staged
-// record, (rows + cols) x nk values, must fit in 32 KB in f64 (the host's
-// slice cap sees to it). Returns the cudaError_t of the launch.
+// `list`; 1: a CTA per destination, whose staged record, (rows + cols) x
+// nk values, must fit in 32 KB in f64 (the host's 32-row pieces and
+// 32-column slices see to it). Returns the cudaError_t of the launch.
 extern "C" int bs_dense_update(int dtype, void* data, int64_t bstride,
-                               const void* prod, int64_t pstride,
                                const int64_t* list, int64_t n_list,
                                int long_mode, const int64_t* rec,
                                const int64_t* dst_off, const int64_t* dst_ld,
@@ -272,12 +432,30 @@ extern "C" int bs_dense_update(int dtype, void* data, int64_t bstride,
                                int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(data, bstride, prod, pstride, list, n_list,
-                         long_mode, rec, dst_off, dst_ld, dst_rows, dst_cols,
-                         dst_ptr, dst_nk, batch, s);
+    return launch<float>(data, bstride, list, n_list, long_mode, rec,
+                         dst_off, dst_ld, dst_rows, dst_cols, dst_ptr, dst_nk,
+                         batch, s);
   if (dtype == 1)
-    return launch<double>(data, bstride, prod, pstride, list, n_list,
-                          long_mode, rec, dst_off, dst_ld, dst_rows,
-                          dst_cols, dst_ptr, dst_nk, batch, s);
+    return launch<double>(data, bstride, list, n_list, long_mode, rec,
+                          dst_off, dst_ld, dst_rows, dst_cols, dst_ptr,
+                          dst_nk, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One wide origin's x x^T, subtracted into its targets (dense_wide_kernel
+// names the arguments). Returns the cudaError_t of the launch.
+extern "C" int bs_dense_wide(int dtype, void* data, int64_t bstride,
+                             int64_t xoff, int64_t ld, int n, int64_t rows,
+                             const int64_t* tile, int64_t n_tile,
+                             const int64_t* rch, const int64_t* rin,
+                             const int64_t* pt, const int64_t* cld, int batch,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_wide<float>(data, bstride, xoff, ld, n, rows, tile, n_tile,
+                              rch, rin, pt, cld, batch, s);
+  if (dtype == 1)
+    return launch_wide<double>(data, bstride, xoff, ld, n, rows, tile, n_tile,
+                               rch, rin, pt, cld, batch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -804,15 +804,14 @@ extern "C" int bs_tri_solve(int dtype, int transpose, const void* data,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int bs_tri_wide_pre(int dtype, int transpose, const void* data,
-                               int64_t data_bstride, const void* vv,
-                               int64_t vv_bstride, void* xs, int* flags,
-                               int64_t nflags, const int64_t* off,
-                               const int64_t* rows, const int64_t* cols,
-                               const int64_t* vec_off,
-                               const int64_t* below_idx, int64_t order,
-                               int64_t B, int cp, int rp, int nrhs, int batch,
-                               void* stream) {
+static int tri_wide_pre(int dtype, int transpose, const void* data,
+                        int64_t data_bstride, const void* vv,
+                        int64_t vv_bstride, void* xs, int* flags,
+                        int64_t nflags, const int64_t* off,
+                        const int64_t* rows, const int64_t* cols,
+                        const int64_t* vec_off, const int64_t* below_idx,
+                        int64_t order, int64_t B, int cp, int rp, int nrhs,
+                        int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((cp + 127) / 128, (unsigned)B, batch);
   if (dtype == 0)
@@ -832,14 +831,13 @@ extern "C" int bs_tri_wide_pre(int dtype, int transpose, const void* data,
   return (int)cudaGetLastError();
 }
 
-// flags: 1 + P * K * (K + 1) ints zeroed by bs_tri_wide_pre; part:
+// flags: 1 + P * K * (K + 1) ints zeroed by tri_wide_pre; part:
 // P * K * K * 128 * nrhs values (P = B * batch, K = cp / 128)
-extern "C" int bs_tri_wide_chain(int dtype, int transpose, const void* data,
-                                 int64_t data_bstride, const void* xs,
-                                 void* xsol, void* part, int* flags,
-                                 const int64_t* off, const int64_t* cols,
-                                 int64_t B, int cp, int nrhs, int batch,
-                                 void* stream) {
+static int tri_wide_chain(int dtype, int transpose, const void* data,
+                          int64_t data_bstride, const void* xs, void* xsol,
+                          void* part, int* flags, const int64_t* off,
+                          const int64_t* cols, int64_t B, int cp, int nrhs,
+                          int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_wide_chain<float>(data, data_bstride, xs, xsol, part, flags,
@@ -852,14 +850,13 @@ extern "C" int bs_tri_wide_chain(int dtype, int transpose, const void* data,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int bs_tri_wide_post(int dtype, const void* data,
-                                int64_t data_bstride, void* vv,
-                                int64_t vv_bstride, void* y, int64_t y_bstride,
-                                int64_t y_base, const void* xs,
-                                const int64_t* off, const int64_t* rows,
-                                const int64_t* cols, const int64_t* vec_off,
-                                int64_t B, int cp, int rp, int nrhs, int batch,
-                                void* stream) {
+static int tri_wide_post(int dtype, const void* data, int64_t data_bstride,
+                         void* vv, int64_t vv_bstride, void* y,
+                         int64_t y_bstride, int64_t y_base, const void* xs,
+                         const int64_t* off, const int64_t* rows,
+                         const int64_t* cols, const int64_t* vec_off,
+                         int64_t B, int cp, int rp, int nrhs, int batch,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((cp + rp + kWarps - 1) / kWarps, (unsigned)B, batch);
   if (dtype == 0)
@@ -877,4 +874,36 @@ extern "C" int bs_tri_wide_post(int dtype, const void* data,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// K3-rest wide in one host call: tri_wide_pre, tri_wide_chain and
+// tri_wide_post on one stream (the arguments of the three above; scratch
+// holds xs, xsol and the partial slots in turn). Returns the first
+// cudaError_t.
+extern "C" int bs_tri_wide_solve(int dtype, int transpose, const void* data,
+                                 int64_t data_bstride, void* vv,
+                                 int64_t vv_bstride, void* y,
+                                 int64_t y_bstride, int64_t y_base,
+                                 void* scratch, int* flags, int64_t nflags,
+                                 const int64_t* off, const int64_t* rows,
+                                 const int64_t* cols, const int64_t* vec_off,
+                                 const int64_t* below_idx, int64_t order,
+                                 int64_t B, int cp, int rp, int nrhs,
+                                 int batch, void* stream) {
+  const size_t item = dtype == 1 ? sizeof(double) : sizeof(float);
+  const int64_t nx = B * batch * cp * nrhs;
+  char* xs = static_cast<char*>(scratch);
+  char* xsol = xs + nx * item;
+  char* part = xsol + nx * item;
+  int e = tri_wide_pre(dtype, transpose, data, data_bstride, vv,
+                          vv_bstride, xs, flags, nflags, off, rows, cols,
+                          vec_off, below_idx, order, B, cp, rp, nrhs, batch,
+                          stream);
+  if (e) return e;
+  e = tri_wide_chain(dtype, transpose, data, data_bstride, xs, xsol, part,
+                        flags, off, cols, B, cp, nrhs, batch, stream);
+  if (e) return e;
+  return tri_wide_post(dtype, data, data_bstride, vv, vv_bstride, y,
+                          y_bstride, y_base, xsol, off, rows, cols, vec_off,
+                          B, cp, y ? rp : 0, nrhs, batch, stream);
 }

@@ -159,19 +159,16 @@ def _lib() -> ctypes.CDLL:
             "bs_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
                               vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
                               i32, vp],
-            "bs_dense_update": [i32, vp, i64, vp, i64, vp, i64, i32, vp,
-                                vp, vp, vp, vp, vp, vp, i32, vp],
+            "bs_dense_update": [i32, vp, i64, vp, i64, i32, vp, vp, vp, vp,
+                                vp, vp, vp, i32, vp],
+            "bs_dense_wide": [i32, vp, i64, i64, i64, i32, i64, vp, i64, vp,
+                              vp, vp, vp, i32, vp],
             "bs_tri_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
                              vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
                              vp],
-            "bs_tri_wide_pre": [i32, i32, vp, i64, vp, i64, vp, vp, i64, vp,
-                                vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
-                                vp],
-            "bs_tri_wide_chain": [i32, i32, vp, i64, vp, vp, vp, vp, vp, vp,
-                                  i64, i32, i32, i32, vp],
-            "bs_tri_wide_post": [i32, vp, i64, vp, i64, vp, i64, i64, vp,
-                                 vp, vp, vp, vp, i64, i32, i32, i32, i32,
-                                 vp],
+            "bs_tri_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64,
+                                  vp, vp, i64, vp, vp, vp, vp, vp, i64, i64,
+                                  i32, i32, i32, i32, vp],
             "bs_add_mv": [i32, vp, i64, vp, i64, vp, i64, vp, i64, i64, vp,
                           vp, vp, vp, vp, i64, i64, i32, i32, i32, i32, f64,
                           vp],
@@ -614,37 +611,39 @@ def dense_update(data, d) -> None:
     whose below rows hold both spans of x_o[a] . x_o[b]^T, in origin
     order. `d` is the level's DenseUpdate as device tensors
     (planned_backend.DevDense); x_o is read from the data, where the
-    bucket factor left it. The kernel runs over d's destination-sorted
-    records: one launch for the wide origins' products (a matrix product
-    per wide origin and batch item into a buffer first), one for the
-    short destinations (a warp each), one for the long ones (a CTA
-    each)."""
+    bucket factor left it. One launch per wide origin (its x x^T by
+    tiles, csrc/dense_level.cu dense_wide_kernel), then one over d's
+    destination-sorted records for the short destinations (a warp each)
+    and one for the long ones (a CTA each)."""
     if data.device.type == "cpu":
         return dense_update_twin(data, d)
     _check_cuda("dense_update", [data],
                 [d.rec, d.dst_off, d.dst_ld, d.dst_rows, d.dst_cols,
-                 d.dst_ptr, d.dst_nk, d.dst_short, d.dst_long, d.dst_prod])
+                 d.dst_ptr, d.dst_nk, d.dst_short, d.dst_long, d.w_tile,
+                 d.w_rch, d.w_rin, d.w_pt, d.w_cld])
     lib, code, st = _lib(), _DTYPE_CODE[data.dtype], _stream(data)
     COUNTS["dense_update"].launches += 1
     batch = data.shape[0]
-    prod = data.new_empty((batch, d.prod_size)) if d.prod_size else None
-    for xoff, rows, n, ld, pbase in d.wide:
-        for z in range(batch):  # per batch item: the bits of a single run
-            x = data[z].as_strided((rows, n), (ld, 1),
-                                   data[z].storage_offset() + xoff)
-            torch.matmul(x, x.mT, out=prod[z, pbase:pbase + rows * rows]
-                         .view(rows, rows))
-    for ids, long_mode in ((d.dst_prod, 0), (d.dst_short, 0),
-                           (d.dst_long, 1)):
+
+    def at(t, i):  # address of element i of an int64 tensor
+        return t.data_ptr() + 8 * i
+
+    for xoff, rows, n, ld, r0, p0, c0, t0, nt in d.wide:
+        err = lib.bs_dense_wide(
+            code, data.data_ptr(), data.shape[1], xoff, ld, n, rows,
+            at(d.w_tile, t0), nt, at(d.w_rch, r0), at(d.w_rin, r0),
+            at(d.w_pt, p0), at(d.w_cld, c0), batch, st)
+        COUNTS["dense_update"].grid_launches += 1
+        _raise_on("dense_update (wide)", err)
+    for ids, long_mode in ((d.dst_short, 0), (d.dst_long, 1)):
         if ids.shape[0] == 0:
             continue
         err = lib.bs_dense_update(
-            code, data.data_ptr(), data.shape[1],
-            prod.data_ptr() if prod is not None else None,
-            d.prod_size, ids.data_ptr(), ids.shape[0], long_mode,
-            d.rec.data_ptr(), d.dst_off.data_ptr(), d.dst_ld.data_ptr(),
-            d.dst_rows.data_ptr(), d.dst_cols.data_ptr(),
-            d.dst_ptr.data_ptr(), d.dst_nk.data_ptr(), batch, st)
+            code, data.data_ptr(), data.shape[1], ids.data_ptr(),
+            ids.shape[0], long_mode, d.rec.data_ptr(), d.dst_off.data_ptr(),
+            d.dst_ld.data_ptr(), d.dst_rows.data_ptr(),
+            d.dst_cols.data_ptr(), d.dst_ptr.data_ptr(),
+            d.dst_nk.data_ptr(), batch, st)
         COUNTS["dense_update"].grid_launches += 1
         _raise_on("dense_update", err)
 
@@ -722,15 +721,16 @@ def wide_tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
                    below_idx, cp: int, rp: int, transpose: bool, off_h,
                    cols_h) -> None:
     """tri_solve for wide panels (cp > 512, a multiple of WIDE_TILE), as
-    PlannedBackend._big_panel_solve, in three launches: one gathers each
-    panel's RHS rows into a (batch, B, cp, nrhs) scratch xs (Lt pass:
-    minus below^T vv[below_idx]) and zeroes the flags; one persistent
-    launch runs the chain of WIDE_TILE-wide tiles of every panel on the
-    device (csrc/tri_solve.cu: tiles claimed by ticket in column order,
-    each off-diagonal tile's product into a scratch slot of its own, each
-    diagonal tile's solution published with a flag); the last writes the
-    solution back and, in the L pass, y. off_h / cols_h are host copies
-    of off / cols (unused here: the twin's signature)."""
+    PlannedBackend._big_panel_solve, in three launches from one host
+    call: one gathers each panel's RHS rows into a (batch, B, cp, nrhs)
+    scratch xs (Lt pass: minus below^T vv[below_idx]) and zeroes the
+    flags; one persistent launch runs the chain of WIDE_TILE-wide tiles
+    of every panel on the device (csrc/tri_solve.cu: tiles claimed by
+    ticket in row order, each off-diagonal tile's product into a scratch
+    slot of its own, each diagonal tile's solution published with a
+    flag); the last writes the solution back and, in the L pass, y.
+    off_h / cols_h are host copies of off / cols (unused here: the
+    twin's signature)."""
     use_y = _check_solve("wide_tri_solve", data, vv, y, rp, transpose)
     if data.device.type == "cpu":
         return wide_tri_solve_twin(data, vv, y, y_base, off, rows, cols,
@@ -746,34 +746,37 @@ def wide_tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
     batch, order, nrhs = vv.shape
     B = off.shape[0]
     K, P = cp // nb, B * batch
-    lib, code, tr = _lib(), _DTYPE_CODE[data.dtype], int(transpose)
-    d, dst, st = data.data_ptr(), data.shape[1], _stream(data)
     # one float scratch (xs, xsol, the partial slots) and the flags
     nx = P * cp * nrhs
-    scratch = vv.new_empty((2 * nx + P * K * K * nb * nrhs,))
-    xs, xsol, part = scratch[:nx], scratch[nx:2 * nx], scratch[2 * nx:]
-    flags = torch.empty(1 + P * K * (K + 1), dtype=torch.int32,
-                        device=vv.device)
-
-    def ran(step, err):
-        COUNTS["wide_tri_solve"].grid_launches += 1
-        _raise_on(f"wide_tri_solve ({step})", err)
-
-    ran("pre", lib.bs_tri_wide_pre(
-        code, tr, d, dst, vv.data_ptr(), order * nrhs, xs.data_ptr(),
-        flags.data_ptr(), flags.numel(), off.data_ptr(), rows.data_ptr(),
-        cols.data_ptr(), vec_off.data_ptr(), below_idx.data_ptr(), order, B,
-        cp, rp, nrhs, batch, st))
-    ran("chain", lib.bs_tri_wide_chain(
-        code, tr, d, dst, xs.data_ptr(), xsol.data_ptr(), part.data_ptr(),
-        flags.data_ptr(), off.data_ptr(), cols.data_ptr(), B, cp, nrhs,
-        batch, st))
-    ran("post", lib.bs_tri_wide_post(
-        code, d, dst, vv.data_ptr(), order * nrhs,
+    scratch = _scratch(vv, 2 * nx + P * K * K * nb * nrhs)
+    nflags = 1 + P * K * (K + 1)
+    flags = _scratch(vv, nflags, torch.int32)
+    err = _lib().bs_tri_wide_solve(
+        _DTYPE_CODE[data.dtype], int(transpose), data.data_ptr(),
+        data.shape[1], vv.data_ptr(), order * nrhs,
         y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,
-        y_base * nrhs, xsol.data_ptr(), off.data_ptr(), rows.data_ptr(),
-        cols.data_ptr(), vec_off.data_ptr(), B, cp, rp if use_y else 0,
-        nrhs, batch, st))
+        y_base * nrhs, scratch.data_ptr(), flags.data_ptr(), nflags,
+        off.data_ptr(), rows.data_ptr(), cols.data_ptr(), vec_off.data_ptr(),
+        below_idx.data_ptr(), order, B, cp, rp, nrhs, batch, _stream(data))
+    COUNTS["wide_tri_solve"].grid_launches += 3
+    _raise_on("wide_tri_solve", err)
+
+
+_SCRATCH = {}
+
+
+def _scratch(like, n: int, dtype=None) -> torch.Tensor:
+    """n elements of a work buffer kept per (device, dtype, stream) and
+    grown as needed, so that a call allocates nothing: calls on one
+    stream run in order, and no call reads what an earlier one left
+    (K3-rest wide's pre kernel zeroes its flags)."""
+    dtype = dtype or like.dtype
+    key = (like.device, dtype, _stream(like))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=dtype, device=like.device)
+        _SCRATCH[key] = buf
+    return buf[:n]
 
 
 def wide_tri_solve_twin(*args) -> None:

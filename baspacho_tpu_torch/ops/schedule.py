@@ -23,8 +23,8 @@ A level's update runs through one of two mechanisms:
   dense  no pairs: the dense-level kernel (K4) sums x_o[a] . x_o[b]^T
          over the origins that share the target span-block (a, b),
          straight into the target panel, from records sorted by
-         destination (a wide origin's x x^T comes from one matrix
-         product instead).
+         destination (a wide origin's x x^T is summed by tiles of its
+         below rows instead).
 
 The port's rule (its own; the JAX package prices the two against TPU
 cost constants): a level goes dense when the volume of its origins'
@@ -142,7 +142,8 @@ class PairBucket:
 
 DENSE_LONG = 32      # K4 destinations with more records get a CTA each
 DENSE_NK = 32        # widest k-slice of one K4 record
-DENSE_STAGE = 4096   # values one record may stage in K4's CTA (32 KB f64)
+DENSE_PIECE = 32     # K4 destinations are at most DENSE_PIECE square
+DENSE_TILE = 64      # tile edge of K4's wide-origin product
 
 
 @dataclass
@@ -160,26 +161,31 @@ class DenseUpdate:
     offset sl_off[q] (column 0 of b) with row stride sp_ld[s]. Slices of
     one span ascend in sl_cs.
 
-    K4's plan, destination-sorted: one record per (destination (a, b),
-    origin o whose below rows hold both spans), origins in order within a
-    destination. A narrow origin's record names x_o's rows: rec[p] = (xb,
-    da << 32 | ld << 16 | n), x_o[b]'s first element (plus the slice's
-    first column) at data offset xb, x_o[a]'s at xb + da, row stride ld,
-    n columns; an origin wider than the destination's slice cap
-    (DENSE_NK, less where |a| + |b| is large: a record stages (|a| + |b|)
-    x width values, at most DENSE_STAGE) gives one record per k-slice. A
-    wide origin (panel wider than NARROW_MAX: hundreds to thousands of
+    K4's plan for the narrow origins (panels of at most NARROW_MAX
+    columns), destination-sorted: a destination is a span-block (a, b),
+    or a DENSE_PIECE-square piece of it where a span is wider; one record
+    per (destination, narrow origin whose below rows hold both spans),
+    origins in order within a destination: rec[p] = (xb, dr << 32 | ld <<
+    16 | n), x_o[b]'s first element (plus the slice's first column) at
+    data offset xb, x_o[a]'s dr rows further (dr < 0 for a piece above
+    its column piece in a diagonal block), row stride ld, n columns; an
+    origin wider than DENSE_NK columns gives one record per k-slice.
+    Destination d subtracts the sum of its records rec[dst_ptr[d]:
+    dst_ptr[d + 1]] from dst_rows x dst_cols elements at dst_off + i *
+    dst_ld + j; dst_nk is its widest record; dst_short / dst_long split
+    them at DENSE_LONG records.
+
+    A wide origin (panel wider than NARROW_MAX: hundreds to thousands of
     columns, few origins, whose span-blocks would re-read x from memory
-    for every destination) has its product x x^T formed by one matrix
-    product into a buffer (`wide`: data offset, rows, width, stride and
-    buffer offset per wide origin; prod_size values per batch item); its
-    record names the block there: xb the buffer offset of (a, b)'s first
-    element, ld = its rows, n = 0. Its records go to destinations of
-    their own (dst_prod), subtracted first. Destination d subtracts the
-    sum of its records rec[dst_ptr[d]:dst_ptr[d + 1]] from dst_rows x
-    dst_cols elements at dst_off + i * dst_ld + j; dst_nk is its widest
-    record; dst_short / dst_long split the others at DENSE_LONG records.
-    The compact rows and origin groups serve the plain twin."""
+    for every destination) is summed by tiles of x x^T instead: `wide`
+    holds (xoff, rows, width, ld, row0, pair0, chain0, tile0, tiles) per
+    wide origin, indexing the concatenated w_* arrays: w_tile (I << 32 |
+    J) lists the DENSE_TILE-square tiles of its below rows with a row
+    chain at or past a column chain, w_rch / w_rin each below row's chain
+    (0-based in the origin) and row inside its span, w_pt each chain
+    pair's target offset (a >= b at a (a + 1) / 2 + b), w_cld each
+    chain's target row stride. The compact rows and origin groups serve
+    the plain twin."""
     R: int
     max_span: int
     tspans: np.ndarray     # (S,) touched spans, ascending
@@ -205,9 +211,12 @@ class DenseUpdate:
     dst_ptr: np.ndarray    # (T + 1,)
     dst_short: np.ndarray  # destinations with <= DENSE_LONG records
     dst_long: np.ndarray   # the others
-    dst_prod: np.ndarray   # destinations of wide origins' products
-    wide: list             # (xoff, rows, width, ld, pbase) per wide origin
-    prod_size: int         # product buffer values per batch item
+    wide: list             # per wide origin, see above
+    w_tile: np.ndarray
+    w_rch: np.ndarray
+    w_rin: np.ndarray
+    w_pt: np.ndarray
+    w_cld: np.ndarray
 
 
 def _expand(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -217,73 +226,101 @@ def _expand(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     return np.repeat(starts - ex, counts) + np.arange(tot, dtype=np.int64)
 
 
-def _dense_records(sp, org_of, grow, rptr, nch, xoff, ld, width, rows,
-                   span_size, tspans, sl_span, slice_ptr, sl_off, sp_ld,
+def _dense_records(sp, org_of, grow, rptr, nch, xoff, ld, width, span_size,
+                   tspans, sl_span, slice_ptr, sl_off, sp_ld,
                    num_spans) -> dict:
-    """K4's destination-sorted records (DenseUpdate), vectorised. sp,
-    org_of, grow: span, origin and first row of every below chain of the
-    level's origins, origins in order; sl_span the span a of each slice."""
-    # every (chain a >= chain b) pair of one origin, by origin, then b
+    """K4's plan (DenseUpdate), vectorised but for a loop over the wide
+    origins. sp, org_of, grow: span, origin and first row of every below
+    chain of the level's origins, origins in order; sl_span the span a of
+    each slice."""
+    n_sl = np.diff(slice_ptr)
+    s_of = np.repeat(np.arange(len(tspans)), n_sl)
+    keys = s_of * num_spans + sl_span
+    cstart = np.cumsum(nch) - nch
+
+    def target(ia, jb):
+        """The slice of each chain pair (ia at or past jb)."""
+        key = np.searchsorted(tspans, sp[jb]) * num_spans + sp[ia]
+        q = np.searchsorted(keys, key)
+        assert np.array_equal(keys[q], key), "span-block without a target"
+        return q
+
+    # narrow origins: every (chain a >= chain b) pair, by origin, then b
+    wide_o = ld > NARROW_MAX
     nc = len(sp)
-    cend = np.cumsum(nch)[org_of]
-    cnt = cend - np.arange(nc)
+    cnt = np.where(wide_o[org_of], 0, (cstart + nch)[org_of] - np.arange(nc))
     jb = np.repeat(np.arange(nc), cnt)
     ia = _expand(np.arange(nc), cnt)
-    o = org_of[jb]
-    wide = ld[o] > NARROW_MAX
-    # destination: the slice of span a in touched span b's column; wide
-    # origins' products get destinations of their own
-    n_sl = np.diff(slice_ptr)
-    keys = np.repeat(np.arange(len(tspans)), n_sl) * num_spans + sl_span
-    key = np.searchsorted(tspans, sp[jb]) * num_spans + sp[ia]
-    dst = np.searchsorted(keys, key)
-    assert np.array_equal(keys[dst], key), "span-block without a target"
-    dkey = 2 * dst + wide
-    order = np.argsort(dkey, kind="stable")
-    dkey, o, ia, jb, wide = (x[order] for x in (dkey, o, ia, jb, wide))
-    dst = dkey >> 1
-    la, lb = grow[ia] - rptr[o], grow[jb] - rptr[o]  # rows in the origin
-    # a wide origin's product P = x x^T comes from a matrix product into
-    # a buffer, (rows x rows) per wide origin at wide_pbase
-    wide_org = np.flatnonzero(ld > NARROW_MAX)
-    psize = rows[wide_org] ** 2
-    pbase = np.zeros(len(ld), np.int64)
-    pbase[wide_org] = np.cumsum(psize) - psize
-    # k-slices: at most DENSE_NK columns, and DENSE_STAGE staged values
-    s_of = np.repeat(np.arange(len(tspans)), n_sl)
-    rows_d, cols_d = span_size[sl_span], span_size[tspans][s_of]
-    cap = np.minimum(DENSE_NK, DENSE_STAGE // (rows_d + cols_d))
-    if np.any(cap < 1):
-        raise ValueError("dense level: a span-block too large for K4's "
-                         "shared-memory stage")
-    n = np.where(wide, 0, width[o])
-    ns = np.where(wide, 1, (n + cap[dst] - 1) // cap[dst])
+    q = target(ia, jb)
+    # destinations: the pieces of each slice, row piece-major
+    rows_q, cols_q = span_size[sl_span], span_size[tspans][s_of]
+    npr = (rows_q + DENSE_PIECE - 1) // DENSE_PIECE
+    npc = (cols_q + DENSE_PIECE - 1) // DENSE_PIECE
+    npq = npr * npc
+    pbase = np.cumsum(npq) - npq
+    e = np.repeat(np.arange(len(q)), npq[q])  # a pair per piece
+    loc = np.arange(len(e)) - np.repeat(np.cumsum(npq[q]) - npq[q], npq[q])
+    q, pr, pc = q[e], loc // npc[q[e]], loc % npc[q[e]]
+    order = np.argsort(pbase[q] + loc, kind="stable")  # keeps origin order
+    e, q, pr, pc = e[order], q[order], pr[order], pc[order]
+    u = pbase[q] + pr * npc[q] + pc
+    o = org_of[jb[e]]
+    la = grow[ia[e]] - rptr[o] + pr * DENSE_PIECE  # rows in the origin
+    lb = grow[jb[e]] - rptr[o] + pc * DENSE_PIECE
+    # k-slices of at most DENSE_NK columns
+    w = width[o]
+    ns = (w + DENSE_NK - 1) // DENSE_NK
     sl = np.repeat(np.arange(len(ns)), ns)
     k0 = (np.arange(int(ns.sum())) - np.repeat(np.cumsum(ns) - ns, ns)) * \
-        cap[dst][sl]
-    nk = np.minimum(cap[dst][sl], n[sl] - k0)
-    xb = np.where(wide, pbase[o] + la * rows[o] + lb,
-                  xoff[o] + lb * ld[o])[sl] + k0
-    da = np.where(wide, 0, (la - lb) * ld[o])[sl]
-    lds = np.where(wide, rows[o], ld[o])[sl]
-    dkey = dkey[sl]
-    if np.any(lds >= 1 << 16) or np.any(da >= 1 << 31):
-        raise ValueError("dense level: an origin too wide for K4's records")
-    rec = np.stack([xb, (da << 32) | (lds << 16) | nk], axis=1)
-    used, start, count = np.unique(dkey, return_index=True,
+        DENSE_NK
+    nk = np.minimum(DENSE_NK, w[sl] - k0)
+    ldr = ld[o][sl]
+    assert not np.any(ldr >= 1 << 16), "narrow origins are at most 512 wide"
+    rec = np.stack([(xoff[o] + lb * ld[o])[sl] + k0,
+                    ((la - lb)[sl] << 32) | (ldr << 16) | nk], axis=1)
+    used, start, count = np.unique(u[sl], return_index=True,
                                    return_counts=True)
-    d, prod = used >> 1, (used & 1).astype(bool)
-    long_ = ~prod & (count > DENSE_LONG)
+    # each destination's slice and piece
+    dq = np.repeat(np.arange(len(npq)), npq)[used]
+    dl = used - pbase[dq]
+    dpr, dpc = dl // npc[dq], dl % npc[dq]
+    long_ = count > DENSE_LONG
+
+    # wide origins: tiles of x x^T, targets per chain pair
+    parts = {k: [] for k in ("tile", "rch", "rin", "pt", "cld")}
+    wide, r0 = [], [0, 0, 0, 0]
+    for w_ in np.flatnonzero(wide_o):
+        ch = cstart[w_] + np.arange(nch[w_])
+        sz = span_size[sp[ch]]
+        n_r = int(sz.sum())
+        rch = np.repeat(np.arange(len(ch)), sz)
+        a, b = np.tril_indices(len(ch))
+        nt = (n_r + DENSE_TILE - 1) // DENSE_TILE
+        first = np.arange(nt) * DENSE_TILE
+        last = rch[np.minimum(first + DENSE_TILE, n_r) - 1]
+        ti, tj = np.nonzero(last[:, None] >= rch[first][None, :])
+        new = dict(tile=(ti.astype(np.int64) << 32) | tj, rch=rch,
+                   rin=np.arange(n_r) - np.repeat(np.cumsum(sz) - sz, sz),
+                   pt=sl_off[target(ch[a], ch[b])],
+                   cld=sp_ld[np.searchsorted(tspans, sp[ch])])
+        wide.append((int(xoff[w_]), n_r, int(width[w_]), int(ld[w_]),
+                     r0[0], r0[1], r0[2], r0[3], len(ti)))
+        for k, v in new.items():
+            parts[k].append(v.astype(np.int64))
+        r0 = [r0[0] + n_r, r0[1] + len(a), r0[2] + len(ch), r0[3] + len(ti)]
+    cat = {f"w_{k}": np.concatenate(v) if v else np.zeros(0, np.int64)
+           for k, v in parts.items()}
     return dict(
-        rec=rec, dst_off=sl_off[d], dst_ld=sp_ld[s_of[d]],
-        dst_rows=rows_d[d], dst_cols=cols_d[d],
+        rec=rec,
+        dst_off=sl_off[dq] + dpr * DENSE_PIECE * sp_ld[s_of[dq]] +
+        dpc * DENSE_PIECE,
+        dst_ld=sp_ld[s_of[dq]],
+        dst_rows=np.minimum(DENSE_PIECE, rows_q[dq] - dpr * DENSE_PIECE),
+        dst_cols=np.minimum(DENSE_PIECE, cols_q[dq] - dpc * DENSE_PIECE),
         dst_nk=np.maximum.reduceat(nk, start) if len(start) else start,
-        dst_ptr=np.append(start, len(dkey)),
-        dst_short=np.flatnonzero(~prod & ~long_),
-        dst_long=np.flatnonzero(long_), dst_prod=np.flatnonzero(prod),
-        wide=[(int(xoff[w]), int(rows[w]), int(width[w]), int(ld[w]),
-               int(pbase[w])) for w in wide_org],
-        prod_size=int(psize.sum()))
+        dst_ptr=np.append(start, len(rec)),
+        dst_short=np.flatnonzero(~long_), dst_long=np.flatnonzero(long_),
+        wide=wide, **cat)
 
 
 class PlannedSchedule:
@@ -431,8 +468,8 @@ class PlannedSchedule:
             np.repeat(sk.span_offset_in_lump[tspans], n_sl)
         sp_ld = sk.col_stride[ct[own]].astype(np.int64)
         plan = _dense_records(
-            sp, org_of, grow, rptr, nch, xoff, ld, width, rows, span_size,
-            tspans, cs[q], slice_ptr, sl_off, sp_ld, sk.num_spans)
+            sp, org_of, grow, rptr, nch, xoff, ld, width, span_size, tspans,
+            cs[q], slice_ptr, sl_off, sp_ld, sk.num_spans)
         return DenseUpdate(
             R=R, max_span=int(tsize.max()), tspans=tspans,
             sp_cs=compact_start[tspans], sp_size=tsize, sp_ld=sp_ld,

@@ -70,6 +70,7 @@ nor baspacho_tpu.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import re
@@ -121,7 +122,8 @@ GRIDS = {"bucket_factor": ("chol_inv_kernel", "below_kernel", "prod_kernel"),
          "bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
          "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
                         "wide_ltpre_kernel", "wide_ltmv_kernel"),
-         "dense_update": ("dense_warp_kernel", "dense_block_kernel"),
+         "dense_update": ("dense_wide_kernel", "dense_warp_kernel",
+                          "dense_block_kernel"),
          "tri_solve": ("tri_l_kernel", "tri_lt_kernel"),
          "wide_tri_solve": ("tri_wide_pre_kernel", "tri_wide_chain_kernel",
                             "tri_wide_post_kernel"),
@@ -333,7 +335,8 @@ def k4_levels(s, data, label: str, name_limit: str) -> list:
     update against its twin in f64 and f32 (CheckedOps), two runs from
     the same data bitwise equal, its time (CUDA events, mean of 5 after 2
     warm-up runs), the twin's (one run), and its bound from this level's
-    plan. Returns one row per dense level."""
+    plan; on a level with wide origins, their tile launches alone
+    timed too. Returns one row per dense level."""
     cap = DenseCapture()
     s.factor_program()(data[None], ops=cap)
     sched = s.backend._factor_schedule(0, s.skel.num_lumps)
@@ -364,6 +367,13 @@ def k4_levels(s, data, label: str, name_limit: str) -> list:
         del a, b
         buf = snap.clone()
         row["ms"] = time_ms(lambda: kernels.dense_update(buf, d), 5)
+        if d.wide:  # the wide origins' tile launches alone
+            wide = copy.copy(d)
+            wide.dst_short, wide.dst_long = d.dst_short[:0], d.dst_long[:0]
+            row["wide_ms"] = time_ms(lambda: kernels.dense_update(buf, wide),
+                                     5)
+            row["wide_origins"] = [{"rows": w[1], "width": w[2],
+                                    "tiles": w[8]} for w in d.wide]
         row["twin_ms"] = time_ms(lambda: kernels.dense_update_twin(buf, d),
                                  1, warmup=1)
         row["bound_ms"], row["bound_by"] = bound(*cost("dense_update",
@@ -444,26 +454,7 @@ def cost(name: str, args) -> tuple:
         return (batch * item * width * (ns + 2 * nt) +
                 8 * (nt + seg_ptr.numel() + ns), batch * ns * width)
     if name == "dense_update":
-        # each origin's real below block x read once, the destinations'
-        # target elements read and written once, the plan's records and
-        # destination arrays; a multiply-add per record, element of its
-        # destination and column (this run's records), and per element
-        # of a wide origin's lower product and column
-        d = args[1]
-        x_el = int((d.org_rows * d.org_cols).sum())
-        t_el = int((d.dst_rows * d.dst_cols).sum())
-        dst = torch.repeat_interleave(
-            torch.arange(d.dst_off.shape[0], device=data.device),
-            d.dst_ptr.diff())
-        macs = int((d.dst_rows[dst] * d.dst_cols[dst] *
-                    (d.rec[:, 1] & 0xffff)).sum())
-        # a wide origin's product: its lower triangle
-        macs += sum(r * (r + 1) // 2 * n for _, r, n, _, _ in d.wide)
-        idx = sum(getattr(d, k).numel() for k in (
-            "rec", "dst_off", "dst_ld", "dst_rows", "dst_cols", "dst_nk",
-            "dst_ptr", "dst_short", "dst_long", "dst_prod"))
-        return (batch * item * (x_el + 2 * t_el) + 8 * idx,
-                2 * batch * macs)
+        return k4_cost(data, args[1])
     if name in ("bucket_factor", "wide_factor"):
         off, rows, cols, cp, rp = (args[2:7] if name == "bucket_factor"
                                    else args[1:6])
@@ -515,6 +506,45 @@ def cost(name: str, args) -> tuple:
         return (batch * item * (el.sum() + rows_in * nrhs) +
                 8 * (4 * off.numel() + live), batch * ops.sum())
     raise KeyError(name)
+
+
+def k4_cost(data, d) -> tuple:
+    """K4's (bytes, operations) at the least: each origin's real below
+    block x read once, each target element read and written once (the
+    union of the narrow destinations' elements and the wide origins'
+    targets), the plan's arrays; a multiply-add per record, element of
+    its destination and column, and per column and element (i, j) of a
+    wide origin's product whose row chain is at or past its column
+    chain (this run's plan)."""
+    dev, item, batch = data.device, data.element_size(), data.shape[0]
+
+    def ranges(counts):  # per element: its owner, its index in the owner
+        own = torch.repeat_interleave(
+            torch.arange(counts.shape[0], device=dev), counts)
+        k = torch.arange(own.shape[0], device=dev) - \
+            (torch.cumsum(counts, 0) - counts)[own]
+        return own, k
+    x_el = int((d.org_rows * d.org_cols).sum())
+    dst, _ = ranges(d.dst_ptr.diff())
+    macs = int((d.dst_rows[dst] * d.dst_cols[dst] *
+                (d.rec[:, 1] & 0xffff)).sum())
+    q, k = ranges(d.dst_rows * d.dst_cols)
+    tgt = [d.dst_off[q] + k // d.dst_cols[q] * d.dst_ld[q] +
+           k % d.dst_cols[q]]
+    for _, rows, n, _, r0, p0, c0, _, _ in d.wide:
+        rch, rin = d.w_rch[r0:r0 + rows], d.w_rin[r0:r0 + rows]
+        end = torch.cumsum(torch.bincount(rch), 0)  # past each chain
+        i, j = ranges(end[rch])  # (i, j): j before the end of i's chain
+        a, b = rch[i], rch[j]
+        tgt.append(d.w_pt[p0 + a * (a + 1) // 2 + b] +
+                   rin[i] * d.w_cld[c0 + b] + rin[j])
+        macs += i.shape[0] * n
+    t_el = int(torch.unique(torch.cat(tgt)).numel())
+    idx = sum(getattr(d, k).numel() for k in (
+        "rec", "dst_off", "dst_ld", "dst_rows", "dst_cols", "dst_nk",
+        "dst_ptr", "dst_short", "dst_long", "w_tile", "w_rch", "w_rin",
+        "w_pt", "w_cld"))
+    return (batch * item * (x_el + 2 * t_el) + 8 * idx, 2 * batch * macs)
 
 
 def pseudo_cost(s, span: int, item: int = 8) -> tuple:

@@ -25,7 +25,9 @@ import baspacho_tpu as J
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import DevDense, PlannedBackend
-from baspacho_tpu_torch.ops.schedule import NARROW_MAX, PlannedSchedule
+from baspacho_tpu_torch.ops.schedule import (DENSE_PIECE, DENSE_TILE,
+                                             NARROW_MAX, PlannedSchedule)
+from baspacho_tpu_torch.testing.mat_gen import SparseMatGenerator
 from baspacho_tpu_torch.testing.problems import (SMALL, flat_schur5k,
                                                  spd_data, wide_below,
                                                  wide_dense)
@@ -77,11 +79,11 @@ def test_wide_origin_sends_its_level_dense():
     wide = [lb for lb in lbs if lb.cp > NARROW_MAX]
     assert [(lb.cp, lb.rp, int(lb.rows[0])) for lb in wide] == \
         [(1024, 64, 36)]
-    # the narrow origin's records read its rows (stride 128), the wide
-    # one's its 36 x 36 product (stride 36)
-    assert [(w[1], w[3]) for w in dense.wide] == [(36, 1024)]
+    # the narrow origin's records read its rows (stride 128); the wide
+    # one (36 rows, stride 1024) has no records: one 64 x 64 tile
+    assert [(w[1], w[3], w[8]) for w in dense.wide] == [(36, 1024, 1)]
     ld = (dense.rec[:, 1] >> 16) & 0xffff
-    assert sorted(set(ld.tolist())) == [36, 128]
+    assert sorted(set(ld.tolist())) == [128]
     forced = PlannedBackend(ts.plan, assembly="pairs")
     assert forced._factor_schedule(0, ts.skel.num_lumps)[0][3] is not None
     assert all(lv[3] is None for lv in levels(ts)[1:])
@@ -193,54 +195,106 @@ def bal_case():
     return _cache["bal"]
 
 
+def _separator_problem(blocks, sep, links, n_sep_links=None):
+    """Dense parameter blocks (sizes `blocks`, each one param per row of
+    3) over separator params of sizes `sep`, ordered last: block i links
+    to the separator params in links[i]. Returns the port's solver."""
+    sizes = [s for s in blocks for _ in range(s // 3)]
+    ranges, first = [], 0
+    for s in blocks:
+        ranges.append((first, first + s // 3))
+        first += s // 3
+    n = first + len(sep)
+    gen = SparseMatGenerator(n, seed=5)
+    for (a, b), ln in zip(ranges, links):
+        gen.connect_ranges(a, b, a, b, 1.0)
+        for j in ln:
+            gen.connect_ranges(a, b, first + j, first + j + 1, 1.0)
+    gen.connect_ranges(first, n, first, n, 1.0)
+    return T.create_solver(
+        T.Settings(backend=T.BackendType.PLANNED),
+        np.array([3] * len(sizes) + list(sep)), gen.to_structure(),
+        elim_last_ids=list(range(first, n)), device="cpu")
+
+
+def limits_case(name):
+    """Dense levels past the limits of the plan's packed fields:
+    `big_span`, 20 narrow origins below one 2,050-row separator span and
+    a 40-row one (span-blocks of |a| + |b| > 4,096 rows, cut into
+    32-row pieces); `wide_tiles`, a 540-wide origin over spans of 50, 40
+    and 70 rows (three 64-row tiles of its product, chains straddling
+    them) beside a narrow one sharing two of its targets."""
+    if name not in _cache:
+        if name == "big_span":
+            ts = _separator_problem([3] * 20, [2050, 40], [(0, 1)] * 20)
+        else:
+            ts = _separator_problem([540, 30], [50, 40, 70],
+                                    [(0, 1, 2), (1, 2)])
+        _cache[name] = (ts, levels(ts)[0])
+    return _cache[name]
+
+
+LIMITS = ("big_span", "wide_tiles")
+
+
 def dense_level(name):
     """(port solver, level tuple) of the dense level the plan tests use."""
     if name == "bal":
         return bal_case()
+    if name in LIMITS:
+        return limits_case(name)
     ts = case(name)[1]
     return ts, levels(ts)[0]
 
 
 def decode(du):
-    """Per record: (xa, xb, ld, n) as stored, whether it names a wide
-    origin's product, its destination, its origin, the rows of x_o[a] and
-    x_o[b] in the origin, its first column and its columns."""
+    """Per record: (xa, xb, ld, n) as stored, its destination, its
+    origin, the rows of x_o[a] and x_o[b] in the origin and its first
+    column."""
     xb, m = du.rec[:, 0], du.rec[:, 1]
-    xa, ld, n = xb + (m >> 32), (m >> 16) & 0xffff, m & 0xffff
+    ld, n = (m >> 16) & 0xffff, m & 0xffff
+    xa = xb + (m >> 32) * ld
     dst = np.repeat(np.arange(len(du.dst_off)), np.diff(du.dst_ptr))
-    prod = n == 0
     by_off = np.argsort(du.org_xoff)
     o = by_off[np.searchsorted(du.org_xoff[by_off], xb, side="right") - 1]
-    base = du.org_xoff[o]
-    if du.wide:  # a product record's xb is an offset into the buffer
-        w_org = np.searchsorted(du.org_xoff[by_off],
-                                [w[0] for w in du.wide])
-        w_org, w_pb = by_off[w_org], np.array([w[4] for w in du.wide])
-        w = np.searchsorted(w_pb, xb, side="right") - 1
-        o = np.where(prod, w_org[np.maximum(w, 0)], o)
-        base = np.where(prod, w_pb[np.maximum(w, 0)], du.org_xoff[o])
-    row_b, k0 = np.divmod(xb - base, ld)
-    row_a = np.where(prod, row_b, (xa - k0 - base) // ld)
-    row_b, k0 = np.where(prod, k0, row_b), np.where(prod, 0, k0)
-    cols = np.where(prod, du.org_cols[o], n)
-    return xa, xb, ld, n, prod, dst, o, row_a, row_b, k0, cols
+    row_b, k0 = np.divmod(xb - du.org_xoff[o], ld)
+    row_a = (xa - k0 - du.org_xoff[o]) // ld
+    return xa, xb, ld, n, dst, o, row_a, row_b, k0
+
+
+def wide_targets(du, w):
+    """A wide origin's tiles: per tile (rows i, rows j, keep (i, j)
+    where the row chain is at or past the column chain, the targets)."""
+    xoff, rows, _, _, r0, p0, c0, t0, nt = w
+    rch, rin = du.w_rch[r0:r0 + rows], du.w_rin[r0:r0 + rows]
+    out = []
+    for t in du.w_tile[t0:t0 + nt]:
+        i = (t >> 32) * DENSE_TILE + np.arange(DENSE_TILE)
+        j = (t & 0xffffffff) * DENSE_TILE + np.arange(DENSE_TILE)
+        i, j = i[i < rows], j[j < rows]
+        a, b = rch[i][:, None], rch[j][None, :]
+        tgt = du.w_pt[p0 + a * (a + 1) // 2 + b] + rin[i][:, None] * \
+            du.w_cld[c0 + b] + rin[j][None, :]
+        out.append((i, j, a >= b, tgt))
+    return out
 
 
 def k4_records_numpy(buf, du):
-    """buf less K4's update, from the destination-sorted records alone:
-    each record's product x_o[a] x_o[b]^T over its columns (a wide
-    origin's from its x x^T, formed here), subtracted at its destination
-    (numpy, grouped by destination shape)."""
+    """buf less K4's update from its plan alone: each wide origin's x x^T
+    by tiles, then each record's product x_o[a] x_o[b]^T over its
+    columns, subtracted at its destination (numpy, grouped by
+    destination shape)."""
     out = buf.copy()
-    xa, xb, ld, n, prod, dst, _, _, _, _, _ = decode(du)
-    pbuf = np.zeros(max(du.prod_size, 1))
-    for xoff, rows, w, pld, pbase in du.wide:
-        x = buf[xoff:xoff + rows * pld].reshape(rows, pld)[:, :w]
-        pbuf[pbase:pbase + rows * rows] = (x @ x.T).ravel()
+    for w in du.wide:
+        xoff, rows, width, ld = w[:4]
+        x = buf[xoff:xoff + rows * ld].reshape(rows, ld)[:, :width]
+        for i, j, keep, tgt in wide_targets(du, w):
+            np.subtract.at(out, tgt[keep], (x[i] @ x[j].T)[keep])
+    xa, xb, ld, n, dst, _, _, _, _ = decode(du)
     R, C = du.dst_rows[dst], du.dst_cols[dst]
     for r_, c_ in sorted(set(zip(R.tolist(), C.tolist()))):
         sel = np.flatnonzero((R == r_) & (C == c_))
-        k = np.arange(max(int(n[sel].max()), 1))
+        k = np.arange(int(n[sel].max()))
         live = (k < n[sel, None])[:, None, :]
 
         def gather(x, h):
@@ -248,10 +302,6 @@ def k4_records_numpy(buf, du):
                 ld[sel, None, None] + k
             return np.where(live, buf[np.where(live, idx, 0)], 0.0)
         blk = np.einsum("mrk,mck->mrc", gather(xa, r_), gather(xb, c_))
-        pidx = xb[sel, None, None] + np.arange(r_)[:, None] * \
-            ld[sel, None, None] + np.arange(c_)
-        blk = np.where(prod[sel, None, None],
-                       pbuf[np.where(prod[sel, None, None], pidx, 0)], blk)
         d = dst[sel]
         tgt = du.dst_off[d, None, None] + np.arange(r_)[:, None] * \
             du.dst_ld[d, None, None] + np.arange(c_)
@@ -259,10 +309,11 @@ def k4_records_numpy(buf, du):
     return out
 
 
-@pytest.mark.parametrize("name", [*sorted(PROBLEMS), "bal"])
+@pytest.mark.parametrize("name", [*sorted(PROBLEMS), "bal", *LIMITS])
 def test_k4_records_match_twin(name):
-    """K4's plan evaluated record by record in numpy gives the twin's
-    buffer (the kernel evaluates the same records on the card)."""
+    """K4's plan evaluated record by record (and tile by tile) in numpy
+    gives the twin's buffer (the kernel evaluates the same plan on the
+    card)."""
     ts, (_, _, _, du) = dense_level(name)
     buf = np.random.RandomState(5).rand(ts.data_size) * \
         ts.skel.padding_mask()
@@ -271,7 +322,28 @@ def test_k4_records_match_twin(name):
     assert rel(k4_records_numpy(buf, du), got[0].numpy()) < 1e-12
 
 
-@pytest.mark.parametrize("name", [*sorted(PROBLEMS), "bal"])
+def test_limits_cases_reach_the_limits():
+    """big_span's span-blocks exceed a record stage of 4,096 values, and
+    its spans are cut into pieces; wide_tiles has three tiles a side with
+    the chains straddling two tile edges, and a narrow origin whose
+    destinations are pieces of the wide one's targets."""
+    ts, (_, _, _, du) = limits_case("big_span")
+    assert du.max_span == 2050 and not du.wide
+    assert du.dst_rows.max() == DENSE_PIECE
+    # pieces of (s, s), (t, s), (t, t): 2,050 rows in 65, 40 in 2
+    assert len(du.dst_off) == 65 * 65 + 2 * 65 + 2 * 2
+    ts, (lbs, _, _, du) = limits_case("wide_tiles")
+    assert [(lb.cp, int(lb.rows[0])) for lb in lbs if lb.cp > NARROW_MAX] \
+        == [(1024, 160)]
+    (w,) = du.wide
+    tiles = {(int(t >> 32), int(t & 0xffffffff))
+             for t in du.w_tile[w[7]:w[7] + w[8]]}
+    assert tiles == {(i, j) for i in range(3) for j in range(i + 1)} | \
+        {(0, 1), (1, 2)}
+    assert len(du.rec) and len(du.org_xoff) == 2
+
+
+@pytest.mark.parametrize("name", [*sorted(PROBLEMS), "bal", *LIMITS])
 def test_dense_plan_invariants(name):
     ts, (lbs, _, _, du) = dense_level(name)
     sk = ts.skel
@@ -288,54 +360,68 @@ def test_dense_plan_invariants(name):
     for o in range(len(du.org_rows)):
         c = du.crow[du.org_rptr[o]:du.org_rptr[o + 1]]
         assert np.all(np.diff(c) > 0) and c.max() < du.R
-    # records sorted by destination, none empty, targets disjoint within
-    # each launch (the wide origins' products, then the rest)
-    xa, xb, ld, n, prod, dst, o, row_a, row_b, k0, cols = decode(du)
+    # records sorted by destination, none empty, targets disjoint
+    xa, xb, ld, n, dst, o, row_a, row_b, k0 = decode(du)
     assert np.all(np.diff(du.dst_ptr) > 0) and du.dst_ptr[-1] == len(xb)
     cnt = np.diff(du.dst_ptr)
-    groups = (du.dst_prod, np.concatenate([du.dst_short, du.dst_long]))
-    for ids in groups:
-        assert len(np.unique(du.dst_off[ids])) == len(ids)
-    assert np.array_equal(np.sort(np.concatenate(groups)),
+    assert len(np.unique(du.dst_off)) == len(cnt)
+    assert np.array_equal(np.sort(np.concatenate([du.dst_short,
+                                                  du.dst_long])),
                           np.arange(len(cnt)))
     assert np.all(cnt[du.dst_long] > 32) and np.all(cnt[du.dst_short] <= 32)
-    assert np.array_equal(prod, np.isin(dst, du.dst_prod))
     wide_org = np.flatnonzero(np.isin(du.org_xoff, [w[0] for w in du.wide]))
-    assert np.array_equal(prod, np.isin(o, wide_org))
+    assert not np.any(np.isin(o, wide_org))
     assert len(du.wide) == \
         sum(lb.cp > NARROW_MAX for lb in lbs for _ in range(len(lb.off)))
     # origin order inside a destination (an origin's k-slices in order)
     same = dst[1:] == dst[:-1]
     step = (o[1:] > o[:-1]) | ((o[1:] == o[:-1]) & (k0[1:] > k0[:-1]))
     assert np.all(step[same])
-    # every (a >= b, o) pair once, its k-slices covering the origin
 
-    def span_of(rows):
+    # every (a >= b, narrow o) pair, each of its pieces once, its
+    # k-slices covering the origin
+    def span_piece(rows):
         cr = du.crow[du.org_rptr[o] + rows]
-        return du.tspans[np.searchsorted(du.sp_cs, cr, side="right") - 1]
-    a, b = span_of(row_a), span_of(row_b)
+        s = du.tspans[np.searchsorted(du.sp_cs, cr, side="right") - 1]
+        off = cr - du.sp_cs[np.searchsorted(du.tspans, s)]
+        assert np.all(off % DENSE_PIECE == 0)  # pieces start at 32 rows
+        return s, off // DENSE_PIECE
+    (a, pa), (b, pb) = span_piece(row_a), span_piece(row_b)
     got = {}
-    for t in zip(o.tolist(), a.tolist(), b.tolist(), k0.tolist(),
-                 cols.tolist()):
-        got.setdefault(t[:3], []).append(t[3:])
+    for t in zip(o.tolist(), a.tolist(), b.tolist(), pa.tolist(),
+                 pb.tolist(), k0.tolist(), n.tolist()):
+        got.setdefault(t[:5], []).append(t[5:])
+    npieces = -(-span_size // DENSE_PIECE)
     want = set()
-    for oi in range(len(du.org_xoff)):
+    for oi in set(range(len(du.org_xoff))) - set(wide_org.tolist()):
         cr = du.crow[du.org_rptr[oi]:du.org_rptr[oi + 1]]
         sp = np.unique(du.tspans[np.searchsorted(du.sp_cs, cr,
                                                  side="right") - 1])
-        want |= {(oi, int(x), int(y)) for i, x in enumerate(sp)
-                 for y in sp[:i + 1]}
+        want |= {(oi, int(x), int(y), i, j) for k, x in enumerate(sp)
+                 for y in sp[:k + 1] for i in range(npieces[x])
+                 for j in range(npieces[y])}
     assert set(got) == want
-    for (oi, _, _), sl in got.items():
-        assert sum(w for _, w in sl) == du.org_cols[oi]
+    for key, sl in got.items():
+        assert sum(w for _, w in sl) == du.org_cols[key[0]]
         assert [k for k, _ in sl] == sorted(k for k, _ in sl)
-    # rows of x_o[a] and x_o[b] start their spans; destinations are |a| x |b|
-    first = lambda rows, s: du.crow[du.org_rptr[o] + rows] == \
-        du.sp_cs[np.searchsorted(du.tspans, s)]  # noqa: E731
-    assert np.all(first(row_a, a)) and np.all(first(row_b, b))
-    assert np.array_equal(du.dst_rows[dst], span_size[a])
-    assert np.array_equal(du.dst_cols[dst], span_size[b])
+    # destinations are the pieces' |a| x |b|
+    assert np.array_equal(du.dst_rows[dst], np.minimum(
+        DENSE_PIECE, span_size[a] - pa * DENSE_PIECE))
+    assert np.array_equal(du.dst_cols[dst], np.minimum(
+        DENSE_PIECE, span_size[b] - pb * DENSE_PIECE))
     assert np.all(n * (du.dst_rows[dst] + du.dst_cols[dst]) <= 4096)
+    # a wide origin's tiles cover each (i, j) with a row chain at or past
+    # the column chain once, at distinct targets
+    for w in du.wide:
+        rch = du.w_rch[w[4]:w[4] + w[1]]
+        cover = np.zeros((w[1], w[1]), int)
+        tgts = []
+        for i, j, keep, tgt in wide_targets(du, w):
+            cover[np.ix_(i, j)] += keep
+            tgts.append(tgt[keep])
+        assert np.array_equal(cover, rch[:, None] >= rch[None, :])
+        tgts = np.concatenate(tgts)
+        assert len(np.unique(tgts)) == len(tgts)
 
 
 @pytest.mark.parametrize("name", ["meri2", "meri3", "grid10", "flat"])
