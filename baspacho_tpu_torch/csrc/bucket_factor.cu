@@ -7,95 +7,298 @@
 //
 // Every panel is [(cp x cp) diag | (rp x cp) below], row-major with row
 // stride cp, at flat offset off[i] of the data buffer. With n = cols[i]
-// the real width (columns >= n are padding, held at zero), the kernel
-//   * factors L = chol(diag[:n, :n]) from the lower triangle only; the
+// the real width (columns >= n are padding, held at zero), the kernels
+//   * factor L = chol(diag[:n, :n]) from the lower triangle only; the
 //     padded columns carry the identity in the JAX routine, which leaves
 //     them zero in the stored block, so they are skipped here;
-//   * stores L on and below the diagonal and Linv^T strictly above it
+//   * store L on and below the diagonal and Linv^T strictly above it
 //     (the layout of _embed_inv);
-//   * overwrites the below block with x = below . Linv^T;
-//   * writes the products x . x^T, (rp x rp) per panel, into the level's
-//     product buffer at prod_base + i * rp * rp (zero on padded rows),
-//     unless prod is null: a dense level's update (dense_level.cu) reads
-//     x from the data instead.
+//   * overwrite the below block with x = below . Linv^T;
+//   * write the products x . x^T, (rp x rp) per panel, into the level's
+//     product buffer at prod_base + i * rp * rp (zero on rows at or past
+//     rows[i]), unless prod is null: a dense level's update
+//     (dense_level.cu) reads x from the data instead.
 //
-// Three kernels, launched back to back on the current stream:
-//   chol_inv  one CTA per (panel, batch item): right-looking Cholesky
-//             and the row-by-row inverse, in place in device memory, the
-//             current column of L / row of Linv staged in shared memory
-//             (~n^3/3 flops in n dependent steps; a wide panel is bound
-//             by the latency of those steps on its one SM);
-//   below     one CTA per (panel, chunk of below rows, batch item): the
-//             chunk is staged in shared memory so the product can
-//             overwrite it in place (bound by reads of the stored Linv);
-//   prod      one thread per product entry (rp^2 * n flops per panel,
-//             the level's bulk of work on the wide levels).
-// Simple and right first: no tensor cores, no TMA, no shared-memory
-// tiling of the diagonal block.
+// Three grids, launched back to back on the current stream:
+//   chol_warp   (cp <= 32) one warp per panel, four panels per CTA: the
+//               panel's Cholesky and inverse in registers (warp_chol_inv,
+//               warp_tiles.cuh);
+//   chol_block  (cp > 32) one CTA per (panel, batch item): a blocked
+//               right-looking Cholesky in sub-blocks of 32 columns (one
+//               warp factors and inverts the diagonal block in registers;
+//               all warps solve the rows below it and update the trailing
+//               lower triangle, 32 x 32 tiles on the f64 tensor cores;
+//               the next diagonal block is factored while the rest of the
+//               update runs), then the inverse by block rows,
+//               X[i, :i] = -Dinv_i (L[i, :i] X[:i, :i])
+//               (_blocked_lower_inv :1353). The panel
+//               is kept in shared memory where it fits (n up to 160 in
+//               f64, 224 in f32), else worked in place in device memory
+//               (L2-resident). About n / 16 steps of a few barriers each:
+//               the old design took 2n dependent steps, each up to three
+//               barriers and a pass over the panel.
+//   below       one CTA per (panel, chunk of below rows, batch item): the
+//               chunk is staged in shared memory so the product can
+//               overwrite it in place (bound by reads of the stored Linv);
+//   prod_entry  (cp <= 8, rp <= 32) one thread per product entry, the
+//               panels packed over the CTAs;
+//   prod_tile   (else) one CTA per (panel, 64 x 64 tile (I, J), I >= J,
+//               batch item): 32-column stages of both row blocks by
+//               cp.async, double-buffered; four warps of 32 x 32 on the f64
+//               tensor cores (mma.m8n8k4), or FMAs in f32, in a fixed
+//               column order; the tile goes to (I, J) and, transposed, to
+//               (J, I). Half the products of the full square; a tile past
+//               rows[i] is written as zeros without being computed.
+//
+// Bounds (H100, f64): chol and below are latency chains on one SM per
+// panel (a few panels per level); prod on BAL 871's pair levels (rp 3,072
+// to 7,680) is bound about equally by its operations (r (r + 1) n) and
+// by writing the rp x rp products (0.8 GB per factor).
+//
+// Sums run in a fixed order with no atomics: a batch item and a single
+// run agree bitwise, and so do reruns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_tiles.cuh"
+
 namespace {
 
-template <typename T>
-__global__ void chol_inv_kernel(T* data, int64_t data_bstride,
-                                const int64_t* off, const int64_t* cols,
-                                int cp) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* colk = reinterpret_cast<T*>(smem_raw);  // column k of L, rows > k
-  T* rowk = colk + cp;                        // row k of Linv, cols <= k
-  T* P = data + (int64_t)blockIdx.y * data_bstride + off[blockIdx.x];
-  const int n = (int)cols[blockIdx.x];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  // warps walk rows, lanes walk consecutive columns of a row
-  const int tx = tid & 31, ty = tid >> 5, nty = nt >> 5;
-  const int64_t ld = cp;
+constexpr int kPanelsPerCta = 4;     // chol_warp: warps (panels) per CTA
+constexpr int kEntryCp = 8;          // prod_entry: the widest cp it takes
+constexpr int kBlockThreads = 256;   // chol_block: 8 warps
+constexpr int kWarps = kBlockThreads / 32;
+constexpr int kMaxSmem = 232448;     // a CTA's shared memory on the H100
+constexpr int kOld = kTile + 1;      // prod_tile: the output tile's row
 
-  // the strict upper triangle receives Linv^T (zero on padded columns)
-  for (int r = ty; r < cp; r += nty)
-    for (int c = r + 1 + tx; c < cp; c += 32) P[r * ld + c] = T(0);
+// store(e, load(e)) for e = tid, tid + nt, ... < count, kInFlight loads
+// issued before their stores: a load and its store in turn would wait out
+// the memory latency once per element (the compiler cannot tell a shared
+// destination from a device-memory source behind generic pointers)
+template <typename T, int kInFlight = 8, typename L, typename S>
+__device__ __forceinline__ void copy_batched(int count, int tid, int nt,
+                                             const L& load, const S& store) {
+  for (int e0 = tid; e0 < count; e0 += kInFlight * nt) {
+    T v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (e0 + u * nt < count) v[u] = load(e0 + u * nt);
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (e0 + u * nt < count) store(e0 + u * nt, v[u]);
+  }
+}
+
+// cp <= kW (4, 8, 16 or 32): one warp per panel; the panel's lower
+// triangle is staged in the warp's shared slab (kW x kW, zero past it),
+// factored and inverted there, and written back whole (zero on padding).
+template <typename T, int kW>
+__global__ void __launch_bounds__(32 * kPanelsPerCta)
+    chol_warp_kernel(T* data, int64_t bstride, const int64_t* off,
+                     const int64_t* cols, int64_t B, int cp) {
+  constexpr int ls = kW + 1;
+  __shared__ T slab[kPanelsPerCta][kW * ls];
+  __shared__ T dxs[kPanelsPerCta][kW];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t i = (int64_t)blockIdx.x * kPanelsPerCta + warp;
+  if (i >= B) return;  // uniform over the warp; no CTA barrier below
+  T* P = data + (int64_t)blockIdx.y * bstride + off[i];
+  const int n = (int)cols[i];
+  T* A = slab[warp];
+  copy_batched<T>(
+      kW * kW, lane, 32,
+      [&](int t) {
+        const int r = t / kW, c = t % kW;
+        return (r < n && c <= r) ? P[r * cp + c] : T(0);
+      },
+      [&](int t, T v) { A[(t / kW) * ls + t % kW] = v; });
+  if (lane < kW) dxs[warp][lane] = T(0);
+  __syncwarp();
+  warp_chol_inv<kW>(A, dxs[warp], ls, 0, n);
+  __syncwarp();
+  for (int t = lane; t < cp * cp; t += 32) P[t] = A[(t / cp) * ls + t % cp];
+}
+
+// cp > 32 (a multiple of 32): one CTA per (panel, batch item). Shared
+// memory holds dx (the diagonal of X = Linv), dbuf (the diagonal block
+// being factored or applied) and a work area: the panel itself, its
+// padded width np = n rounded up to 32, where np (np + 4) values fit
+// (row stride np + 4); else the panel is worked in place in device
+// memory (row stride cp) and the work area holds the operands of each
+// step: the solved block column (rows past it x kCld) for the trailing
+// update, block row i of L for the inverse sweep. A step's operand read
+// from device memory is preloaded (mma32<true>).
+constexpr int kDld = kSub + 1;  // dbuf's row
+constexpr int kCld = kSub + 4;  // a staged block column's row
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+    chol_block_kernel(T* data, int64_t bstride, const int64_t* off,
+                      const int64_t* cols, int cp, int64_t slab) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const dx = reinterpret_cast<T*>(smem_raw);
+  T* const dbuf = dx + cp;
+  T* const work = dbuf + kSub * kDld;
+  T* P = data + (int64_t)blockIdx.y * bstride + off[blockIdx.x];
+  const int n = (int)cols[blockIdx.x];
+  const int np = (n + kSub - 1) / kSub * kSub, nb = np / kSub;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool on_chip = (int64_t)np * (np + 4) <= slab;
+  T* const A = on_chip ? work : P;
+  const int ld = on_chip ? np + 4 : cp;
+  if (on_chip) {
+    copy_batched<T>(
+        np * np, tid, kBlockThreads,
+        [&](int t) {
+          const int r = t / np, c = t % np;
+          return (r < n && c <= r) ? P[(int64_t)r * cp + c] : T(0);
+        },
+        [&](int t, T v) { A[(t / np) * ld + t % np] = v; });
+  } else {  // the strict upper triangle will receive Linv^T
+    for (int t = tid; t < cp * cp; t += kBlockThreads)
+      if (t % cp > t / cp) P[t] = T(0);
+  }
+  for (int t = tid; t < cp; t += kBlockThreads) dx[t] = T(0);
   __syncthreads();
 
-  // Cholesky of the leading n x n lower triangle, right-looking
-  for (int k = 0; k < n; ++k) {
-    if (tid == 0) P[k * ld + k] = sqrt(P[k * ld + k]);
-    __syncthreads();
-    const T d = P[k * ld + k];
-    for (int r = k + 1 + tid; r < n; r += nt) {
-      const T v = P[r * ld + k] / d;
-      P[r * ld + k] = v;
-      colk[r] = v;
+  // warp 0: diagonal block p, factored and inverted in dbuf, written back
+  // (L below the diagonal, X^T above it)
+  const auto factor_diag = [&](int p) {
+    const int p0 = p * kSub;
+    T* const Dg = A + (int64_t)p0 * ld + p0;
+    copy_batched<T, 16>(
+        kSub * kSub, lane, 32,
+        [&](int t) {
+          const int r = t / kSub, c = t % kSub;
+          return c <= r ? Dg[r * ld + c] : T(0);
+        },
+        [&](int t, T v) { dbuf[(t / kSub) * kDld + t % kSub] = v; });
+    __syncwarp();
+    warp_chol_inv<kSub>(dbuf, dx + p0, kDld, 0, min(kSub, n - p0));
+    __syncwarp();
+    for (int t = lane; t < kSub * kSub; t += 32)
+      Dg[(t / kSub) * ld + t % kSub] = dbuf[(t / kSub) * kDld + t % kSub];
+  };
+
+  // Cholesky by sub-blocks of 32 columns, right-looking, one step ahead:
+  // warp 0 factors diagonal block p + 1 while the others finish step p's
+  // update
+  if (warp == 0 && nb > 0) factor_diag(0);
+  __syncthreads();
+  for (int p = 0; p < nb; ++p) {
+    const int p0 = p * kSub, q0 = p0 + kSub;
+    // the rows below, in place: x[r][c] = sum_{k <= c} a[r][k] X[c][k],
+    // X[c][k] = dbuf[k][c] above the diagonal, dx on it; off chip, also
+    // into the work area
+    for (int g = p + 1 + warp; g < nb; g += kWarps) {
+      T* a = A + (int64_t)g * kSub * ld + p0;
+      T* w = work + (g - p - 1) * kSub * kCld;
+      T acc[4][4][2] = {};
+      mma32<true>(acc, [&](int r, int k) { return a[r * ld + k]; },
+                  [&](int c, int k) {
+                    return k < c ? dbuf[k * kDld + c]
+                                 : (k == c ? dx[p0 + c] : T(0));
+                  },
+                  lane);
+      __syncwarp();  // the warp's rows are read; overwrite them
+      acc_each(acc, lane, [&](T& v, int r, int c) {
+        a[r * ld + c] = v;
+        if (!on_chip) w[r * kCld + c] = v;
+      });
     }
     __syncthreads();
-    for (int r = k + 1 + ty; r < n; r += nty) {
-      const T lr = colk[r];
-      T* row = P + r * ld;
-      for (int c = k + 1 + tx; c <= r; c += 32) row[c] -= lr * colk[c];
+    // the trailing lower triangle: A[I][J] -= x_I x_J^T, 32 x 32 tiles
+    // (a diagonal tile's upper half is overwritten when it is factored);
+    // warp 0 updates tile (0, 0), the next diagonal block, and factors it
+    const T* xc = on_chip ? A + (int64_t)q0 * ld + p0 : work;
+    const int xld = on_chip ? ld : kCld;
+    const auto update = [&](int t) {
+      int I, J;
+      tri_tile(t, I, J);
+      T* tile = A + (int64_t)(q0 + I * kSub) * ld + q0 + J * kSub;
+      const T* xi = xc + I * kSub * xld;
+      const T* xj = xc + J * kSub * xld;
+      T acc[4][4][2];
+      acc_each(acc, lane, [&](T& v, int r, int c) { v = tile[r * ld + c]; });
+      mma32(acc, [&](int r, int k) { return -xi[r * xld + k]; },
+            [&](int c, int k) { return xj[c * xld + k]; }, lane);
+      acc_each(acc, lane, [&](T& v, int r, int c) { tile[r * ld + c] = v; });
+    };
+    const int m = nb - p - 1;
+    if (warp == 0) {
+      if (m > 0) {
+        update(0);
+        __syncwarp();
+        factor_diag(p + 1);
+      }
+    } else {
+      for (int t = warp; t < m * (m + 1) / 2; t += kWarps - 1) update(t);
     }
     __syncthreads();
   }
 
-  // X = L^-1 row by row: X[i][c] (i > c) lives at P[c * cp + i], the
-  // diagonal 1 / L[k][k] is recomputed where needed.
-  for (int k = 0; k < n; ++k) {
-    const T dk = T(1) / P[k * ld + k];
-    for (int c = tid; c < k; c += nt) {
-      const T v = P[c * ld + k] * dk;
-      P[c * ld + k] = v;
-      rowk[c] = v;
-    }
-    if (tid == 0) rowk[k] = dk;
-    for (int i = k + 1 + tid; i < n; i += nt) colk[i] = P[i * ld + k];
+  // Linv by block rows i: S = L[i, :i] X[:i, :i], then X[i, :i] = -Dinv_i
+  // S. Both are formed transposed, as X^T is stored (X[r][c] at A[c][r]),
+  // one warp per 32-row block C < i of X^T; S^T goes to its destination
+  // block first and is read back from there.
+  for (int i = 1; i < nb; ++i) {
+    const int r0 = i * kSub;
+    // block row i of L (work area, off chip) and the diagonal block
+    // (dbuf: X^T above the diagonal)
+    const T* Li = on_chip ? A + (int64_t)r0 * ld : work;
+    const int lld = on_chip ? ld : r0 + 4;
+    if (!on_chip)
+      copy_batched<T>(
+          kSub * r0, tid, kBlockThreads,
+          [&](int t) { return A[(int64_t)(r0 + t / r0) * ld + t % r0]; },
+          [&](int t, T v) { work[(t / r0) * lld + t % r0] = v; });
+    copy_batched<T>(
+        kSub * kSub, tid, kBlockThreads,
+        [&](int t) {
+          return A[(int64_t)(r0 + t / kSub) * ld + r0 + t % kSub];
+        },
+        [&](int t, T v) { dbuf[(t / kSub) * kDld + t % kSub] = v; });
     __syncthreads();
-    // X[i][c] -= L[i][k] * X[k][c] for i > k, c <= k
-    for (int c = ty; c <= k; c += nty) {
-      const T xc = rowk[c];
-      T* row = P + c * ld;
-      for (int i = k + 1 + tx; i < n; i += 32) row[i] -= colk[i] * xc;
+    for (int C = warp; C < i; C += kWarps) {
+      const int c0 = C * kSub;
+      T* dst = A + (int64_t)c0 * ld + r0;  // X^T[C][i]
+      T acc[4][4][2] = {};
+      // S^T[c][r] = sum_{m >= c0} X^T[c0 + c][m] L[r0 + r][m]
+      for (int M = C; M < i; ++M) {
+        const int m0 = M * kSub;
+        const T* xt = A + (int64_t)c0 * ld + m0;
+        const auto lr = [&](int r, int k) { return Li[r * lld + m0 + k]; };
+        if (M == C)
+          mma32<true>(acc, [&](int c, int k) {
+                        return c < k ? xt[c * ld + k]
+                                     : (c == k ? dx[c0 + c] : T(0));
+                      }, lr, lane);
+        else
+          mma32<true>(acc, [&](int c, int k) { return xt[c * ld + k]; }, lr,
+                      lane);
+      }
+      acc_each(acc, lane, [&](T& v, int c, int r) { dst[c * ld + r] = v; });
+      __syncwarp();
+      // X^T[c0 + c][r0 + r] = -sum_{q <= r} S^T[c][q] Dinv_i[r][q]
+      T out[4][4][2] = {};
+      mma32<true>(out, [&](int c, int q) { return -dst[c * ld + q]; },
+                  [&](int r, int q) {
+                    return q < r ? dbuf[q * kDld + r]
+                                 : (q == r ? dx[r0 + r] : T(0));
+                  },
+                  lane);
+      __syncwarp();  // S^T is read; overwrite it
+      acc_each(out, lane, [&](T& v, int c, int r) { dst[c * ld + r] = v; });
     }
-    __syncthreads();
+    __syncthreads();  // before the next block row's staging
   }
+
+  if (on_chip)
+    for (int t = tid; t < cp * cp; t += kBlockThreads) {
+      const int r = t / cp, c = t % cp;
+      P[t] = (r < np && c < np) ? A[r * ld + c] : T(0);
+    }
 }
 
 template <typename T>
@@ -127,29 +330,81 @@ __global__ void below_kernel(T* data, int64_t data_bstride,
   }
 }
 
+// cp <= 8 and rp <= 32 (the narrow buckets of MERI and GRID: hundreds
+// to thousands of panels, n <= 8, a few hundred product entries each):
+// one thread per product entry, the panels packed one after another over
+// the CTAs; each thread forms its entry from two rows of x in device
+// memory (at n <= 8 there is nothing to reuse). FMAs in column order, so
+// the product is symmetric bit for bit; rows past rows[i] give zero.
 template <typename T>
-__global__ void prod_kernel(const T* data, int64_t data_bstride, T* prod,
-                            int64_t prod_bstride, int64_t prod_base,
-                            const int64_t* off, const int64_t* rows,
-                            const int64_t* cols, int cp, int rp) {
-  const int64_t i = blockIdx.x;
-  const T* X = data + (int64_t)blockIdx.z * data_bstride + off[i] +
+__global__ void prod_entry_kernel(const T* data, int64_t bstride, T* prod,
+                                  int64_t pstride, int64_t prod_base,
+                                  const int64_t* off, const int64_t* rows,
+                                  const int64_t* cols, int64_t B, int cp,
+                                  int rp) {
+  const int64_t per = (int64_t)rp * rp;
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= B * per) return;
+  const int64_t i = e / per;
+  const int q = (int)(e % per), r = q / rp, c = q % rp;
+  const T* X = data + (int64_t)blockIdx.y * bstride + off[i] +
                (int64_t)cp * cp;
-  T* out = prod + (int64_t)blockIdx.z * prod_bstride + prod_base +
+  const int n = (int)cols[i], nr = (int)rows[i];
+  T acc = T(0);
+  if (r < nr && c < nr)
+    for (int k = 0; k < n; ++k) acc += X[r * cp + k] * X[c * cp + k];
+  prod[(int64_t)blockIdx.y * pstride + prod_base + e] = acc;
+}
+
+// Every other bucket: one CTA per (panel, tile pair, batch item),
+// blockIdx.x = i * pairs + t with (I, J) = tri_tile(t); rp < 64 is one
+// tile, masked.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    prod_tile_kernel(const T* data, int64_t bstride, T* prod,
+                     int64_t pstride, int64_t prod_base, const int64_t* off,
+                     const int64_t* rows, const int64_t* cols, int cp,
+                     int rp, int pairs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // two stages of 128 rows x kTld; after the sums, the 64 x kOld tile
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int64_t i = blockIdx.x / pairs;
+  int I, J;
+  tri_tile((int)(blockIdx.x % pairs), I, J);
+  const T* X = data + (int64_t)blockIdx.y * bstride + off[i] +
+               (int64_t)cp * cp;
+  T* out = prod + (int64_t)blockIdx.y * pstride + prod_base +
            i * rp * rp;
-  const int n = (int)cols[i], nrows = (int)rows[i];
-  const int64_t total = (int64_t)rp * rp;
-  for (int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
-       e < total; e += (int64_t)gridDim.y * blockDim.x) {
-    const int r = (int)(e / rp), s = (int)(e % rp);
-    T acc = T(0);
-    if (r < nrows && s < nrows) {
-      const T* xr = X + (int64_t)r * cp;
-      const T* xs = X + (int64_t)s * cp;
-      for (int k = 0; k < n; ++k) acc += xr[k] * xs[k];
+  const int n = (int)cols[i], nr = (int)rows[i];
+  const int r0 = I * kTile, c0 = J * kTile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  // (r, c) of the tile to (r0 + r, c0 + c) and, off the diagonal,
+  // (c0 + c, r0 + r); both loops walk consecutive output columns
+  auto emit = [&](auto val) {
+    for (int t = tid; t < kTile * kTile; t += kTileThreads) {
+      const int r = t / kTile, c = t % kTile;
+      if (r0 + r < rp && c0 + c < rp)
+        out[(int64_t)(r0 + r) * rp + c0 + c] = val(r, c);
     }
-    out[e] = acc;
+    if (I != J)
+      for (int t = tid; t < kTile * kTile; t += kTileThreads) {
+        const int c = t / kTile, r = t % kTile;
+        if (r0 + r < rp && c0 + c < rp)
+          out[(int64_t)(c0 + c) * rp + r0 + r] = val(r, c);
+      }
+  };
+  if (r0 >= nr || c0 >= nr) {  // no real rows: uniform over the CTA
+    emit([](int, int) { return T(0); });
+    return;
   }
+  T acc[4][4][2];
+  gram_tile(acc, X, cp, n, nr, r0, c0, sm);
+  acc_each(acc, lane, [&](T& v, int r, int c) {
+    sm[(wm * 32 + r) * kOld + wn * 32 + c] = v;
+  });
+  __syncthreads();
+  emit([&](int r, int c) { return sm[r * kOld + c]; });
 }
 
 template <typename T>
@@ -158,10 +413,38 @@ int launch(void* data, int64_t data_bstride, void* prod,
            const int64_t* rows, const int64_t* cols, int64_t B, int cp,
            int rp, int batch, cudaStream_t stream) {
   T* d = static_cast<T*>(data);
-  // wide panels run on one SM each: as many threads as the block takes
-  const int nt = cp <= 8 ? 32 : (cp <= 32 ? 128 : (cp <= 128 ? 512 : 1024));
-  chol_inv_kernel<T><<<dim3((unsigned)B, batch), nt, 2 * cp * sizeof(T),
-                       stream>>>(d, data_bstride, off, cols, cp);
+  if (cp <= kSub) {
+    const dim3 grid((unsigned)((B + kPanelsPerCta - 1) / kPanelsPerCta),
+                    batch);
+    const int nt = 32 * kPanelsPerCta;
+    if (cp <= 4)
+      chol_warp_kernel<T, 4><<<grid, nt, 0, stream>>>(d, data_bstride, off,
+                                                      cols, B, cp);
+    else if (cp <= 8)
+      chol_warp_kernel<T, 8><<<grid, nt, 0, stream>>>(d, data_bstride, off,
+                                                      cols, B, cp);
+    else if (cp <= 16)
+      chol_warp_kernel<T, 16><<<grid, nt, 0, stream>>>(d, data_bstride, off,
+                                                       cols, B, cp);
+    else
+      chol_warp_kernel<T, 32><<<grid, nt, 0, stream>>>(d, data_bstride, off,
+                                                       cols, B, cp);
+  } else {
+    if (cp % kSub) return (int)cudaErrorInvalidValue;
+    // dx, dbuf, then a work area for the whole panel, as far as the
+    // CTA's shared memory takes it (the off-chip operands need less)
+    const int64_t fixed = cp + kSub * kDld;
+    const int64_t want = (fixed + (int64_t)cp * (cp + 4)) * sizeof(T);
+    const int smem = (int)(want < kMaxSmem ? want : kMaxSmem);
+    const int64_t slab = smem / (int64_t)sizeof(T) - fixed;
+    if (slab < (int64_t)(cp - kSub) * kCld) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        chol_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    chol_block_kernel<T><<<dim3((unsigned)B, batch), kBlockThreads, smem,
+                           stream>>>(d, data_bstride, off, cols, cp, slab);
+  }
   if (rp > 0) {
     int rb = 32768 / (cp * (int)sizeof(T));
     rb = rb < 1 ? 1 : (rb > rp ? rp : rb);
@@ -169,12 +452,25 @@ int launch(void* data, int64_t data_bstride, void* prod,
                       rb * cp * sizeof(T), stream>>>(d, data_bstride, off,
                                                      rows, cols, cp, rb);
     if (prod != nullptr) {
-      int64_t tiles = ((int64_t)rp * rp + 255) / 256;
-      if (tiles > 65535) tiles = 65535;
-      prod_kernel<T><<<dim3((unsigned)B, (unsigned)tiles, batch), 256, 0,
-                       stream>>>(d, data_bstride, static_cast<T*>(prod),
-                                 prod_bstride, prod_base, off, rows, cols,
-                                 cp, rp);
+      T* pr = static_cast<T*>(prod);
+      if (cp <= kEntryCp && rp <= kSub) {
+        const int64_t total = B * rp * rp;
+        prod_entry_kernel<T><<<dim3((unsigned)((total + 255) / 256), batch),
+                               256, 0, stream>>>(
+            d, data_bstride, pr, prod_bstride, prod_base, off, rows, cols,
+            B, cp, rp);
+      } else {
+        const int nt = (rp + kTile - 1) / kTile, pairs = nt * (nt + 1) / 2;
+        const int smem = 2 * 2 * kTile * kTld * sizeof(T);
+        cudaError_t e = cudaFuncSetAttribute(
+            prod_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (e != cudaSuccess) return (int)e;
+        prod_tile_kernel<T><<<dim3((unsigned)(B * pairs), batch),
+                              kTileThreads, smem, stream>>>(
+            d, data_bstride, pr, prod_bstride, prod_base, off, rows, cols,
+            cp, rp, pairs);
+      }
     }
   }
   return (int)cudaGetLastError();

@@ -47,7 +47,8 @@
 // from 32-column stages of both row blocks loaded by cp.async and double
 // buffered; four warps each hold a 32 x 32 block in registers, summed by
 // the f64 tensor cores (mma.m8n8k4, fixed order) or, in f32, by FMAs in
-// the same order of columns. Each element (i, j) whose row chain a is at
+// the same order of columns (gram_tile, warp_tiles.cuh, which K1's
+// product shares). Each element (i, j) whose row chain a is at
 // or past its column chain b is subtracted straight into its target:
 // pt[a (a + 1) / 2 + b] + rin[i] * cld[b] + rin[j]. One launch per wide
 // origin, before the narrow records: targets are disjoint inside a launch.
@@ -62,15 +63,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_tiles.cuh"
+
 namespace {
 
 constexpr int kWarpThreads = 256;   // 8 warps, one short destination each
 constexpr int kBlockThreads = 256;  // one long destination
 constexpr int kStageBytes = 32 * 1024;  // each of the two stage buffers
-constexpr int kTile = 64;          // dense_wide_kernel: tile edge
-constexpr int kTk = 32;            // columns per stage
-constexpr int kTld = kTk + 4;      // padded stage row: conflict-free frags
-constexpr int kWideThreads = 128;  // 2 x 2 warps of 32 x 32
 
 struct Rec {
   int64_t xa, xb;
@@ -81,28 +80,6 @@ __device__ __forceinline__ Rec rec_at(const int64_t* rec, int64_t p) {
   const int64_t xb = rec[2 * p], m = rec[2 * p + 1];
   const int ld = (int)((m >> 16) & 0xffff);
   return Rec{xb + (m >> 32) * ld, xb, ld, (int)(m & 0xffff)};
-}
-
-// one element, global -> shared; src_bytes 0 writes a zero
-template <typename T>
-__device__ __forceinline__ void cp_async_el(T* dst, const T* src,
-                                            int src_bytes = sizeof(T)) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (sizeof(T) == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <typename T>
@@ -235,70 +212,13 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-// One warp's 32 x 32 block over four columns of a stage: acc[mi][nj][i]
-// is the element (mi * 8 + lane / 4, nj * 8 + (lane % 4) * 2 + i); A and
-// B point at the warp's first row of each row block, at the first column.
-template <typename T>
-struct WarpMma;
-
-template <>
-struct WarpMma<double> {
-  // the m8n8k4 f64 fragments: A row lane / 4, column lane % 4; B (the
-  // transpose of the column block's rows) column lane / 4, row lane % 4
-  static __device__ __forceinline__ void step(double (&acc)[4][4][2],
-                                              const double* A,
-                                              const double* B, int lane) {
-    double a[4], b[4];
-    const int at = (lane >> 2) * kTld + (lane & 3);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) a[m] = A[m * 8 * kTld + at];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) b[m] = B[m * 8 * kTld + at];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-        asm volatile(
-            "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
-            "{%2}, {%3}, {%0, %1};\n"
-            : "+d"(acc[mi][nj][0]), "+d"(acc[mi][nj][1])
-            : "d"(a[mi]), "d"(b[nj]));
-  }
-};
-
-template <>
-struct WarpMma<float> {
-  static __device__ __forceinline__ void step(float (&acc)[4][4][2],
-                                              const float* A, const float* B,
-                                              int lane) {
-    const int ra = (lane >> 2) * kTld, rb = ((lane & 3) * 2) * kTld;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float a[4], b[4][2];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        a[m] = A[m * 8 * kTld + ra + k];
-        b[m][0] = B[m * 8 * kTld + rb + k];
-        b[m][1] = B[m * 8 * kTld + rb + kTld + k];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          acc[mi][nj][0] += a[mi] * b[nj][0];
-          acc[mi][nj][1] += a[mi] * b[nj][1];
-        }
-    }
-  }
-};
-
 // A wide origin's update: x (rows x n, row stride ld) at data offset
 // xoff; tile[t] = I << 32 | J names a 64 x 64 tile of x x^T; rch / rin:
 // each below row's chain (0-based in the origin) and row inside its span;
 // pt: each chain pair's target (a >= b, at a (a + 1) / 2 + b); cld: each
 // chain's target row stride.
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
+__global__ void __launch_bounds__(kTileThreads)
     dense_wide_kernel(T* data, int64_t bstride, int64_t xoff, int64_t ld,
                       int n, int64_t rows, const int64_t* __restrict__ tile,
                       const int64_t* __restrict__ rch,
@@ -307,50 +227,13 @@ __global__ void __launch_bounds__(kWideThreads)
                       const int64_t* __restrict__ cld) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);  // 2 x (128 rows x kTld)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   T* D = data + (int64_t)blockIdx.y * bstride;
-  const T* X = D + xoff;
   const int64_t tl = tile[blockIdx.x];
   const int64_t r0 = (tl >> 32) * kTile, c0 = (tl & 0xffffffff) * kTile;
-  const int nchunk = (n + kTk - 1) / kTk;
-
-  // stage rows r0.. (shared rows 0-63) and c0.. (64-127), columns
-  // k0..k0+31; rows past `rows` and columns past n are zero
-  auto stage = [&](int ci) {
-    T* b = sm + (ci & 1) * 2 * kTile * kTld;
-    const int k0 = ci * kTk;
-    for (int i = tid; i < 2 * kTile * kTk; i += kWideThreads) {
-      const int r = i / kTk, k = i % kTk;
-      const int64_t row = r < kTile ? r0 + r : c0 + r - kTile;
-      const bool ok = row < rows && k0 + k < n;
-      cp_async_el(b + r * kTld + k, ok ? X + row * ld + k0 + k : X,
-                  ok ? (int)sizeof(T) : 0);
-    }
-    cp_async_commit();
-  };
-
   T acc[4][4][2];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) acc[mi][nj][0] = acc[mi][nj][1] = T(0);
-  stage(0);
-  for (int ci = 0; ci < nchunk; ++ci) {
-    if (ci + 1 < nchunk) {
-      stage(ci + 1);  // its buffer was last read in chunk ci - 1
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* A = sm + (ci & 1) * 2 * kTile * kTld + wm * 32 * kTld;
-    const T* B = sm + (ci & 1) * 2 * kTile * kTld + (kTile + wn * 32) * kTld;
-#pragma unroll
-    for (int kk = 0; kk < kTk; kk += 4)
-      WarpMma<T>::step(acc, A + kk, B + kk, lane);
-    __syncthreads();  // chunk ci's buffer may be refilled
-  }
+  gram_tile(acc, D + xoff, ld, n, rows, r0, c0, sm);
 
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
@@ -410,7 +293,7 @@ int launch_wide(void* data, int64_t bstride, int64_t xoff, int64_t ld, int n,
       dense_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dense_wide_kernel<T><<<dim3((unsigned)n_tile, batch), kWideThreads, smem,
+  dense_wide_kernel<T><<<dim3((unsigned)n_tile, batch), kTileThreads, smem,
                          stream>>>(static_cast<T*>(data), bstride, xoff, ld,
                                    n, rows, tile, rch, rin, pt, cld);
   return (int)cudaGetLastError();

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_tiles.cuh"
+
 namespace {
 
 __device__ __forceinline__ int tile_width(int64_t n, int k0, int nb) {
@@ -47,74 +49,15 @@ __device__ __forceinline__ int tile_width(int64_t n, int k0, int nb) {
 // the trailing rows; then the tile's inverse is swept by block rows,
 // X[i, :i] = -Dinv_i (L[i, :i] X[:i, :i]). About 20 CTA barriers per tile.
 // A holds L on and below the diagonal and X^T = Linv^T strictly above it
-// (the stored layout), dx the diagonal of X.
-constexpr int kSub = 32;
+// (the stored layout), dx the diagonal of X (warp_chol_inv and kSub:
+// warp_tiles.cuh).
 
-// One warp factors and inverts the pw x pw (pw <= 32) diagonal block at
-// (p0, p0): the Cholesky in registers (lane r holds row r, columns move
-// by shuffles), then lane c computes column c of the inverse X by
-// forward substitution, reading L back from shared memory (broadcast).
-// L goes back below the diagonal, X^T above it, the diagonal of X into
-// dx. No barriers beyond the warp's own.
-template <typename T>
-__device__ void warp_chol_inv(T* A, T* dx, int ls, int p0, int pw) {
-  constexpr unsigned kAll = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  T* D = A + p0 * ls + p0;  // the sub-block, row stride ls
-  {
-    T row[kSub];
-#pragma unroll
-    for (int c = 0; c < kSub; ++c)
-      row[c] = (lane < pw && c <= lane) ? D[lane * ls + c] : T(0);
-#pragma unroll
-    for (int k = 0; k < kSub; ++k) {
-      if (k < pw) {  // uniform over the warp
-        const T akk = __shfl_sync(kAll, row[k], k), inv = rsqrt(akk);
-        row[k] = lane == k ? akk * inv : row[k] * inv;
-#pragma unroll
-        for (int c = k + 1; c < kSub; ++c) {
-          const T lck = __shfl_sync(kAll, row[k], c);
-          if (c <= lane) row[c] -= row[k] * lck;
-        }
-      }
-    }
-    if (lane < pw) {
-#pragma unroll
-      for (int c = 0; c < kSub; ++c)
-        if (c <= lane) D[lane * ls + c] = row[c];
-      dx[p0 + lane] = T(1) / row[lane];
-    }
-  }
-  __syncwarp();
-  // X[i][c] = -(sum_{c <= m < i} L[i][m] X[m][c]) / L[i][i] for i > c
-  T x[kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    x[i] = T(0);
-    if (i < pw) {  // uniform over the warp
-      T acc0 = T(0), acc1 = T(0);
-#pragma unroll
-      for (int m = 0; m + 1 < i; m += 2) {
-        acc0 += D[i * ls + m] * x[m];
-        acc1 += D[i * ls + m + 1] * x[m + 1];
-      }
-      if (i & 1) acc0 += D[i * ls + i - 1] * x[i - 1];
-      const T di = dx[p0 + i];
-      if (lane == i) x[i] = di;
-      else if (lane < i) x[i] = -(acc0 + acc1) * di;
-    }
-  }
-  if (lane < pw) {
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-      if (i > lane && i < pw) D[lane * ls + i] = x[i];
-  }
-}
+constexpr int kWideThreads = 512;  // wide_tile_kernel
 
 template <typename T>
-__global__ void wide_tile_kernel(T* data, int64_t bstride, T* xt,
-                                 const int64_t* off, const int64_t* cols,
-                                 int cp, int k0, int nb) {
+__global__ void __launch_bounds__(kWideThreads)
+    wide_tile_kernel(T* data, int64_t bstride, T* xt, const int64_t* off,
+                     const int64_t* cols, int cp, int k0, int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the tile, its rows padded to nb + 1 values (and the panel scratch's
   // to kSub + 1) so that a warp walking a column hits distinct banks
@@ -142,6 +85,7 @@ __global__ void wide_tile_kernel(T* data, int64_t bstride, T* xt,
       if (t < nb * nb) A[(t / nb) * ls + t % nb] = v[u];
     }
   }
+  for (int t = tid; t < nb; t += nt) dx[t] = T(0);  // warp_chol_inv reads it
   __syncthreads();
 
   // The products below give each warp 4 rows and each lane a column:
@@ -151,7 +95,7 @@ __global__ void wide_tile_kernel(T* data, int64_t bstride, T* xt,
   // Cholesky, sub-block by sub-block (right-looking)
   for (int p0 = 0; p0 < w; p0 += kSub) {
     const int pw = min(kSub, w - p0), q0 = p0 + pw, nr = w - q0;
-    if (ty == 0) warp_chol_inv(A, dx, ls, p0, pw);
+    if (ty == 0) warp_chol_inv<kSub>(A, dx, ls, p0, pw);
     __syncthreads();
     // rows below: tmp[r][c] = sum_{m <= c} a[r][m] X[c][m], with
     // X[c][m] = A[(p0 + m) * ls + p0 + c] for m < c
@@ -317,7 +261,8 @@ int launch_tile(void* data, int64_t bstride, void* xt, const int64_t* off,
       wide_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wide_tile_kernel<T><<<dim3((unsigned)B, batch), 512, smem, stream>>>(
+  wide_tile_kernel<T><<<dim3((unsigned)B, batch), kWideThreads, smem,
+                        stream>>>(
       static_cast<T*>(data), bstride, static_cast<T*>(xt), off, cols, cp,
       k0, nb);
   return (int)cudaGetLastError();

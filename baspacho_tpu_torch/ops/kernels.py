@@ -51,6 +51,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu",
            "wide_factor.cu", "wide_solve.cu", "dense_level.cu",
            "tri_solve.cu", "add_mv.cu", "grad_hess.cu")
+HEADERS = ("warp_tiles.cuh",)  # included by the K1, K1-wide and K4 sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu)
@@ -97,7 +98,7 @@ def library_path() -> str:
     """Path of the shared library for the current sources (content-hashed,
     so an edited source never loads a stale build)."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -250,7 +251,8 @@ def bucket_factor(data, prod, off, rows, cols, cp: int, rp: int,
         rows.data_ptr(), cols.data_ptr(), off.shape[0], cp, rp, batch,
         _stream(data))
     COUNTS["bucket_factor"].launches += 1
-    # chol_inv, then below when the panels have below rows, then prod
+    # chol (warp or block), then below when the panels have below rows,
+    # then prod (warp or tile)
     COUNTS["bucket_factor"].grid_launches += 1 + (rp > 0) + with_prod
     _raise_on("bucket_factor", err)
 

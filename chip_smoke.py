@@ -48,9 +48,14 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                observations, order 1,590,279), f64, PLANNED, through
                build_ba_optimizer -> build_solver -> optimize: directly
                (3 iterations) and with the partial factor + PCG and
-               BlockJacobi (2), counted, host ms per stage; the first
+               BlockJacobi (2), counted, host ms per stage, the costs and
+               PCG iterations held to BAL_COSTS / BAL_PCG_ITERS; the first
                damped system's residuals; a bitwise rerun; K6 against
                its twin (f64, f32) and itself, timed, traced
+  K1 per level on MERI, GRID and BAL 871's pair levels (k1_levels): each
+               call against its twin (f64, f32), batched and rerun
+               bitwise, each grid's device ms from a trace beside its
+               bound and a library yardstick the port never calls
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -85,6 +90,7 @@ import baspacho_tpu_torch as T
 from baspacho_tpu_torch import native
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import PlannedBackend
+from baspacho_tpu_torch.ops.schedule import NARROW_MAX
 from baspacho_tpu_torch.testing.flows import (ba_optimizer, ba_settings,
                                               dense_normal_equations,
                                               k6_vs_twin, pcg_flow)
@@ -115,7 +121,9 @@ KERNELS = [
 ]
 NAMES = [k for k, _, _ in KERNELS]
 # the __global__ functions each wrapper launches (csrc/*.cu)
-GRIDS = {"bucket_factor": ("chol_inv_kernel", "below_kernel", "prod_kernel"),
+GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
+                           "below_kernel", "prod_entry_kernel",
+                           "prod_tile_kernel"),
          "wide_factor": ("wide_tile_kernel", "wide_trsm_kernel",
                          "wide_embed_kernel"),
          "segmented_subtract": ("seg_sub_kernel",),
@@ -165,6 +173,18 @@ PATH_KERNELS = {
 # diag)): the scene leaves camera 870 unobserved, a zero Hessian block
 # that the JAX package's diag * (1 + lambda) leaves singular
 BAL_DAMP = {"damp_additive": True}
+# BAL 871's LM costs and PCG iterations as the kernels gave them before
+# K1's grids were redesigned (PERF.md, on an H100): a redesigned kernel
+# must reproduce them to 1e-9
+BAL_COSTS = {"direct": (2637106.9562431723, 1842769.3256449024,
+                        1842660.9311453684, 1842660.833483782),
+             "pcg": (2637106.9562431723, 1842769.3998866011,
+                     1842660.9490706287)}
+BAL_PCG_ITERS = [80, 80]
+# K1's grids (csrc/bucket_factor.cu) by the part of the factor they do
+K1_PARTS = {"chol_warp_kernel": "chol", "chol_block_kernel": "chol",
+            "below_kernel": "below", "prod_entry_kernel": "prod",
+            "prod_tile_kernel": "prod"}
 # the least time of a call: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA H100 SXM data sheet: HBM3
 # 3.35 TB/s; 67 TFLOP/s in f64 on the tensor cores and in f32 off them)
@@ -350,8 +370,8 @@ def k4_levels(s, data, label: str, name_limit: str) -> list:
                "destinations": int(d.dst_off.shape[0]),
                "long_destinations": int(d.dst_long.shape[0])}
         for dt in (torch.float64, torch.float32):
-            chk = CheckedOps()
-            chk.dense_update(snap.to(dt), d)
+            chk = CheckedOps()  # on a copy: snap stays the input
+            chk.dense_update(snap.to(dt, copy=True), d)
             r = chk.rel["dense_update"]
             check(r <= KERNEL_RTOL[dt], f"dense_update vs twin on {label} "
                   f"level {lvl} {dt}: rel {r}")
@@ -384,6 +404,147 @@ def k4_levels(s, data, label: str, name_limit: str) -> list:
         limits={"float64": 1e-10, "float32": 1e-4}, bitwise_rerun=True,
         ms_per_factor=sum(r["ms"] for r in rows), levels=rows)
     return rows
+
+
+class K1Capture:
+    """The kernels, for a factor program, keeping a copy of the panels of
+    each K1 call of the given levels before the call (`seq`: the level of
+    each K1 call in program order): the panels packed one after the
+    other, a bucket of their own."""
+
+    def __init__(self, seq, levels):
+        self.seq, self.levels, self.calls = list(seq), set(levels), []
+
+    def __getattr__(self, name):
+        return getattr(kernels, name)
+
+    def bucket_factor(self, data, prod, off, rows, cols, cp, rp, prod_base):
+        lvl = self.seq.pop(0)
+        if lvl in self.levels:
+            idx = off[:, None] + torch.arange((cp + rp) * cp,
+                                              device=off.device)
+            self.calls.append((lvl, data[:, idx].reshape(data.shape[0], -1),
+                               rows, cols, cp, rp, prod is not None))
+        kernels.bucket_factor(data, prod, off, rows, cols, cp, rp, prod_base)
+
+
+def k1_levels(s, data, label: str, name_limit: str) -> list:
+    """K1 on every level of one factor of `data` (single, f64) that is not
+    dense, each call's panels packed as a bucket of their own: against
+    its twin in f64 and f32 (CheckedOps), a batch of two (the second
+    item scaled) against single runs and a rerun, bitwise; per level, the
+    device ms of each K1 grid from a trace of the level's calls (grid
+    counts checked against the calls' shapes), the buckets as [cp, rp,
+    panels, widest real width, most real below rows], each grid's bound
+    (k1_costs), and two yardsticks the port never calls, timed with CUDA
+    events on the same inputs: torch.matmul(x, x.mT) on the solved below
+    rows for prod, torch.linalg.cholesky_ex then solve_triangular(L, I)
+    on the (B, cp, cp) diagonals (padding as the identity) for chol.
+    Returns one row per level."""
+    dev = data.device
+    sched = s.backend._factor_schedule(0, s.skel.num_lumps)
+    seq = [i for i, lv in enumerate(sched) for lb in lv[0]
+           if lb.cp <= NARROW_MAX]
+    cap = K1Capture(seq, [i for i, lv in enumerate(sched) if lv[3] is None])
+    s.factor_program()(data[None], ops=cap)
+    check(not cap.seq, f"{label}: K1 calls and the schedule disagree")
+    out = []
+    for lvl in sorted({c[0] for c in cap.calls}):
+        row = {"level": lvl, "buckets": [], "max_rel": {}}
+        work, lib = [], {"prod": 0.0, "chol": 0.0}
+        costs, want = {}, {}
+        for _, snap, rows, cols, cp, rp, with_prod in \
+                (c for c in cap.calls if c[0] == lvl):
+            B, h = cols.numel(), cp + rp
+            off = torch.arange(B, device=dev) * h * cp
+            P = (lambda b: torch.empty((b, B * rp * rp), dtype=snap.dtype,
+                                       device=dev)) if with_prod and rp \
+                else (lambda b: None)
+            row["buckets"].append([cp, rp, B, int(cols.max()),
+                                   int(rows.max()) if rp else 0])
+            for dt in (torch.float64, torch.float32):
+                chk = CheckedOps()  # on copies: snap stays the input
+                p = P(1)
+                chk.bucket_factor(snap.to(dt, copy=True), None if p is None
+                                  else p.to(dt), off, rows, cols, cp, rp, 0)
+                r, key = chk.rel["bucket_factor"], str(dt)[6:]
+                check(r <= KERNEL_RTOL[dt], f"bucket_factor vs twin on "
+                      f"{label} level {lvl} ({cp}, {rp}, {B}) {dt}: rel {r}")
+                row["max_rel"][key] = max(row["max_rel"].get(key, 0.0), r)
+            two, p2 = torch.cat([snap, snap * 1.01]), P(2)
+            kernels.bucket_factor(two, p2, off, rows, cols, cp, rp, 0)
+            for b in range(2):
+                one, p1 = two[b:b + 1].clone(), P(1)
+                for _ in range(2):  # the single run, then its rerun
+                    one.copy_((snap * 1.01) if b else snap)
+                    kernels.bucket_factor(one, p1, off, rows, cols, cp, rp,
+                                          0)
+                    check(torch.equal(one[0], two[b]) and
+                          (p1 is None or torch.equal(p1[0], p2[b])),
+                          f"bucket_factor on {label} level {lvl} ({cp}, "
+                          f"{rp}, {B}): batch item {b} differs")
+            w, p = snap.clone(), P(1)
+            work.append((snap, w, p, off, rows, cols, cp, rp))
+            for g in ("chol", "below" if rp > 0 else None,
+                      None if p is None else "prod"):
+                if g:
+                    want[g] = want.get(g, 0) + 1
+            for g, (by, op) in k1_costs((w, p, off, rows, cols, cp,
+                                         rp)).items():
+                c = costs.setdefault(g, [0.0, 0.0])
+                c[0], c[1] = c[0] + by, c[1] + op
+            kernels.bucket_factor(w, p, off, rows, cols, cp, rp, 0)
+            if p is not None:
+                x = w.view(B, h, cp)[:, cp:]
+                lib["prod"] += time_ms(lambda: torch.matmul(x, x.mT), 5)
+            ar = torch.arange(cp, device=dev)
+            pad = ((ar[:, None] == ar) & (ar >= cols[:, None, None]))
+            D = snap.view(B, h, cp)[:, :cp]
+            sym = torch.tril(D) + torch.tril(D, -1).mT + pad.to(D.dtype)
+            eye = torch.eye(cp, dtype=D.dtype, device=dev).expand_as(sym)
+            lib["chol"] += time_ms(lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(sym)[0], eye, upper=False), 5)
+
+        def calls():
+            for snap, w, p, off, rows, cols, cp, rp in work:
+                kernels.bucket_factor(w.copy_(snap), p, off, rows, cols, cp,
+                                      rp, 0)
+        # the profiler can lose the device records of whole runs in a
+        # short trace late in a long run (on BAL 871, 2 or 3 runs in 50):
+        # each part must show, none more often than launched, and the ms
+        # per run are scaled by the share of runs seen
+        reps = int(min(50, max(3, 20.0 / max(time_ms(calls, 1), 1e-3))))
+        tr = trace(calls, reps)
+        seen, ms = {}, {}
+        for k, v in tr["launches_per_call_by_kernel"].items():
+            if k in K1_PARTS:
+                g = K1_PARTS[k]
+                seen[g] = seen.get(g, 0.0) + v
+                ms[g] = ms.get(g, 0.0) + \
+                    tr["device_ms_per_call_by_kernel"][k]
+        check(set(seen) == set(want) and
+              all(0.5 * want[g] <= v <= want[g] for g, v in seen.items()),
+              f"{label} level {lvl}: the trace shows {seen} K1 grids per "
+              f"run, the calls launch {want}")
+        share = sum(seen.values()) / sum(want.values())
+        row["grids"] = want
+        row["trace"] = {"reps": reps, "records_seen": share}
+        row["device_ms"] = {g: v / share for g, v in ms.items()}
+        row["bound_ms"] = {g: bound(*c)[0] for g, c in costs.items()}
+        row["bound_by"] = {g: bound(*c)[1] for g, c in costs.items()}
+        row["library_ms"] = {k: v for k, v in lib.items() if v}
+        out.append(row)
+        del work
+    log("k1_levels", case=label, card=name_limit, dtype="float64",
+        limits={"float64": 1e-10, "float32": 1e-4}, bitwise=True,
+        library_calls={"prod": "torch.matmul(x, x.mT)",
+                       "chol": "torch.linalg.cholesky_ex + "
+                               "solve_triangular(L, I)"},
+        device_ms_per_factor={g: sum(r["device_ms"].get(g, 0.0)
+                                     for r in out)
+                              for g in ("chol", "below", "prod")},
+        levels=out)
+    return out
 
 
 def wide_tri_checks(probs, d64, dev) -> dict:
@@ -455,13 +616,21 @@ def cost(name: str, args) -> tuple:
                 8 * (nt + seg_ptr.numel() + ns), batch * ns * width)
     if name == "dense_update":
         return k4_cost(data, args[1])
-    if name in ("bucket_factor", "wide_factor"):
-        off, rows, cols, cp, rp = (args[2:7] if name == "bucket_factor"
-                                   else args[1:6])
-        prod = name == "bucket_factor" and rp > 0 and args[1] is not None
+    if name == "bucket_factor":
+        grids = k1_costs(args)
+        # Linv (read by below) and x (read by prod) pass from one grid to
+        # the next, and so do the index arrays: the call reads them once
+        n, r = _host(args[4]), _host(args[3]) * (args[6] > 0)
+        inner = batch * item * (("below" in grids) * n * (n + 1) / 2 +
+                                ("prod" in grids) * r * n).sum() + \
+            8 * 3 * args[2].numel() * (len(grids) - 1)
+        return (sum(b for b, _ in grids.values()) - inner,
+                sum(o for _, o in grids.values()))
+    if name == "wide_factor":
+        off, rows, cols, cp, rp = args[1:6]
         n, r = _host(cols), _host(rows) * (rp > 0)
-        el = n * (n + 1) / 2 + r * n + n * n + r * n + prod * r * r
-        ops = 2 * n ** 3 / 3 + r * n * n + prod * 2 * r * r * n
+        el = n * (n + 1) / 2 + r * n + n * n + r * n
+        ops = 2 * n ** 3 / 3 + r * n * n
         return (batch * item * el.sum() + 8 * 3 * off.numel(),
                 batch * ops.sum())
     if name in ("bucket_solve", "wide_solve", "tri_solve", "wide_tri_solve"):
@@ -506,6 +675,32 @@ def cost(name: str, args) -> tuple:
         return (batch * item * (el.sum() + rows_in * nrhs) +
                 8 * (4 * off.numel() + live), batch * ops.sum())
     raise KeyError(name)
+
+
+def k1_costs(args) -> dict:
+    """K1's (bytes, operations) per grid at the least, from one call's
+    arguments (data, prod, off, rows, cols, cp, rp, prod_base), for its
+    real panels: chol reads the lower triangle (n (n + 1) / 2) and writes
+    L and Linv^T (n^2), 2 n^3 / 3 flops (the Cholesky and the inverse);
+    below reads Linv and the below rows and writes x (r x n), r n^2
+    flops; prod (when the call has one) reads x and writes each panel's
+    rp x rp product slice, zeros included (the buffer is uninitialised),
+    r (r + 1) n flops: the symmetric product's r (r + 1) / 2 n
+    multiply-adds. Each grid reads off, rows, cols."""
+    data, prod, off, rows, cols, cp, rp = args[:7]
+    item, batch = data.element_size(), data.shape[0]
+    n, r = _host(cols), _host(rows) * (rp > 0)
+    w = batch * item
+    idx = 8 * 3 * off.numel()
+    out = {"chol": (w * (n * (n + 1) / 2 + n * n).sum() + idx,
+                    batch * (2 * n ** 3 / 3).sum())}
+    if rp > 0:
+        out["below"] = (w * (n * (n + 1) / 2 + 2 * r * n).sum() + idx,
+                        batch * (r * n * n).sum())
+        if prod is not None:
+            out["prod"] = (w * (r * n + rp * rp).sum() + idx,
+                           batch * (r * (r + 1) * n).sum())
+    return out
 
 
 def k4_cost(data, d) -> tuple:
@@ -1027,6 +1222,11 @@ def bal_phase(dev, name_limit: str) -> dict:
           f"{costs}")
     check(all(bool(torch.isfinite(f.values).all()) for f in opt.families),
           "BAL 871 direct LM: non-finite values")
+    check(len(costs) == len(BAL_COSTS["direct"]) and
+          all(abs(a / b - 1) <= 1e-9 for a, b in zip(costs,
+                                                      BAL_COSTS["direct"])),
+          f"BAL 871 direct LM costs {costs}, expected "
+          f"{BAL_COSTS['direct']}")
     log("bal871_lm_direct", card=name_limit, dtype="float64",
         settings={"max_iters": 3, **BAL_DAMP}, iterations=st["iters"],
         costs=costs, stages_ms=lm_breakdown(stamps),
@@ -1057,9 +1257,10 @@ def bal_phase(dev, name_limit: str) -> dict:
         factor_residual_probe=factor_res, solve_residual=solve_res)
 
     # K4 on each dense level of that system's factor (the point level and
-    # the wide camera levels): against its twin, against itself, timed
+    # the wide camera levels): against its twin, against itself, timed; K1
+    # on its pair levels runs at the end (main, k1_levels)
     out["k4"] = k4_levels(s, damped, "bal871", name_limit)
-    del damped
+    out["damped"] = damped
 
     # one LM iteration twice from the same start: the same bits
     one = ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP)
@@ -1084,6 +1285,11 @@ def bal_phase(dev, name_limit: str) -> dict:
     pc = st["costs"]
     check(st["iters"] >= 1 and all(b < a for a, b in zip(pc, pc[1:])),
           f"BAL 871 PCG LM: the cost must fall on every accepted step: {pc}")
+    check(len(pc) == len(BAL_COSTS["pcg"]) and
+          all(abs(a / b - 1) <= 1e-9 for a, b in zip(pc, BAL_COSTS["pcg"]))
+          and list(st["pcg_iters"]) == BAL_PCG_ITERS,
+          f"BAL 871 PCG LM costs {pc}, iterations {st['pcg_iters']}; "
+          f"expected {BAL_COSTS['pcg']}, {BAL_PCG_ITERS}")
     log("bal871_lm_pcg", card=name_limit, dtype="float64",
         settings={"max_iters": 2, "precond": "BlockJacobiPrecond",
                   "pcg_tol": pcg.pcg_tol, "pcg_max_iters": pcg.pcg_max_iters,
@@ -1754,6 +1960,21 @@ def main() -> int:
                   dtype="float64", card=name_limit)
     trace_checked("bal871", "lm_iteration", lm_iteration, 1,
                   dtype="float64", card=name_limit)
+
+    # 13. K1 per level on MERI, GRID and BAL 871's pair levels, last: its
+    # many short traces come after the strict ones above (the profiler
+    # has lost a whole call's device records in a trace taken after them)
+    k1_meri = k1_levels(meri, torch.from_numpy(d64["meri7"]).to(dev),
+                        "meri7", name_limit)
+    k1_grid = k1_levels(grid, torch.from_numpy(d64["grid100"]).to(dev),
+                        "grid100", name_limit)
+    k1_bal = k1_levels(bal["opt"].solver, bal.pop("damped"), "bal871",
+                       name_limit)
+    by_case["bucket_factor"] = {
+        f"{c} f64 factor, device ms (trace)": sum(
+            sum(r["device_ms"].values()) for r in rows)
+        for c, rows in (("meri7", k1_meri), ("grid100", k1_grid),
+                        ("bal871 pair levels", k1_bal))}
 
     paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur,
              **c_pcg, "refined_schur50k": c_ref, "bal_lm_direct": c_direct,

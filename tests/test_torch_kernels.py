@@ -5,6 +5,11 @@ themselves are held against these twins on the card by chip_smoke.py.
   K1 bucket_factor       vs PlannedBackend._factor_bucket
   K2 segmented_subtract  vs PlannedBackend._apply_pairs
   K3 bucket_solve        vs PlannedBackend._diag_solve(use_inv=True)
+
+K1's grids are also evaluated in numpy in the kernels' order (the
+blocked Cholesky and inverse by 32-column sub-blocks, the product's
+lower tiles and their mirror) and held against the twin and the JAX
+routine on synthetic buckets.
 """
 
 import os
@@ -17,6 +22,7 @@ import torch
 
 import baspacho_tpu as J
 import baspacho_tpu_torch as T
+from baspacho_tpu.ops.planned_backend import LumpBucket
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import _dev_bucket, _dev_csr
 from baspacho_tpu_torch.ops.schedule import pair_csr, solve_csr
@@ -74,6 +80,249 @@ def test_k1_twin_matches_factor_bucket():
                 assert rel(seg, prod_j) < RTOL
             n += 1
     assert n >= 8
+
+
+# ----------------------------------------------------------------------
+# K1's grids in numpy, in the kernels' order (csrc/bucket_factor.cu)
+# ----------------------------------------------------------------------
+SUB = 32   # warp_tiles.cuh kSub: sub-block width, one warp's block
+TILE = 64  # bucket_factor.cu kTile: prod_tile's tile edge (rp > 32)
+
+
+def tri_tile(t):
+    """warp_tiles.cuh tri_tile: tile t of a lower tile triangle, row by
+    row, from a float32 square root and integer corrections."""
+    f = np.float32
+    i = int((np.sqrt(f(8.0) * f(t) + f(1.0)) - f(1.0)) * f(0.5))
+    while (i + 1) * (i + 2) // 2 <= t:
+        i += 1
+    while i * (i + 1) // 2 > t:
+        i -= 1
+    return i, t - i * (i + 1) // 2
+
+
+def _warp_chol_inv(A, dx, p0, pw):
+    """warp_chol_inv: the pw x pw block at (p0, p0) from its lower
+    triangle: L on and below the diagonal, X^T = L^-T above, diag X in
+    dx; both right-looking, column by column, as the warp's registers
+    do (X's row k, once known, is folded into the sums of later rows)."""
+    D = A[p0:p0 + pw, p0:p0 + pw]
+    L = np.tril(D)
+    with np.errstate(invalid="ignore"):
+        for k in range(pw):
+            L[k, k] = np.sqrt(L[k, k])
+            L[k + 1:, k] /= L[k, k]
+            L[k + 1:, k + 1:] -= np.tril(np.outer(L[k + 1:, k],
+                                                  L[k + 1:, k]))
+        X, s = np.zeros((pw, pw)), np.zeros((pw, pw))
+        for k in range(pw):
+            dk = 1.0 / L[k, k]
+            X[k, :k], X[k, k] = -s[k, :k] * dk, dk
+            s[k + 1:] += np.outer(L[k + 1:, k], X[k])
+    D[...] = L + np.triu(X.T, 1)
+    dx[p0:p0 + pw] = np.diag(X)
+
+
+def _x_block(A, dx, p0):
+    """X of the 32 x 32 diagonal block at p0 from its stored X^T and dx
+    (zero outside the lower triangle and on padding)."""
+    return np.triu(A[p0:p0 + SUB, p0:p0 + SUB], 1).T + \
+        np.diag(dx[p0:p0 + SUB])
+
+
+def chol_model(P, n):
+    """The stored diagonal block of one panel (cp x cp, lower triangle
+    read): chol_warp_kernel for cp <= 32, chol_block_kernel's blocked
+    right-looking factor and block-row inverse otherwise."""
+    cp = P.shape[0]
+    A = np.zeros((cp, cp))
+    A[:n, :n] = np.tril(P[:n, :n])
+    dx = np.zeros(cp)
+    if cp <= SUB:
+        _warp_chol_inv(A, dx, 0, n)
+        return A
+    nb = -(-n // SUB)
+    npad = nb * SUB
+    for p in range(nb):
+        p0, q0 = p * SUB, (p + 1) * SUB
+        _warp_chol_inv(A, dx, p0, min(SUB, n - p0))
+        with np.errstate(invalid="ignore"):
+            A[q0:npad, p0:q0] = A[q0:npad, p0:q0] @ _x_block(A, dx, p0).T
+            m = nb - p - 1
+            for t in range(m * (m + 1) // 2):
+                I, J = tri_tile(t)
+                r, c = q0 + I * SUB, q0 + J * SUB
+                A[r:r + SUB, c:c + SUB] -= \
+                    A[r:r + SUB, p0:q0] @ A[c:c + SUB, p0:q0].T
+    for i in range(1, nb):  # S = L[i, :i] X[:i, :i]; X[i, :i] = -Dinv S
+        r0 = i * SUB
+        dinv = _x_block(A, dx, r0)
+        for C in range(i):
+            c0 = C * SUB
+            st = np.zeros((SUB, SUB))
+            for M in range(C, i):
+                m0 = M * SUB
+                xt = _x_block(A, dx, c0).T if M == C else \
+                    A[c0:c0 + SUB, m0:m0 + SUB]
+                st += xt @ A[r0:r0 + SUB, m0:m0 + SUB].T
+            A[c0:c0 + SUB, r0:r0 + SUB] = -(st @ dinv.T)
+    return A
+
+
+def prod_model(x, nrow, cp):
+    """x x^T of one panel's solved below rows (rp x cp) as the prod grids
+    form it: for cp <= 8 and rp <= 32 one entry at a time
+    (prod_entry_kernel), else the lower 64 x 64 tiles (I >= J) of
+    prod_tile_kernel mirrored to (J, I); a tile past nrow is zero, rows
+    at or past nrow are zero. Every element is written once."""
+    rp = x.shape[0]
+    xs = np.where(np.arange(rp)[:, None] < nrow, x, 0.0)
+    if cp <= 8 and rp <= SUB:
+        return xs @ xs.T
+    out = np.full((rp, rp), np.nan)
+    nt = -(-rp // TILE)
+    seen = set()
+    for t in range(nt * (nt + 1) // 2):
+        I, J = tri_tile(t)
+        seen.add((I, J))
+        ri = slice(I * TILE, min((I + 1) * TILE, rp))
+        ci = slice(J * TILE, min((J + 1) * TILE, rp))
+        blk = np.zeros((ri.stop - ri.start, ci.stop - ci.start))
+        if ri.start < nrow and ci.start < nrow:
+            blk = xs[ri] @ xs[ci].T
+        out[ri, ci] = blk
+        out[ci, ri] = blk.T
+    assert seen == {(I, J) for I in range(nt) for J in range(I + 1)}
+    assert not np.isnan(out).any()
+    return out
+
+
+def factor_model(panels, cols, rows, cp, rp):
+    """One batch item's bucket (B, cp + rp, cp) through the three grids:
+    the stored panels and the products."""
+    out, prods = np.zeros_like(panels), []
+    for j, (n, r) in enumerate(zip(cols, rows)):
+        A = chol_model(panels[j, :cp], n)
+        xinv = np.triu(A, 1).T  # Linv from the stored X^T and 1 / diag L
+        xinv[np.arange(n), np.arange(n)] = 1.0 / np.diag(A)[:n]
+        out[j, :cp] = A
+        if rp:
+            x = panels[j, cp:] @ xinv.T  # below_kernel
+            out[j, cp:] = x
+            prods.append(prod_model(x, r, cp))
+    return out, (np.stack(prods) if prods else None)
+
+
+# cp, rp, panels, real widths, real below rows (cycled over the panels)
+K1_CASES = {
+    "cp4": (4, 8, 3, [3], [3, 6]),
+    "cp4_n_eq_cp_rp0": (4, 0, 2, [4], [0]),
+    "cp32": (32, 32, 2, [27, 32], [18, 30]),
+    "cp64_n_eq_cp": (64, 64, 2, [64], [63, 64]),
+    "cp64_two_tiles": (64, 128, 2, [45, 33], [100, 70]),
+    "cp256_rp0": (256, 0, 2, [195, 156], [0]),
+    "cp256_zero_tiles": (256, 256, 1, [150], [135]),
+    "cp512_rp0": (512, 0, 1, [282], [0]),
+    "cp512_n_eq_cp": (512, 16, 1, [512], [11]),
+}
+
+
+def _k1_bucket(cp, rp, B, widths, rows, seed, batch=2):
+    """A compact synthetic bucket in a (batch, B (cp + rp) cp) buffer:
+    panel j at offset j (cp + rp) cp, an SPD lower triangle (a A^T + n I)
+    and random below rows on the real rows, zero padding; batch item b
+    scaled by 1 + b / 100."""
+    rng = np.random.RandomState(seed)
+    h = cp + rp
+    panels = np.zeros((B, h, cp))
+    cols = np.array([widths[j % len(widths)] for j in range(B)])
+    nrow = np.array([rows[j % len(rows)] if rp else 0 for j in range(B)])
+    for j in range(B):
+        n, r = cols[j], nrow[j]
+        a = rng.rand(n, n) - 0.5
+        panels[j, :n, :n] = np.tril(a @ a.T + n * np.eye(n))
+        panels[j, cp:cp + r, :n] = rng.rand(r, n) - 0.5
+    data = np.stack([panels.reshape(-1) * (1 + b / 100)
+                     for b in range(batch)])
+    return data, cols, nrow
+
+
+def _jax_bucket(data, cols, nrow, cp, rp):
+    """J's _factor_bucket on each batch item of a compact bucket:
+    (stored panels, products or None)."""
+    js = problem()[0]
+    B = len(cols)
+    lb = LumpBucket(
+        rp=rp, cp=cp, off=np.arange(B) * (cp + rp) * cp, rows=nrow,
+        cols=cols, vec_off=np.zeros(B, np.int64))
+    outs, prods = [], []
+    fn = jax.jit(lambda e: js.backend._factor_bucket(e, lb))
+    for item in data:
+        ext, prod = fn(jnp.asarray(item))
+        outs.append(np.asarray(ext))
+        prods.append(None if prod is None else np.asarray(prod))
+    return np.stack(outs), (None if prods[0] is None else np.stack(prods))
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k1_grid_models_match_twin_and_factor_bucket(case):
+    """The numpy model of chol_warp / chol_block + below + prod_entry /
+    prod_tile against the twin and J's _factor_bucket, f64, batch 2:
+    stored panels (L, Linv^T, x) and products, within RTOL; the product
+    tiles cover rp x rp once, zero past the real rows."""
+    cp, rp, B, widths, rows = K1_CASES[case]
+    data, cols, nrow = _k1_bucket(cp, rp, B, widths, rows,
+                                  seed=len(case) + cp + rp)
+    h = cp + rp
+    got = torch.from_numpy(data.copy())
+    prod = torch.full((2, max(B * rp * rp, 1)), np.nan, dtype=torch.float64)
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64))
+    kernels.bucket_factor_twin(got, prod, t(np.arange(B) * h * cp),
+                               t(nrow), t(cols), cp, rp, 0)
+    want_j, prod_j = _jax_bucket(data, cols, nrow, cp, rp)
+    for b in range(2):
+        stored, prods = factor_model(data[b].reshape(B, h, cp), cols, nrow,
+                                     cp, rp)
+        assert rel(stored.reshape(-1), got[b].numpy()) < RTOL
+        assert rel(stored.reshape(-1), want_j[b]) < RTOL
+        if rp:
+            assert rel(prods.reshape(-1), prod[b].numpy()) < RTOL
+            assert rel(prods.reshape(-1), prod_j[b]) < RTOL
+            live = np.arange(rp) < nrow[:, None]
+            assert not prods[~live].any() and \
+                not prods.transpose(0, 2, 1)[~live].any()
+
+
+@pytest.mark.parametrize("cp,n,col", [(4, 3, 1), (64, 60, 40),
+                                      (256, 200, 150)])
+def test_k1_model_nan_from_failing_column(cp, n, col):
+    """A panel that is not positive definite: the kernels' order gives
+    NaN in L from the failing column on and finite values before it;
+    the twin and J's routine give NaN there too."""
+    data, cols, nrow = _k1_bucket(cp, 0, 2, [n], [0], seed=cp, batch=1)
+    data = data.reshape(2, cp, cp)
+    data[1, col, col] = -1.0
+    A = chol_model(data[1], n)
+    L = np.tril(A[:n, :n])
+    assert np.isfinite(L[:, :col]).all() and np.isnan(L[col:, col]).all()
+    assert np.isfinite(chol_model(data[0], n)).all()
+    got = torch.from_numpy(data.reshape(1, -1).copy())
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64))
+    kernels.bucket_factor_twin(got, None, t([0, cp * cp]), t(nrow), t(cols),
+                               cp, 0, 0)
+    want_j, _ = _jax_bucket(data.reshape(1, -1), cols, nrow, cp, 0)
+    for other in (got[0].numpy(), want_j[0]):
+        o = other.reshape(2, cp, cp)[1]
+        assert np.isnan(o[col:n, col]).all()
+        assert np.isfinite(other.reshape(2, cp, cp)[0]).all()
+
+
+def test_k1_tri_tile_enumerates_each_lower_tile_once():
+    """tri_tile over the tile triangles of every prod_tile launch up to
+    rp = 23,040 (BAL 871's widest pair level is 7,680: 7,260 tiles)."""
+    for nt in (1, 2, 3, 48, 88, 120, 360):
+        got = [tri_tile(t) for t in range(nt * (nt + 1) // 2)]
+        assert got == [(I, J) for I in range(nt) for J in range(I + 1)]
 
 
 def test_k2_twin_matches_apply_pairs():
@@ -217,11 +466,11 @@ def test_wrappers_refuse_mismatched_batches(device):
 
 
 def test_build_names_and_flags():
-    """The library is content-hashed per source set and built for the
-    Hopper target with the plain-C route."""
+    """The library is content-hashed per source set (the shared headers
+    included) and built for the Hopper target with the plain-C route."""
     p = kernels.library_path()
     assert os.path.dirname(p) == kernels.BUILD_DIR
     assert p == kernels.library_path()
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
-    for s in kernels.SOURCES:
+    for s in kernels.SOURCES + kernels.HEADERS:
         assert os.path.exists(os.path.join(kernels.CSRC, s))

@@ -241,8 +241,14 @@ def _carried(make):
     return js, ts, spd_data(js, 3) * ts.skel.padding_mask()
 
 
-@pytest.mark.parametrize("name", ["elim_range", "wide_dense", "wide_below"])
+@pytest.mark.parametrize("name", ["elim_range", "wide_below"])
 def test_partial_ops_on_dense_and_wide_levels(name):
+    """Its wide_dense case runs in test_torch_partial_wide.py: it takes
+    most of this file's time, and the runner hands out whole files."""
+    partial_ops_on_dense_and_wide_levels(name)
+
+
+def partial_ops_on_dense_and_wide_levels(name):
     """Problems with a dense level (the range's update lands on a lump
     past it) and with wide panels (K3-rest wide, K5 wide; wide_below's
     wide lump has below rows): every partial op against JAX PLANNED on
