@@ -411,7 +411,7 @@ template <typename T>
 int launch(void* data, int64_t data_bstride, void* prod,
            int64_t prod_bstride, int64_t prod_base, const int64_t* off,
            const int64_t* rows, const int64_t* cols, int64_t B, int cp,
-           int rp, int batch, cudaStream_t stream) {
+           int rp, int batch, bool on_chip, cudaStream_t stream) {
   T* d = static_cast<T*>(data);
   if (cp <= kSub) {
     const dim3 grid((unsigned)((B + kPanelsPerCta - 1) / kPanelsPerCta),
@@ -443,7 +443,8 @@ int launch(void* data, int64_t data_bstride, void* prod,
         smem);
     if (e != cudaSuccess) return (int)e;
     chol_block_kernel<T><<<dim3((unsigned)B, batch), kBlockThreads, smem,
-                           stream>>>(d, data_bstride, off, cols, cp, slab);
+                           stream>>>(d, data_bstride, off, cols, cp,
+                                     on_chip ? slab : 0);
   }
   if (rp > 0) {
     int rb = 32768 / (cp * (int)sizeof(T));
@@ -478,19 +479,22 @@ int launch(void* data, int64_t data_bstride, void* prod,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64. Returns the cudaError_t of the launches.
+// dtype: 0 float32, 1 float64. on_chip 0 makes chol_block work every
+// panel in place in device memory (a probe of what the shared-memory copy
+// buys). Returns the cudaError_t of the launches.
 extern "C" int bs_bucket_factor(int dtype, void* data, int64_t data_bstride,
                                 void* prod, int64_t prod_bstride,
                                 int64_t prod_base, const int64_t* off,
                                 const int64_t* rows, const int64_t* cols,
                                 int64_t B, int cp, int rp, int batch,
-                                void* stream) {
+                                int on_chip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(data, data_bstride, prod, prod_bstride, prod_base,
-                         off, rows, cols, B, cp, rp, batch, s);
+                         off, rows, cols, B, cp, rp, batch, on_chip != 0, s);
   if (dtype == 1)
     return launch<double>(data, data_bstride, prod, prod_bstride, prod_base,
-                          off, rows, cols, B, cp, rp, batch, s);
+                          off, rows, cols, B, cp, rp, batch, on_chip != 0,
+                          s);
   return (int)cudaErrorInvalidValue;
 }

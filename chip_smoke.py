@@ -54,8 +54,11 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                its twin (f64, f32) and itself, timed, traced
   K1 per level on MERI, GRID and BAL 871's pair levels (k1_levels): each
                call against its twin (f64, f32), batched and rerun
-               bitwise, each grid's device ms from a trace beside its
-               bound and a library yardstick the port never calls
+               bitwise, each grid's device ms from a complete trace
+               beside its bound and a library yardstick the port never
+               calls; on synthetic panels (k1_synthetic), NaN from the
+               failing column of a panel that is not positive definite,
+               and the blocked factor in shared memory against in place
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -185,6 +188,9 @@ BAL_PCG_ITERS = [80, 80]
 K1_PARTS = {"chol_warp_kernel": "chol", "chol_block_kernel": "chol",
             "below_kernel": "below", "prod_entry_kernel": "prod",
             "prod_tile_kernel": "prod"}
+# k1_levels' traces of a level: at most this many, until one shows
+# every grid of every run
+K1_TRACE_TRIES = 5
 # the least time of a call: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA H100 SXM data sheet: HBM3
 # 3.35 TB/s; 67 TFLOP/s in f64 on the tensor cores and in f32 off them)
@@ -433,14 +439,15 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
     dense, each call's panels packed as a bucket of their own: against
     its twin in f64 and f32 (CheckedOps), a batch of two (the second
     item scaled) against single runs and a rerun, bitwise; per level, the
-    device ms of each K1 grid from a trace of the level's calls (grid
-    counts checked against the calls' shapes), the buckets as [cp, rp,
-    panels, widest real width, most real below rows], each grid's bound
-    (k1_costs), and two yardsticks the port never calls, timed with CUDA
-    events on the same inputs: torch.matmul(x, x.mT) on the solved below
-    rows for prod, torch.linalg.cholesky_ex then solve_triangular(L, I)
-    on the (B, cp, cp) diagonals (padding as the identity) for chol.
-    Returns one row per level."""
+    device ms of each K1 grid from a trace of the level's calls that
+    shows every grid of every run (retaken up to K1_TRACE_TRIES times),
+    the buckets as [cp, rp, panels, widest real width, most real below
+    rows], each grid's bound (k1_costs), and three yardsticks the port
+    never calls, timed with CUDA events on the same inputs (padding as
+    the identity): torch.linalg.cholesky_ex then solve_triangular(L, I)
+    on the (B, cp, cp) diagonals for chol, solve_triangular(L^T, below,
+    left=False) on the kernel's L for below, torch.matmul(x, x.mT) on
+    the solved below rows for prod. Returns one row per level."""
     dev = data.device
     sched = s.backend._factor_schedule(0, s.skel.num_lumps)
     seq = [i for i, lv in enumerate(sched) for lb in lv[0]
@@ -451,7 +458,7 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
     out = []
     for lvl in sorted({c[0] for c in cap.calls}):
         row = {"level": lvl, "buckets": [], "max_rel": {}}
-        work, lib = [], {"prod": 0.0, "chol": 0.0}
+        work, lib = [], {"chol": 0.0, "below": 0.0, "prod": 0.0}
         costs, want = {}, {}
         for _, snap, rows, cols, cp, rp, with_prod in \
                 (c for c in cap.calls if c[0] == lvl):
@@ -494,13 +501,19 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
                 c = costs.setdefault(g, [0.0, 0.0])
                 c[0], c[1] = c[0] + by, c[1] + op
             kernels.bucket_factor(w, p, off, rows, cols, cp, rp, 0)
+            ar = torch.arange(cp, device=dev)
+            pad = ((ar[:, None] == ar) & (ar >= cols[:, None, None])) \
+                .to(snap.dtype)
+            if rp:  # x = below L^-T on the kernel's L
+                Lf = torch.tril(w.view(B, h, cp)[:, :cp]) + pad
+                bl = snap.view(B, h, cp)[:, cp:]
+                lib["below"] += time_ms(lambda: torch.linalg.solve_triangular(
+                    Lf.mT, bl, upper=True, left=False), 5)
             if p is not None:
                 x = w.view(B, h, cp)[:, cp:]
                 lib["prod"] += time_ms(lambda: torch.matmul(x, x.mT), 5)
-            ar = torch.arange(cp, device=dev)
-            pad = ((ar[:, None] == ar) & (ar >= cols[:, None, None]))
             D = snap.view(B, h, cp)[:, :cp]
-            sym = torch.tril(D) + torch.tril(D, -1).mT + pad.to(D.dtype)
+            sym = torch.tril(D) + torch.tril(D, -1).mT + pad
             eye = torch.eye(cp, dtype=D.dtype, device=dev).expand_as(sym)
             lib["chol"] += time_ms(lambda: torch.linalg.solve_triangular(
                 torch.linalg.cholesky_ex(sym)[0], eye, upper=False), 5)
@@ -510,26 +523,29 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
                 kernels.bucket_factor(w.copy_(snap), p, off, rows, cols, cp,
                                       rp, 0)
         # the profiler can lose the device records of whole runs in a
-        # short trace late in a long run (on BAL 871, 2 or 3 runs in 50):
-        # each part must show, none more often than launched, and the ms
-        # per run are scaled by the share of runs seen
+        # trace taken late in a long run (on BAL 871, 2 or 3 runs in 50):
+        # only a trace that shows every grid of every run is read, the
+        # runs halved at each retake
         reps = int(min(50, max(3, 20.0 / max(time_ms(calls, 1), 1e-3))))
-        tr = trace(calls, reps)
-        seen, ms = {}, {}
-        for k, v in tr["launches_per_call_by_kernel"].items():
-            if k in K1_PARTS:
-                g = K1_PARTS[k]
-                seen[g] = seen.get(g, 0.0) + v
-                ms[g] = ms.get(g, 0.0) + \
-                    tr["device_ms_per_call_by_kernel"][k]
-        check(set(seen) == set(want) and
-              all(0.5 * want[g] <= v <= want[g] for g, v in seen.items()),
-              f"{label} level {lvl}: the trace shows {seen} K1 grids per "
-              f"run, the calls launch {want}")
-        share = sum(seen.values()) / sum(want.values())
+        for tries in range(1, K1_TRACE_TRIES + 1):
+            tr = trace(calls, reps)
+            seen, ms = {}, {}
+            for k, v in tr["launches_per_call_by_kernel"].items():
+                if k in K1_PARTS:
+                    g = K1_PARTS[k]
+                    seen[g] = seen.get(g, 0) + round(v * reps)
+                    ms[g] = ms.get(g, 0.0) + \
+                        tr["device_ms_per_call_by_kernel"][k]
+            whole = {g: n * reps for g, n in want.items()}
+            if seen == whole:
+                break
+            reps = max(3, reps // 2)
+        check(seen == whole, f"{label} level {lvl}: no complete trace in "
+              f"{K1_TRACE_TRIES} tries; the last shows {seen} K1 grids in "
+              f"{reps} runs, the calls launch {whole}")
         row["grids"] = want
-        row["trace"] = {"reps": reps, "records_seen": share}
-        row["device_ms"] = {g: v / share for g, v in ms.items()}
+        row["trace"] = {"reps": reps, "tries": tries}
+        row["device_ms"] = ms
         row["bound_ms"] = {g: bound(*c)[0] for g, c in costs.items()}
         row["bound_by"] = {g: bound(*c)[1] for g, c in costs.items()}
         row["library_ms"] = {k: v for k, v in lib.items() if v}
@@ -537,13 +553,92 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
         del work
     log("k1_levels", case=label, card=name_limit, dtype="float64",
         limits={"float64": 1e-10, "float32": 1e-4}, bitwise=True,
-        library_calls={"prod": "torch.matmul(x, x.mT)",
-                       "chol": "torch.linalg.cholesky_ex + "
-                               "solve_triangular(L, I)"},
+        library_calls={"chol": "torch.linalg.cholesky_ex + "
+                               "solve_triangular(L, I)",
+                       "below": "torch.linalg.solve_triangular(L.mT, below, "
+                                "upper=True, left=False)",
+                       "prod": "torch.matmul(x, x.mT)"},
         device_ms_per_factor={g: sum(r["device_ms"].get(g, 0.0)
                                      for r in out)
                               for g in ("chol", "below", "prod")},
         levels=out)
+    return out
+
+
+def spd_panels(cp: int, n: int, B: int, seed: int, dev, bad=None):
+    """A bucket of B panels with no below rows, for K1: each the lower
+    triangle of a random A A^T + n I (n x n), zero-padded to cp x cp.
+    bad = (panel, column): that panel's diagonal made negative at the
+    column, so its Cholesky fails there. Returns data (1, B cp cp), off,
+    rows, cols."""
+    rng = np.random.RandomState(seed)
+    data = np.zeros((B, cp, cp))
+    for j in range(B):
+        a = rng.rand(n, n) - 0.5
+        data[j, :n, :n] = np.tril(a @ a.T + n * np.eye(n))
+    if bad is not None:
+        data[bad[0], bad[1], bad[1]] = -1.0
+    ix = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+    return (torch.from_numpy(data.reshape(1, -1)).to(dev),
+            ix(np.arange(B) * cp * cp), ix([0] * B), ix([n] * B))
+
+
+def k1_synthetic(dev, name_limit: str) -> dict:
+    """K1 on synthetic buckets without below rows, f64 and f32.
+    Not positive definite: in a bucket of two, the second panel's
+    diagonal negative at one column, for chol_warp (cp 4, 32) and
+    chol_block (cp 64, 256 and 512: in shared memory, then in place as n
+    grows); L must be finite before that column and NaN in it from the
+    diagonal down, and the first panel finite. The blocked factor with
+    the panel in shared memory against worked in place (on_chip=False)
+    at n = 64, 128 and 160 (cp 64, 128, 256; 4 panels, as a level holds
+    a few): each against the twin, then timed in turn with CUDA events
+    (mean of 20 after 2 warm-up calls, twice each; the input's copy is
+    in both and timed alone)."""
+    out = {"not_pd": [], "on_chip_vs_in_place": []}
+    for dt in (torch.float64, torch.float32):
+        for cp, n, col in ((4, 3, 1), (32, 30, 7), (64, 60, 40),
+                           (256, 200, 150), (512, 282, 100)):
+            data, off, rows, cols = spd_panels(cp, n, 2, 99, dev,
+                                               bad=(1, col))
+            data = data.to(dt)
+            kernels.bucket_factor(data, None, off, rows, cols, cp, 0, 0)
+            P = data.view(2, cp, cp)
+            L = torch.tril(P[1, :n, :n])
+            check(bool(torch.isfinite(P[0]).all()) and
+                  bool(torch.isfinite(L[:col, :col]).all()) and
+                  bool(torch.isnan(L[col:, col]).all()),
+                  f"bucket_factor on a panel not positive definite (cp "
+                  f"{cp}, n {n}, column {col}, {dt}): not NaN from the "
+                  "failing column on, or NaN elsewhere")
+            out["not_pd"].append([str(dt)[6:], cp, n, col])
+        for cp, n in ((64, 64), (128, 128), (256, 160)):
+            data, off, rows, cols = spd_panels(cp, n, 4, n, dev)
+            data = data.to(dt)
+            row = {"dtype": str(dt)[6:], "cp": cp, "n": n, "panels": 4}
+            want = data.clone()
+            kernels.bucket_factor_twin(want, None, off, rows, cols, cp, 0, 0)
+            got = {}
+            for on in (True, False):
+                got[on] = data.clone()
+                kernels.bucket_factor(got[on], None, off, rows, cols, cp, 0,
+                                      0, on_chip=on)
+                r = rel_abs(got[on], want)[0]
+                check(r <= KERNEL_RTOL[dt], f"bucket_factor (on_chip={on}) "
+                      f"vs twin at cp {cp}, n {n}, {dt}: rel {r}")
+                row["max_rel_on_chip" if on else "max_rel_in_place"] = r
+            row["bitwise_equal"] = torch.equal(got[True], got[False])
+            w, ms = data.clone(), {True: 0.0, False: 0.0}
+            for _ in range(2):
+                for on in (True, False):
+                    ms[on] += time_ms(lambda: kernels.bucket_factor(
+                        w.copy_(data), None, off, rows, cols, cp, 0, 0,
+                        on_chip=on), 20) / 2
+            row["on_chip_ms"], row["in_place_ms"] = ms[True], ms[False]
+            row["copy_ms"] = time_ms(lambda: w.copy_(data), 20)
+            out["on_chip_vs_in_place"].append(row)
+    log("k1_synthetic", card=name_limit, limits={"float64": 1e-10,
+                                                 "float32": 1e-4}, **out)
     return out
 
 
@@ -1961,9 +2056,11 @@ def main() -> int:
     trace_checked("bal871", "lm_iteration", lm_iteration, 1,
                   dtype="float64", card=name_limit)
 
-    # 13. K1 per level on MERI, GRID and BAL 871's pair levels, last: its
-    # many short traces come after the strict ones above (the profiler
-    # has lost a whole call's device records in a trace taken after them)
+    # 13. K1 on synthetic panels (NaN, shared memory or in place); per
+    # level on MERI, GRID and BAL 871's pair levels, last: its many short
+    # traces come after the strict ones above (the profiler has lost a
+    # whole call's device records in a trace taken after them)
+    k1_synthetic(dev, name_limit)
     k1_meri = k1_levels(meri, torch.from_numpy(d64["meri7"]).to(dev),
                         "meri7", name_limit)
     k1_grid = k1_levels(grid, torch.from_numpy(d64["grid100"]).to(dev),
