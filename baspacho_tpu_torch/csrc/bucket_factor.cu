@@ -31,10 +31,9 @@
 //               the next diagonal block is factored while the rest of the
 //               update runs), then the inverse by block rows,
 //               X[i, :i] = -Dinv_i (L[i, :i] X[:i, :i])
-//               (_blocked_lower_inv :1353). The panel
-//               is kept in shared memory where it fits (n up to 160 in
-//               f64, 224 in f32), else worked in place in device memory
-//               (L2-resident). About n / 16 steps of a few barriers each:
+//               (_blocked_lower_inv :1353). The panel is worked in place
+//               in device memory (L2-resident; a copy in shared memory
+//               was no faster). About n / 16 steps of a few barriers each:
 //               the old design took 2n dependent steps, each up to three
 //               barriers and a pass over the panel.
 //   below       one CTA per (panel, chunk of below rows, batch item): the
@@ -69,7 +68,6 @@ constexpr int kPanelsPerCta = 4;     // chol_warp: warps (panels) per CTA
 constexpr int kEntryCp = 8;          // prod_entry: the widest cp it takes
 constexpr int kBlockThreads = 256;   // chol_block: 8 warps
 constexpr int kWarps = kBlockThreads / 32;
-constexpr int kMaxSmem = 232448;     // a CTA's shared memory on the H100
 constexpr int kOld = kTile + 1;      // prod_tile: the output tile's row
 
 // store(e, load(e)) for e = tid, tid + nt, ... < count, kInFlight loads
@@ -120,45 +118,32 @@ __global__ void __launch_bounds__(32 * kPanelsPerCta)
   for (int t = lane; t < cp * cp; t += 32) P[t] = A[(t / cp) * ls + t % cp];
 }
 
-// cp > 32 (a multiple of 32): one CTA per (panel, batch item). Shared
-// memory holds dx (the diagonal of X = Linv), dbuf (the diagonal block
-// being factored or applied) and a work area: the panel itself, its
-// padded width np = n rounded up to 32, where np (np + 4) values fit
-// (row stride np + 4); else the panel is worked in place in device
-// memory (row stride cp) and the work area holds the operands of each
-// step: the solved block column (rows past it x kCld) for the trailing
-// update, block row i of L for the inverse sweep. A step's operand read
-// from device memory is preloaded (mma32<true>).
+// cp > 32 (a multiple of 32): one CTA per (panel, batch item), the panel
+// worked in place in device memory (row stride cp). Shared memory holds
+// dx (the diagonal of X = Linv), dbuf (the diagonal block being factored
+// or applied) and a work area for each step's operands: the solved block
+// column (rows past it x kCld) for the trailing update, block row i of L
+// for the inverse sweep. A step's operand read from device memory is
+// preloaded (mma32<true>).
 constexpr int kDld = kSub + 1;  // dbuf's row
 constexpr int kCld = kSub + 4;  // a staged block column's row
 
 template <typename T>
 __global__ void __launch_bounds__(kBlockThreads)
     chol_block_kernel(T* data, int64_t bstride, const int64_t* off,
-                      const int64_t* cols, int cp, int64_t slab) {
+                      const int64_t* cols, int cp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const dx = reinterpret_cast<T*>(smem_raw);
   T* const dbuf = dx + cp;
   T* const work = dbuf + kSub * kDld;
-  T* P = data + (int64_t)blockIdx.y * bstride + off[blockIdx.x];
+  T* const A = data + (int64_t)blockIdx.y * bstride + off[blockIdx.x];
   const int n = (int)cols[blockIdx.x];
   const int np = (n + kSub - 1) / kSub * kSub, nb = np / kSub;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool on_chip = (int64_t)np * (np + 4) <= slab;
-  T* const A = on_chip ? work : P;
-  const int ld = on_chip ? np + 4 : cp;
-  if (on_chip) {
-    copy_batched<T>(
-        np * np, tid, kBlockThreads,
-        [&](int t) {
-          const int r = t / np, c = t % np;
-          return (r < n && c <= r) ? P[(int64_t)r * cp + c] : T(0);
-        },
-        [&](int t, T v) { A[(t / np) * ld + t % np] = v; });
-  } else {  // the strict upper triangle will receive Linv^T
-    for (int t = tid; t < cp * cp; t += kBlockThreads)
-      if (t % cp > t / cp) P[t] = T(0);
-  }
+  const int ld = cp;
+  // the strict upper triangle will receive Linv^T
+  for (int t = tid; t < cp * cp; t += kBlockThreads)
+    if (t % cp > t / cp) A[t] = T(0);
   for (int t = tid; t < cp; t += kBlockThreads) dx[t] = T(0);
   __syncthreads();
 
@@ -188,9 +173,9 @@ __global__ void __launch_bounds__(kBlockThreads)
   __syncthreads();
   for (int p = 0; p < nb; ++p) {
     const int p0 = p * kSub, q0 = p0 + kSub;
-    // the rows below, in place: x[r][c] = sum_{k <= c} a[r][k] X[c][k],
-    // X[c][k] = dbuf[k][c] above the diagonal, dx on it; off chip, also
-    // into the work area
+    // the rows below, in place and into the work area:
+    // x[r][c] = sum_{k <= c} a[r][k] X[c][k], X[c][k] = dbuf[k][c] above
+    // the diagonal, dx on it
     for (int g = p + 1 + warp; g < nb; g += kWarps) {
       T* a = A + (int64_t)g * kSub * ld + p0;
       T* w = work + (g - p - 1) * kSub * kCld;
@@ -204,25 +189,23 @@ __global__ void __launch_bounds__(kBlockThreads)
       __syncwarp();  // the warp's rows are read; overwrite them
       acc_each(acc, lane, [&](T& v, int r, int c) {
         a[r * ld + c] = v;
-        if (!on_chip) w[r * kCld + c] = v;
+        w[r * kCld + c] = v;
       });
     }
     __syncthreads();
     // the trailing lower triangle: A[I][J] -= x_I x_J^T, 32 x 32 tiles
     // (a diagonal tile's upper half is overwritten when it is factored);
     // warp 0 updates tile (0, 0), the next diagonal block, and factors it
-    const T* xc = on_chip ? A + (int64_t)q0 * ld + p0 : work;
-    const int xld = on_chip ? ld : kCld;
     const auto update = [&](int t) {
       int I, J;
       tri_tile(t, I, J);
       T* tile = A + (int64_t)(q0 + I * kSub) * ld + q0 + J * kSub;
-      const T* xi = xc + I * kSub * xld;
-      const T* xj = xc + J * kSub * xld;
+      const T* xi = work + I * kSub * kCld;
+      const T* xj = work + J * kSub * kCld;
       T acc[4][4][2];
       acc_each(acc, lane, [&](T& v, int r, int c) { v = tile[r * ld + c]; });
-      mma32(acc, [&](int r, int k) { return -xi[r * xld + k]; },
-            [&](int c, int k) { return xj[c * xld + k]; }, lane);
+      mma32(acc, [&](int r, int k) { return -xi[r * kCld + k]; },
+            [&](int c, int k) { return xj[c * kCld + k]; }, lane);
       acc_each(acc, lane, [&](T& v, int r, int c) { tile[r * ld + c] = v; });
     };
     const int m = nb - p - 1;
@@ -244,15 +227,14 @@ __global__ void __launch_bounds__(kBlockThreads)
   // block first and is read back from there.
   for (int i = 1; i < nb; ++i) {
     const int r0 = i * kSub;
-    // block row i of L (work area, off chip) and the diagonal block
-    // (dbuf: X^T above the diagonal)
-    const T* Li = on_chip ? A + (int64_t)r0 * ld : work;
-    const int lld = on_chip ? ld : r0 + 4;
-    if (!on_chip)
-      copy_batched<T>(
-          kSub * r0, tid, kBlockThreads,
-          [&](int t) { return A[(int64_t)(r0 + t / r0) * ld + t % r0]; },
-          [&](int t, T v) { work[(t / r0) * lld + t % r0] = v; });
+    // block row i of L (the work area) and the diagonal block (dbuf: X^T
+    // above the diagonal)
+    const T* Li = work;
+    const int lld = r0 + 4;
+    copy_batched<T>(
+        kSub * r0, tid, kBlockThreads,
+        [&](int t) { return A[(int64_t)(r0 + t / r0) * ld + t % r0]; },
+        [&](int t, T v) { work[(t / r0) * lld + t % r0] = v; });
     copy_batched<T>(
         kSub * kSub, tid, kBlockThreads,
         [&](int t) {
@@ -293,12 +275,6 @@ __global__ void __launch_bounds__(kBlockThreads)
     }
     __syncthreads();  // before the next block row's staging
   }
-
-  if (on_chip)
-    for (int t = tid; t < cp * cp; t += kBlockThreads) {
-      const int r = t / cp, c = t % cp;
-      P[t] = (r < np && c < np) ? A[r * ld + c] : T(0);
-    }
 }
 
 template <typename T>
@@ -411,7 +387,7 @@ template <typename T>
 int launch(void* data, int64_t data_bstride, void* prod,
            int64_t prod_bstride, int64_t prod_base, const int64_t* off,
            const int64_t* rows, const int64_t* cols, int64_t B, int cp,
-           int rp, int batch, bool on_chip, cudaStream_t stream) {
+           int rp, int batch, cudaStream_t stream) {
   T* d = static_cast<T*>(data);
   if (cp <= kSub) {
     const dim3 grid((unsigned)((B + kPanelsPerCta - 1) / kPanelsPerCta),
@@ -431,20 +407,17 @@ int launch(void* data, int64_t data_bstride, void* prod,
                                                        cols, B, cp);
   } else {
     if (cp % kSub) return (int)cudaErrorInvalidValue;
-    // dx, dbuf, then a work area for the whole panel, as far as the
-    // CTA's shared memory takes it (the off-chip operands need less)
-    const int64_t fixed = cp + kSub * kDld;
-    const int64_t want = (fixed + (int64_t)cp * (cp + 4)) * sizeof(T);
-    const int smem = (int)(want < kMaxSmem ? want : kMaxSmem);
-    const int64_t slab = smem / (int64_t)sizeof(T) - fixed;
-    if (slab < (int64_t)(cp - kSub) * kCld) return (int)cudaErrorInvalidValue;
+    // dx, dbuf, then the work area: the solved block column below the
+    // first diagonal block, (cp - 32) x kCld, which also holds a block row
+    // of L, 32 x (cp - 28) at most (cp >= 64)
+    const int smem =
+        (int)((cp + kSub * kDld + (cp - kSub) * kCld) * sizeof(T));
     cudaError_t e = cudaFuncSetAttribute(
         chol_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
     chol_block_kernel<T><<<dim3((unsigned)B, batch), kBlockThreads, smem,
-                           stream>>>(d, data_bstride, off, cols, cp,
-                                     on_chip ? slab : 0);
+                           stream>>>(d, data_bstride, off, cols, cp);
   }
   if (rp > 0) {
     int rb = 32768 / (cp * (int)sizeof(T));
@@ -479,22 +452,19 @@ int launch(void* data, int64_t data_bstride, void* prod,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64. on_chip 0 makes chol_block work every
-// panel in place in device memory (a probe of what the shared-memory copy
-// buys). Returns the cudaError_t of the launches.
+// dtype: 0 float32, 1 float64. Returns the cudaError_t of the launches.
 extern "C" int bs_bucket_factor(int dtype, void* data, int64_t data_bstride,
                                 void* prod, int64_t prod_bstride,
                                 int64_t prod_base, const int64_t* off,
                                 const int64_t* rows, const int64_t* cols,
                                 int64_t B, int cp, int rp, int batch,
-                                int on_chip, void* stream) {
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(data, data_bstride, prod, prod_bstride, prod_base,
-                         off, rows, cols, B, cp, rp, batch, on_chip != 0, s);
+                         off, rows, cols, B, cp, rp, batch, s);
   if (dtype == 1)
     return launch<double>(data, data_bstride, prod, prod_bstride, prod_base,
-                          off, rows, cols, B, cp, rp, batch, on_chip != 0,
-                          s);
+                          off, rows, cols, B, cp, rp, batch, s);
   return (int)cudaErrorInvalidValue;
 }

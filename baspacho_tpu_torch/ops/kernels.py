@@ -146,7 +146,7 @@ def _lib() -> ctypes.CDLL:
         f64 = ctypes.c_double
         sigs = {
             "bs_bucket_factor": [i32, vp, i64, vp, i64, i64, vp, vp, vp, i64,
-                                 i32, i32, i32, i32, vp],
+                                 i32, i32, i32, vp],
             "bs_segmented_subtract": [i32, vp, i64, vp, i64, vp, vp, vp, i64,
                                       i64, i32, vp],
             "bs_bucket_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
@@ -231,14 +231,11 @@ def _raise_on(name: str, err: int) -> None:
 # K1 bucket_factor
 # ----------------------------------------------------------------------
 def bucket_factor(data, prod, off, rows, cols, cp: int, rp: int,
-                  prod_base: int, on_chip: bool = True) -> None:
+                  prod_base: int) -> None:
     """Factor the bucket's panels in place in `data` (x = below . Linv^T
     overwrites the below rows) and, when rp > 0 and `prod` is given,
     write their products x . x^T into prod[:, prod_base:]. Dense levels
-    pass prod None: their update reads x from the data (K4). on_chip
-    False makes the blocked factor (cp > 32) work every panel in place in
-    device memory rather than in shared memory where it fits: the same
-    result, for measuring what the copy buys."""
+    pass prod None: their update reads x from the data (K4)."""
     with_prod = rp > 0 and prod is not None
     _check_batch("bucket_factor", data, prod if with_prod else None)
     if data.device.type == "cpu":
@@ -252,7 +249,7 @@ def bucket_factor(data, prod, off, rows, cols, cp: int, rp: int,
         prod.data_ptr() if with_prod else None,
         prod.shape[1] if with_prod else 0, prod_base, off.data_ptr(),
         rows.data_ptr(), cols.data_ptr(), off.shape[0], cp, rp, batch,
-        int(on_chip), _stream(data))
+        _stream(data))
     COUNTS["bucket_factor"].launches += 1
     # chol (warp or block), then below when the panels have below rows,
     # then prod (warp or tile)

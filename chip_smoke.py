@@ -56,9 +56,8 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                call against its twin (f64, f32), batched and rerun
                bitwise, each grid's device ms from a complete trace
                beside its bound and a library yardstick the port never
-               calls; on synthetic panels (k1_synthetic), NaN from the
-               failing column of a panel that is not positive definite,
-               and the blocked factor in shared memory against in place
+               calls; on a panel that is not positive definite
+               (k1_not_pd), NaN from the failing column on
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -583,19 +582,13 @@ def spd_panels(cp: int, n: int, B: int, seed: int, dev, bad=None):
             ix(np.arange(B) * cp * cp), ix([0] * B), ix([n] * B))
 
 
-def k1_synthetic(dev, name_limit: str) -> dict:
-    """K1 on synthetic buckets without below rows, f64 and f32.
-    Not positive definite: in a bucket of two, the second panel's
-    diagonal negative at one column, for chol_warp (cp 4, 32) and
-    chol_block (cp 64, 256 and 512: in shared memory, then in place as n
-    grows); L must be finite before that column and NaN in it from the
-    diagonal down, and the first panel finite. The blocked factor with
-    the panel in shared memory against worked in place (on_chip=False)
-    at n = 64, 128 and 160 (cp 64, 128, 256; 4 panels, as a level holds
-    a few): each against the twin, then timed in turn with CUDA events
-    (mean of 20 after 2 warm-up calls, twice each; the input's copy is
-    in both and timed alone)."""
-    out = {"not_pd": [], "on_chip_vs_in_place": []}
+def k1_not_pd(dev, name_limit: str) -> list:
+    """K1 on a panel that is not positive definite, f64 and f32: in a
+    bucket of two, the second panel's diagonal made negative at one
+    column, for chol_warp (cp 4, 32) and chol_block (cp 64, 256, 512);
+    L must be finite before that column and NaN in it from the diagonal
+    down, and the first panel finite."""
+    out = []
     for dt in (torch.float64, torch.float32):
         for cp, n, col in ((4, 3, 1), (32, 30, 7), (64, 60, 40),
                            (256, 200, 150), (512, 282, 100)):
@@ -611,34 +604,8 @@ def k1_synthetic(dev, name_limit: str) -> dict:
                   f"bucket_factor on a panel not positive definite (cp "
                   f"{cp}, n {n}, column {col}, {dt}): not NaN from the "
                   "failing column on, or NaN elsewhere")
-            out["not_pd"].append([str(dt)[6:], cp, n, col])
-        for cp, n in ((64, 64), (128, 128), (256, 160)):
-            data, off, rows, cols = spd_panels(cp, n, 4, n, dev)
-            data = data.to(dt)
-            row = {"dtype": str(dt)[6:], "cp": cp, "n": n, "panels": 4}
-            want = data.clone()
-            kernels.bucket_factor_twin(want, None, off, rows, cols, cp, 0, 0)
-            got = {}
-            for on in (True, False):
-                got[on] = data.clone()
-                kernels.bucket_factor(got[on], None, off, rows, cols, cp, 0,
-                                      0, on_chip=on)
-                r = rel_abs(got[on], want)[0]
-                check(r <= KERNEL_RTOL[dt], f"bucket_factor (on_chip={on}) "
-                      f"vs twin at cp {cp}, n {n}, {dt}: rel {r}")
-                row["max_rel_on_chip" if on else "max_rel_in_place"] = r
-            row["bitwise_equal"] = torch.equal(got[True], got[False])
-            w, ms = data.clone(), {True: 0.0, False: 0.0}
-            for _ in range(2):
-                for on in (True, False):
-                    ms[on] += time_ms(lambda: kernels.bucket_factor(
-                        w.copy_(data), None, off, rows, cols, cp, 0, 0,
-                        on_chip=on), 20) / 2
-            row["on_chip_ms"], row["in_place_ms"] = ms[True], ms[False]
-            row["copy_ms"] = time_ms(lambda: w.copy_(data), 20)
-            out["on_chip_vs_in_place"].append(row)
-    log("k1_synthetic", card=name_limit, limits={"float64": 1e-10,
-                                                 "float32": 1e-4}, **out)
+            out.append([str(dt)[6:], cp, n, col])
+    log("k1_not_pd", card=name_limit, cases=out)
     return out
 
 
@@ -2056,11 +2023,11 @@ def main() -> int:
     trace_checked("bal871", "lm_iteration", lm_iteration, 1,
                   dtype="float64", card=name_limit)
 
-    # 13. K1 on synthetic panels (NaN, shared memory or in place); per
-    # level on MERI, GRID and BAL 871's pair levels, last: its many short
-    # traces come after the strict ones above (the profiler has lost a
-    # whole call's device records in a trace taken after them)
-    k1_synthetic(dev, name_limit)
+    # 13. K1 on panels that are not positive definite; per level on
+    # MERI, GRID and BAL 871's pair levels, last: its many short traces
+    # come after the strict ones above (the profiler has lost a whole
+    # call's device records in a trace taken after them)
+    k1_not_pd(dev, name_limit)
     k1_meri = k1_levels(meri, torch.from_numpy(d64["meri7"]).to(dev),
                         "meri7", name_limit)
     k1_grid = k1_levels(grid, torch.from_numpy(d64["grid100"]).to(dev),
