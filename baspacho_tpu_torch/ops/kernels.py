@@ -51,7 +51,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu",
            "wide_factor.cu", "wide_solve.cu", "dense_level.cu",
            "tri_solve.cu", "add_mv.cu", "grad_hess.cu")
-HEADERS = ("warp_tiles.cuh",)  # included by the K1, K1-wide and K4 sources
+HEADERS = ("warp_tiles.cuh",)  # included by the K1, K1-wide, K4, K5 sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu)
@@ -171,11 +171,8 @@ def _lib() -> ctypes.CDLL:
                                   vp, vp, i64, vp, vp, vp, vp, vp, i64, i64,
                                   i32, i32, i32, i32, vp],
             "bs_add_mv": [i32, vp, i64, vp, i64, vp, i64, vp, i64, i64, vp,
-                          vp, vp, vp, vp, i64, i64, i32, i32, i32, i32, f64,
-                          vp],
-            "bs_wide_add_mv": [i32, vp, i64, vp, i64, vp, i64, vp, i64, i64,
-                               vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
-                               i32, i32, f64, vp],
+                          vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                          i32, i32, i32, i32, f64, vp],
             "bs_grad_hess": [i32, vp, i64, i32, vp, vp, i64, i32, i32, i32,
                              vp, vp, vp, vp, vp, vp, vp, vp, i64, vp],
         }
@@ -771,7 +768,8 @@ def _scratch(like, n: int, dtype=None) -> torch.Tensor:
     """n elements of a work buffer kept per (device, dtype, stream) and
     grown as needed, so that a call allocates nothing: calls on one
     stream run in order, and no call reads what an earlier one left
-    (K3-rest wide's pre kernel zeroes its flags)."""
+    (K3-rest wide's pre kernel zeroes its flags; K5 writes every partial
+    it reads)."""
     dtype = dtype or like.dtype
     key = (like.device, dtype, _stream(like))
     buf = _SCRATCH.get(key)
@@ -860,65 +858,86 @@ def _check_mv(name, data, x, out, y, rp):
                          f"x {x.shape[2:]}")
 
 
+MV_WARP_ELEMS = 1024   # a panel of at most this many elements (4 <= cp <=
+#                        32) is one warp's (csrc/add_mv.cu mv_warp_kernel)
+MV_CHUNK_ELEMS = 8192  # elements of one CTA's chunk of rows x strip (wide
+#                        panels: twice as many, to halve their partials)
+MV_STRIP = 512         # the widest column strip of a CTA
+MV_MAX_CHUNK = 256     # rows per chunk at most: 32 a warp
+
+
+def mv_layout(cp: int, rp: int) -> tuple:
+    """K5's grid for a bucket of (cp, rp) panels, from the shape alone (so
+    that batch items equal their single runs): (strip width, rows per
+    chunk, chunks per panel); 0 rows per chunk: one warp per panel."""
+    h = cp + rp
+    if 4 <= cp <= 32 and h * cp <= MV_WARP_ELEMS:
+        return cp, 0, 1
+    W = min(cp, MV_STRIP)
+    elems = MV_CHUNK_ELEMS * (2 if cp > MV_STRIP else 1)
+    # a multiple of 32 (the post reads 32 columns' partials as one list)
+    # and of a CTA step's 8 (32 / W) rows
+    crc = min(MV_MAX_CHUNK, max(32, 8 * (32 // min(W, 32)), elems // W))
+    return W, crc, -(-h // crc)
+
+
+def _mv_launch(name, data, x, out, y, y_base, off, rows, cols, vec_off,
+               below_idx, cp, rp, alpha, wide: bool) -> None:
+    _check_cuda(name, [data, x, out, y] if rp > 0 else [data, x, out],
+                [off, rows, cols, vec_off, below_idx])
+    batch, order, nrhs = x.shape
+    B = off.shape[0]
+    if batch * nrhs > 65535:
+        raise ValueError(f"{name}: batch x nrhs {batch * nrhs} exceeds the "
+                         "grid's 65535")
+    W, crc, nchunk = mv_layout(cp, rp)
+    nstrip = -(-cp // W)
+    post = crc > 0 and (nchunk > 1 or nstrip > 1)
+    part = _scratch(x, batch * nrhs * B * (nchunk * cp + nstrip * (cp + rp))
+                    ).data_ptr() if post else None
+    err = _lib().bs_add_mv(
+        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+        x.data_ptr(), order * nrhs, out.data_ptr(), order * nrhs,
+        y.data_ptr() if rp > 0 else None, y[0].numel() if rp > 0 else 0,
+        y_base, part, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+        vec_off.data_ptr(), below_idx.data_ptr(), order, B, cp, rp, nrhs,
+        batch, W, crc, nchunk, int(wide), float(alpha), _stream(data))
+    COUNTS[name].launches += 1
+    COUNTS[name].grid_launches += 2 if post else 1
+    _raise_on(name, err)
+
+
 def add_mv(data, x, out, y, y_base: int, off, rows, cols, vec_off,
            below_idx, cp: int, rp: int, alpha: float) -> None:
     """Block mat-vec of one bucket: out[own rows] += alpha (sym(lower(
     diag)) x_own + below^T x[below_idx]) in place, and, when rp > 0,
     y[:, y_base + b*rp + r] = -alpha (below . x_own)[b, r] for K2 to
-    subtract into out[below_idx] once every bucket has run."""
+    subtract into out[below_idx] once every bucket has run. On the card
+    (csrc/add_mv.cu): one warp per panel for small panels (cp <= 32),
+    else CTAs over chunks of rows, each element read once for both
+    terms, partial sums through a cached scratch (`mv_layout`)."""
     _check_mv("add_mv", data, x, out, y, rp)
     if data.device.type == "cpu":
         return add_mv_twin(data, x, out, y, y_base, off, rows, cols,
                            vec_off, below_idx, cp, rp, alpha)
-    _check_cuda("add_mv", [data, x, out, y] if rp > 0 else [data, x, out],
-                [off, rows, cols, vec_off, below_idx])
-    batch, order, nrhs = x.shape
-    err = _lib().bs_add_mv(
-        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
-        x.data_ptr(), order * nrhs, out.data_ptr(), order * nrhs,
-        y.data_ptr() if rp > 0 else None, y[0].numel() if rp > 0 else 0,
-        y_base * nrhs, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-        vec_off.data_ptr(), below_idx.data_ptr(), order, off.shape[0], cp,
-        rp, nrhs, batch, float(alpha), _stream(data))
-    COUNTS["add_mv"].launches += 1
-    COUNTS["add_mv"].grid_launches += 1
-    _raise_on("add_mv", err)
-
-
-MV_TILE = 64  # tile edge of the wide mat-vec (csrc/add_mv.cu)
+    _mv_launch("add_mv", data, x, out, y, y_base, off, rows, cols, vec_off,
+               below_idx, cp, rp, alpha, False)
 
 
 def wide_add_mv(data, x, out, y, y_base: int, off, rows, cols, vec_off,
                 below_idx, cp: int, rp: int, alpha: float) -> None:
-    """add_mv for wide panels (cp > 512): the lower triangle in 64 x 64
-    tiles on many CTAs, each element read once for both its terms, the
-    partial sums through (batch, B, cp / 64, cp, nrhs) scratches and
-    summed per row in a fixed order."""
+    """add_mv for wide panels (cp > 512): the narrow grid over 512-wide
+    column strips (the lower triangle's strips above a chunk of own rows
+    skipped), then a pass that sums each row's strip and chunk partials
+    in a fixed order."""
     _check_mv("wide_add_mv", data, x, out, y, rp)
     if data.device.type == "cpu":
         return wide_add_mv_twin(data, x, out, y, y_base, off, rows, cols,
                                 vec_off, below_idx, cp, rp, alpha)
-    _check_cuda("wide_add_mv",
-                [data, x, out, y] if rp > 0 else [data, x, out],
-                [off, rows, cols, vec_off, below_idx])
-    if cp % MV_TILE:
-        raise ValueError(f"wide_add_mv: cp {cp} is not a multiple of "
-                         f"{MV_TILE}")
-    batch, order, nrhs = x.shape
-    B = off.shape[0]
-    p1 = x.new_empty((batch, B, cp // MV_TILE, cp, nrhs))
-    p2 = torch.empty_like(p1)
-    err = _lib().bs_wide_add_mv(
-        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
-        x.data_ptr(), order * nrhs, out.data_ptr(), order * nrhs,
-        y.data_ptr() if rp > 0 else None, y[0].numel() if rp > 0 else 0,
-        y_base * nrhs, p1.data_ptr(), p2.data_ptr(), off.data_ptr(),
-        rows.data_ptr(), cols.data_ptr(), vec_off.data_ptr(),
-        below_idx.data_ptr(), order, B, cp, rp, nrhs, batch, float(alpha),
-        _stream(data))
-    COUNTS["wide_add_mv"].launches += 1
-    COUNTS["wide_add_mv"].grid_launches += 2
-    _raise_on("wide_add_mv", err)
+    if cp <= MV_STRIP:
+        raise ValueError(f"wide_add_mv: cp {cp} is narrow (<= {MV_STRIP})")
+    _mv_launch("wide_add_mv", data, x, out, y, y_base, off, rows, cols,
+               vec_off, below_idx, cp, rp, alpha, True)
 
 
 def _add_mv_plain(data, x, out, y, y_base: int, off, rows, cols, vec_off,

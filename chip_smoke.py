@@ -58,6 +58,18 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                beside its bound and a library yardstick the port never
                calls; on a panel that is not positive definite
                (k1_not_pd), NaN from the failing column on
+  K5 per bucket (k5_levels, last) of BAL 871's PCG operator
+               add_mv_from(t) and of add_mv_from(0), and of FLAT+Schur
+               50k's two: against its twin (f64 at nrhs 1 and 3, f32),
+               batched and rerun bitwise, ms by events, device ms per grid
+               from complete traces, bounds, torch.sparse.mm on the
+               bucket's own sparse matrix (a yardstick the port never
+               calls); the pcg stage of BAL's first damped system, 10
+               iterations, traced (device ms per kernel, idle share)
+
+With `--only k5` it builds the kernels and runs K5's phases alone (BAL
+871's set-up and damped system, the PCG trace, k5_levels) and prints no
+last line.
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -137,8 +149,8 @@ GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
          "tri_solve": ("tri_l_kernel", "tri_lt_kernel"),
          "wide_tri_solve": ("tri_wide_pre_kernel", "tri_wide_chain_kernel",
                             "tri_wide_post_kernel"),
-         "add_mv": ("mv_kernel",),
-         "wide_add_mv": ("wide_mv_tile_kernel", "wide_mv_post_kernel"),
+         "add_mv": ("mv_warp_kernel", "mv_chunk_kernel", "mv_post_kernel"),
+         "wide_add_mv": ("wide_mv_chunk_kernel", "wide_mv_post_kernel"),
          "grad_hess": ("gh_warp_kernel", "gh_block_kernel")}
 PRECONDS = ("IdentityPrecond", "BlockJacobiPrecond",
             "BlockGaussSeidelPrecond", "LowerPrecSolvePrecond")
@@ -187,8 +199,8 @@ BAL_PCG_ITERS = [80, 80]
 K1_PARTS = {"chol_warp_kernel": "chol", "chol_block_kernel": "chol",
             "below_kernel": "below", "prod_entry_kernel": "prod",
             "prod_tile_kernel": "prod"}
-# k1_levels' traces of a level: at most this many, until one shows
-# every grid of every run
+# k1_levels' and k5_levels' traces of a call: at most this many, until
+# one shows every grid of every run
 K1_TRACE_TRIES = 5
 # the least time of a call: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA H100 SXM data sheet: HBM3
@@ -521,29 +533,16 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
             for snap, w, p, off, rows, cols, cp, rp in work:
                 kernels.bucket_factor(w.copy_(snap), p, off, rows, cols, cp,
                                       rp, 0)
-        # the profiler can lose the device records of whole runs in a
-        # trace taken late in a long run (on BAL 871, 2 or 3 runs in 50):
-        # only a trace that shows every grid of every run is read, the
-        # runs halved at each retake
+        # only a trace that shows every grid of every run is read
         reps = int(min(50, max(3, 20.0 / max(time_ms(calls, 1), 1e-3))))
-        for tries in range(1, K1_TRACE_TRIES + 1):
-            tr = trace(calls, reps)
-            seen, ms = {}, {}
-            for k, v in tr["launches_per_call_by_kernel"].items():
-                if k in K1_PARTS:
-                    g = K1_PARTS[k]
-                    seen[g] = seen.get(g, 0) + round(v * reps)
-                    ms[g] = ms.get(g, 0.0) + \
-                        tr["device_ms_per_call_by_kernel"][k]
-            whole = {g: n * reps for g, n in want.items()}
-            if seen == whole:
-                break
-            reps = max(3, reps // 2)
-        check(seen == whole, f"{label} level {lvl}: no complete trace in "
-              f"{K1_TRACE_TRIES} tries; the last shows {seen} K1 grids in "
-              f"{reps} runs, the calls launch {whole}")
+        by_grid, tr, tries = complete_trace(
+            calls, tuple(K1_PARTS), sum(want.values()), reps,
+            f"{label} level {lvl}")
+        ms = {}
+        for k, v in by_grid.items():
+            ms[K1_PARTS[k]] = ms.get(K1_PARTS[k], 0.0) + v
         row["grids"] = want
-        row["trace"] = {"reps": reps, "tries": tries}
+        row["trace"] = {"reps": tr["reps"], "tries": tries}
         row["device_ms"] = ms
         row["bound_ms"] = {g: bound(*c)[0] for g, c in costs.items()}
         row["bound_by"] = {g: bound(*c)[1] for g, c in costs.items()}
@@ -607,6 +606,230 @@ def k1_not_pd(dev, name_limit: str) -> list:
             out.append([str(dt)[6:], cp, n, col])
     log("k1_not_pd", card=name_limit, cases=out)
     return out
+
+
+class MvCapture:
+    """The kernels, for an add_mv program, keeping each K5 call's bucket:
+    (wrapper, off, rows, cols, vec_off, below_idx, cp, rp)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(kernels, name)
+
+    def _keep(self, name, data, x, out, y, y_base, *bucket_alpha):
+        self.calls.append((name, *bucket_alpha[:-1]))
+        getattr(kernels, name)(data, x, out, y, y_base, *bucket_alpha)
+
+    def add_mv(self, *args):
+        self._keep("add_mv", *args)
+
+    def wide_add_mv(self, *args):
+        self._keep("wide_add_mv", *args)
+
+
+def mv_sparse(data, order: int, off, rows, cols, vec_off, below_idx, cp: int,
+              rp: int):
+    """The symmetric matrix one K5 bucket adds, M = sym(lower(diag)) on
+    its panels' own rows plus below and below^T, as a CUDA sparse_csr
+    tensor of the real entries (order x order), built from data[0]; for
+    the torch.sparse.mm yardstick, which the port never calls."""
+    dev, d = data.device, data[0]
+    ii, mm = torch.tril_indices(cp, cp, device=dev)
+    p, t = (ii[None] < cols[:, None]).nonzero(as_tuple=True)
+    i, m = ii[t], mm[t]
+    val = d[off[p] + i * cp + m]
+    r, c = vec_off[p] + i, vec_off[p] + m
+    strict = i != m
+    rs, cs, vs = [r, c[strict]], [c, r[strict]], [val, val[strict]]
+    if rp:
+        bi = below_idx.view(-1, rp)
+        live = ((torch.arange(rp, device=dev)[:, None] < rows[:, None, None])
+                & (torch.arange(cp, device=dev) < cols[:, None, None])
+                & (bi != order)[:, :, None])
+        p, q, m = live.nonzero(as_tuple=True)
+        val = d[off[p] + (cp + q) * cp + m]
+        g, o = bi[p, q], vec_off[p] + m
+        rs += [g, o]
+        cs += [o, g]
+        vs += [val, val]
+    A = torch.sparse_coo_tensor(torch.stack([torch.cat(rs), torch.cat(cs)]),
+                                torch.cat(vs), (order, order))
+    return A.coalesce().to_sparse_csr()
+
+
+def complete_trace(fn, names, want: int, reps: int, what: str) -> tuple:
+    """Device ms per call of each of `names` (__global__ functions) from a
+    trace of fn() that shows all `want` of their launches per call in
+    every run (retaken up to K1_TRACE_TRIES times, the runs halved at
+    each retake; the profiler can lose whole runs' device records late
+    in a long run, and in some traces the first launches' records: a
+    retake waits longer first and launches a small kernel of another
+    name ahead of the runs); fails without one, naming `what`. Returns
+    ({name: ms}, trace, tries)."""
+    buf = torch.zeros(1024, device="cuda")
+    tr, seen = {"launches_per_call_by_kernel": {}}, 0
+    for tries in range(1, K1_TRACE_TRIES + 1):
+        try:
+            tr = trace(fn, reps, lead_in_s=min(1.0, TRACE_LEAD_IN_S * 4 **
+                                               (tries - 1)),
+                       prime=None if tries == 1 else buf.zero_)
+        except AssertionError:  # a trace with no device record at all
+            if tries < K1_TRACE_TRIES:
+                reps = max(3, reps // 2)
+            continue
+        seen = sum(round(tr["launches_per_call_by_kernel"].get(k, 0) * reps)
+                   for k in names)
+        if seen == want * reps:
+            ms = {k: tr["device_ms_per_call_by_kernel"].get(k, 0.0)
+                  for k in names
+                  if tr["launches_per_call_by_kernel"].get(k)}
+            return ms, tr, tries
+        if tries < K1_TRACE_TRIES:
+            reps = max(3, reps // 2)
+    shown = {k: v for k, v in tr["launches_per_call_by_kernel"].items()
+             if k in names}
+    raise AssertionError(f"{what}: no complete trace in {K1_TRACE_TRIES} "
+                         f"tries; the last shows {seen} launches of {names} "
+                         f"in {reps} runs ({shown} per run), want {want} "
+                         "per run")
+
+
+def k5_levels(s, cases, label: str, name_limit: str, alpha=0.7) -> list:
+    """K5 on every bucket of each add_mv program in `cases` ((name, data,
+    start lump): the data single, f64): each bucket as
+    [cp, rp, panels, widest real width, most real below rows]; against
+    its twin (f64 at nrhs 1 and 3, f32 at nrhs 1; CheckedOps); a batch
+    of two (the second item's data scaled) against single runs and a
+    rerun, bitwise; the wrapper's ms by CUDA events (nrhs 1), its twin's,
+    device ms per grid from a complete trace, the bound (cost()), and
+    torch.sparse.mm(A, x) on the bucket's own symmetric matrix (real
+    entries, CSR built outside the timed call), a yardstick the port
+    never calls; per case, the whole program's ms by events. Returns one
+    row per bucket."""
+    dev, order, out, program_ms = s.device, s.order, [], {}
+    rng = np.random.RandomState(5)
+    X = {n: torch.from_numpy(rng.rand(2, order, n) - 0.5).to(dev)
+         for n in (1, 3)}
+    for case, data, lump in cases:
+        cap = MvCapture()
+        s.program("add_mv", lump)(data[None], X[1][:1], X[1][:1] * 0, alpha,
+                                  ops=cap)
+        D = {torch.float64: data[None], torch.float32: data[None].float()}
+        D2 = torch.stack([data, data * 1.01])
+        ax = torch.zeros_like(X[1][0])  # sum of the buckets' A x
+        for name, off, rows, cols, vec_off, below_idx, cp, rp in cap.calls:
+            B = off.numel()
+            fn = getattr(kernels, name)
+            bucket = (off, rows, cols, vec_off, below_idx, cp, rp)
+
+            def y_of(b, n, dt=torch.float64):
+                return torch.full((b, B * rp, n), float("nan"), dtype=dt,
+                                  device=dev) if rp else None
+            row = {"case": case, "wrapper": name,
+                   "bucket": [cp, rp, B, int(cols.max()),
+                              int(rows.max()) if rp else 0],
+                   "max_rel": {}}
+            for dt, n in ((torch.float64, 1), (torch.float64, 3),
+                          (torch.float32, 1)):
+                chk = CheckedOps()
+                x = X[n][:1].to(dt)
+                chk._mv(name, D[dt], x, x.flip(1).contiguous(), y_of(1, n, dt),
+                        0, *bucket, alpha)
+                r, key = chk.rel[name], f"{str(dt)[6:]}_nrhs{n}"
+                check(r <= KERNEL_RTOL[dt], f"{name} vs twin on {label} "
+                      f"{case} {row['bucket']} {key}: rel {r}")
+                row["max_rel"][key] = r
+            o2, y2 = torch.zeros_like(X[1]), y_of(2, 1)
+            fn(D2, X[1], o2, y2, 0, *bucket, alpha)
+            for b in range(2):
+                for _ in range(2):  # the single run, then its rerun
+                    o1, y1 = torch.zeros_like(X[1][:1]), y_of(1, 1)
+                    fn(D2[b:b + 1], X[1][b:b + 1], o1, y1, 0, *bucket, alpha)
+                    check(torch.equal(o1[0], o2[b]) and
+                          (y1 is None or torch.equal(y1[0], y2[b])),
+                          f"{name} on {label} {case} {row['bucket']}: batch "
+                          f"item {b} differs from its single run")
+            del o2, y2
+            x, o, y = X[1][:1], torch.zeros_like(X[1][:1]), y_of(1, 1)
+            args = (D[torch.float64], x, o, y, 0, *bucket, alpha)
+            run = functools.partial(fn, *args)
+            twin = functools.partial(getattr(kernels, f"{name}_twin"), *args)
+            row["ms"] = time_ms(run, 20)
+            row["twin_ms"] = time_ms(twin, 2, warmup=1)
+            kernels.reset_counts()
+            run()
+            torch.cuda.synchronize()
+            grids = kernels.COUNTS[name].grid_launches
+            reps = int(min(50, max(5, 5.0 / max(row["ms"], 1e-3))))
+            row["device_ms"], tr, row["trace_tries"] = complete_trace(
+                run, GRIDS[name], grids, reps,
+                f"{name} on {label} {case} {row['bucket']}")
+            row["grids"] = grids
+            row["bound_ms"], row["bound_by"] = bound(*cost(name, args))
+            A = mv_sparse(D[torch.float64], order, *bucket)
+            row["library_ms"] = time_ms(lambda: torch.sparse.mm(A, x[0]), 5)
+            row["library_nnz"] = int(A.values().numel())
+            ax += torch.sparse.mm(A, x[0])
+            del A
+            out.append(row)
+        # the yardsticks' matrices add up to the program's operator; the
+        # whole program (every bucket, then K2) timed by events
+        prog = functools.partial(s.program("add_mv", lump), D[torch.float64],
+                                 X[1][:1], torch.zeros_like(X[1][:1]), 1.0)
+        want = prog()[0]
+        program_ms[case] = time_ms(prog, 20)
+        r, _ = rel_abs(ax, want)
+        check(r <= 1e-10, f"{label} {case}: the buckets' sparse matrices "
+              f"give rel {r} against the program")
+        del D, D2
+    log("k5_levels", case=label, card=name_limit, dtype="float64", nrhs=1,
+        alpha=alpha, limits={"float64": 1e-10, "float32": 1e-4},
+        bitwise=True, library_call="torch.sparse.mm(A, x), A the bucket's "
+        "symmetric matrix as sparse_csr",
+        program_ms=program_ms,
+        ms_by_case={c: sum(r["ms"] for r in out if r["case"] == c)
+                    for c, _, _ in cases},
+        device_ms_by_case={c: sum(sum(r["device_ms"].values()) for r in out
+                                  if r["case"] == c) for c, _, _ in cases},
+        bound_ms_by_case={c: sum(r["bound_ms"] for r in out
+                                 if r["case"] == c) for c, _, _ in cases},
+        library_ms_by_case={c: sum(r["library_ms"] for r in out
+                                   if r["case"] == c) for c, _, _ in cases},
+        buckets=out)
+    return out
+
+
+def bal_pcg_trace(s, damped, grad, t: int, name_limit: str,
+                  iters: int = 10) -> None:
+    """The pcg stage of mixed_solve on BAL's first damped system, with
+    BlockJacobi, `iters` iterations (tolerance 0), traced: device ms per
+    kernel, idle share, K5's grids against its counters (trace_checked);
+    factor_up_to, solve_l_up_to and the preconditioner's init run
+    before, untraced."""
+    from baspacho_tpu_torch.optimizer import BlockJacobiPrecond
+    from baspacho_tpu_torch.optimizer.pcg import pcg
+    o = s.span_vector_offset(t)
+    part = s.factor_up_to(damped, t)
+    v = s.solve_l_up_to(part, t, -grad)
+    pre = BlockJacobiPrecond(s, t)
+    pre.init(part)
+
+    def embed(r):
+        full = torch.zeros_like(v)
+        full[o:] = r
+        return full
+
+    def run():
+        _, _, it = pcg(lambda r: pre.apply(embed(r))[o:],
+                       lambda p: s.add_mv_from(part, t, embed(p),
+                                               torch.zeros_like(v))[o:],
+                       v[o:], 0.0, iters)
+        check(it == iters, f"BAL PCG trace: {it} iterations, want {iters}")
+    trace_checked("bal871", f"pcg_{iters}_iterations", run, 1,
+                  dtype="float64", card=name_limit, iterations=iters,
+                  precond="BlockJacobiPrecond")
 
 
 def wide_tri_checks(probs, d64, dev) -> dict:
@@ -831,7 +1054,9 @@ def library_call(name: str, args):
     index_add_ of the gathered sources; K3-wide and K3-rest wide on a
     panel without below rows: torch.linalg.solve_triangular on the
     panel's lower triangle, read from the same buffer (it reads only the
-    lower triangle, so the stored inverse above is ignored)."""
+    lower triangle, so the stored inverse above is ignored); K1-wide:
+    cholesky_ex and two triangular solves per panel; K6: einsum and
+    index_add_ per block pair."""
     if name == "segmented_subtract":
         out, src, tgt, seg_ptr, src_idx, width = args
         b = out.shape[0]
@@ -849,9 +1074,37 @@ def library_call(name: str, args):
         if transpose:
             return lambda: torch.linalg.solve_triangular(L.mT, x, upper=True)
         return lambda: torch.linalg.solve_triangular(L, x, upper=False)
+    if name == "wide_factor":
+        return wide_factor_library_call(*args)
     if name == "grad_hess":
         return k6_library_call(*args)
     return None
+
+
+def wide_factor_library_call(data, off, rows, cols, cp, rp, off_h, cols_h):
+    """K1-wide's function in PyTorch calls, as k1_levels times K1's chol
+    and below: per panel, torch.linalg.cholesky_ex then
+    solve_triangular(L, I) on its real diagonal block (mirrored), and
+    solve_triangular(L^T, below, left=False) on its real below rows;
+    the operands copied here, outside the timed call."""
+    jobs, nrows = [], _host(rows) if rp else None
+    for b, (o, n) in enumerate(zip(off_h, cols_h)):
+        D = kernels._panel_view(data, o, cp, 0, 0, n, n)
+        sym = torch.tril(D) + torch.tril(D, -1).mT
+        eye = torch.eye(n, dtype=data.dtype, device=data.device)
+        r = int(nrows[b]) if rp else 0
+        below = kernels._panel_view(data, o, cp, cp, 0, r, n).clone() \
+            if r else None
+        jobs.append((sym, eye.expand_as(sym), below))
+
+    def run():
+        for sym, eye, below in jobs:
+            L = torch.linalg.cholesky_ex(sym)[0]
+            torch.linalg.solve_triangular(L, eye, upper=False)
+            if below is not None:
+                torch.linalg.solve_triangular(L.mT, below, upper=True,
+                                              left=False)
+    return run
 
 
 def k6_library_call(W, hdata, grad, plan):
@@ -966,9 +1219,10 @@ def _short(name: str) -> str:
 TRACE_LEAD_IN_S = 0.05
 
 
-def trace(fn, reps: int):
+def trace(fn, reps: int, lead_in_s: float = TRACE_LEAD_IN_S, prime=None):
     """Runs fn() `reps` times under torch.profiler (after one warm-up
-    call and a lead-in) and reads the device activity off the trace:
+    call, a lead-in of `lead_in_s` and, when given, prime() inside the
+    profiler) and reads the device activity off the trace:
     device time and launches per kernel name, the number of device
     activities, and the busy time as the union of their intervals on the
     trace timeline. The idle share is
@@ -982,7 +1236,9 @@ def trace(fn, reps: int):
         # the profiler loses, in about 1 trace of 100, the device records
         # of the launches of its first few ms (tools/trace_loss.py), so
         # the host waits before the first call
-        time.sleep(TRACE_LEAD_IN_S)
+        time.sleep(lead_in_s)
+        if prime is not None:
+            prime()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1259,6 +1515,19 @@ def bal_setup(dev):
     return opt, [f.values.clone() for f in opt.families], info
 
 
+def bal_damped(opt, values0, settings) -> tuple:
+    """BAL's first damped system from the start values: (damped Hessian
+    data, gradient, damping), damped additively as the LM loop does."""
+    s = opt.solver
+    reset_values(opt, values0)
+    _, grad, hdata = opt.compute_grad_hess([f.values for f in opt.families])
+    idx = torch.from_numpy(s.skel.damp_indices()).to(hdata.device)
+    lam = settings.init_damping
+    damped = hdata.clone()
+    damped[idx] = damped[idx] * (1.0 + lam) + lam
+    return damped, grad, lam
+
+
 def bal_phase(dev, name_limit: str) -> dict:
     """LM on BAL 871 x 527,480, f64, PLANNED, on the card: the direct
     path counted (3 iterations, per-stage host ms), the residuals of the
@@ -1298,13 +1567,7 @@ def bal_phase(dev, name_limit: str) -> dict:
     # residuals of the first damped system: the factor's on a random
     # probe from scipy sparse products (sparse_residuals), the solve's
     # through add_mv_from(0)
-    reset_values(opt, values0)
-    vals = [f.values for f in opt.families]
-    _, grad, hdata = opt.compute_grad_hess(vals)
-    idx = torch.from_numpy(s.skel.damp_indices()).to(dev)
-    lam = direct.init_damping
-    damped = hdata.clone()
-    damped[idx] = damped[idx] * (1.0 + lam) + lam
+    damped, grad, lam = bal_damped(opt, values0, direct)
     f = s.factor(damped)
     x = s.solve(f, -grad)
     r = s.add_mv_from(damped, 0, x, torch.zeros_like(x)) + grad
@@ -1322,7 +1585,7 @@ def bal_phase(dev, name_limit: str) -> dict:
     # the wide camera levels): against its twin, against itself, timed; K1
     # on its pair levels runs at the end (main, k1_levels)
     out["k4"] = k4_levels(s, damped, "bal871", name_limit)
-    out["damped"] = damped
+    out["damped"], out["grad"] = damped, grad
 
     # one LM iteration twice from the same start: the same bits
     one = ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP)
@@ -1466,7 +1729,44 @@ def trace_checked(label: str, what: str, fn, reps: int, **fields) -> None:
         grid_launches_per_call={k: v for k, v in grids.items() if v}, **tr)
 
 
-def main() -> int:
+def k5_phase(schur50, d50, opt, damped, name_limit: str) -> dict:
+    """k5_levels on BAL 871 (the PCG operator add_mv_from(t) on
+    factor_up_to's output, and add_mv_from(0) on the damped system) and
+    on FLAT+Schur 50k (add_mv_from(0), and add_mv_from(t) on its
+    factor_up_to)."""
+    s = opt.solver
+    t = opt.elim_end_span
+    out = {"bal871": k5_levels(
+        s, [("add_mv_from(t)", s.factor_up_to(damped, t),
+             s._lump_of_span(t)), ("add_mv_from(0)", damped, 0)],
+        "bal871", name_limit)}
+    out["flat_schur50k"] = k5_levels(
+        schur50, [("add_mv_from(0)", d50, 0),
+                  ("add_mv_from(t)", schur50.factor_up_to(d50, SCHUR_T),
+                   schur50._lump_of_span(SCHUR_T))],
+        "flat_schur50k", name_limit)
+    return out
+
+
+def k5_only(dev, name_limit: str) -> int:
+    """`--only k5`: the build, then K5's phases alone (k5_phase and the
+    BAL PCG trace), for iterating on K5 without the whole run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    schur50 = flat_schur50k(T, device=dev)
+    d50 = torch.from_numpy(spd_data(schur50, 1)).to(dev)
+    opt, values0, _ = bal_setup(dev)
+    damped, grad, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
+    bal_pcg_trace(opt.solver, damped, grad, opt.elim_end_span, name_limit)
+    k5_phase(schur50, d50, opt, damped, name_limit)
+    log("k5_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
+def main(argv=()) -> int:
     # 1. card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs only "
@@ -1481,6 +1781,11 @@ def main() -> int:
         capability=list(torch.cuda.get_device_capability(0)),
         torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
+    if list(argv) == ["--only", "k5"]:
+        return k5_only(dev, name_limit)
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {list(argv)} (none, "
+                         "or --only k5)")
 
     # 2. build
     t0 = time.perf_counter()
@@ -2022,6 +2327,8 @@ def main() -> int:
                   dtype="float64", card=name_limit)
     trace_checked("bal871", "lm_iteration", lm_iteration, 1,
                   dtype="float64", card=name_limit)
+    bal_pcg_trace(opt.solver, bal["damped"], bal["grad"], opt.elim_end_span,
+                  name_limit)
 
     # 13. K1 on panels that are not positive definite; per level on
     # MERI, GRID and BAL 871's pair levels, last: its many short traces
@@ -2032,13 +2339,33 @@ def main() -> int:
                         "meri7", name_limit)
     k1_grid = k1_levels(grid, torch.from_numpy(d64["grid100"]).to(dev),
                         "grid100", name_limit)
-    k1_bal = k1_levels(bal["opt"].solver, bal.pop("damped"), "bal871",
+    k1_bal = k1_levels(bal["opt"].solver, bal["damped"], "bal871",
                        name_limit)
+    # 14. K5 per bucket on BAL 871's and FLAT+Schur 50k's mat-vecs
+    k5 = k5_phase(schur50, torch.from_numpy(d64["flat_schur50k"]).to(dev),
+                  opt, bal.pop("damped"), name_limit)
     by_case["bucket_factor"] = {
         f"{c} f64 factor, device ms (trace)": sum(
             sum(r["device_ms"].values()) for r in rows)
         for c, rows in (("meri7", k1_meri), ("grid100", k1_grid),
                         ("bal871 pair levels", k1_bal))}
+    # K5's record is BAL's PCG operator, where 640 of its 645 narrow and
+    # 480 of its 493 wide launches run: one add_mv_from(t), its buckets'
+    # calls summed (k5_levels; torch.sparse.mm per bucket the library)
+    for k in ("add_mv", "wide_add_mv"):
+        by_case[k] = {f"{p} {r['case']} {r['bucket'][:2]}": r["ms"]
+                      for p, rows in k5.items() for r in rows
+                      if r["wrapper"] == k}
+        by_case[k][f"{per_case[k]} (TimedOps)"] = per["kernels"][k]
+        op = [r for r in k5["bal871"]
+              if r["case"] == "add_mv_from(t)" and r["wrapper"] == k]
+        per["kernels"][k] = sum(r["ms"] for r in op)
+        per["twins"][k] = sum(r["twin_ms"] for r in op)
+        bounds[k] = (sum(r["bound_ms"] for r in op),
+                     max(op, key=lambda r: r["bound_ms"])["bound_by"])
+        library[k] = sum(r["library_ms"] for r in op)
+        per_case[k] = ("bal871 f64 nrhs 1 add_mv_from(t), the PCG operator: "
+                       "its buckets' calls summed (k5_levels)")
 
     paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur,
              **c_pcg, "refined_schur50k": c_ref, "bal_lm_direct": c_direct,
@@ -2069,4 +2396,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
