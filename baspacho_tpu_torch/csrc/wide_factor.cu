@@ -1,34 +1,59 @@
-// K1-wide: the hand-written steps of the blocked factor of wide panels
-// (padded width cp > 512, a multiple of the tile nb).
+// K1-wide: the blocked factor of wide panels (padded width cp > 512, a
+// multiple of the diagonal tile kNb = 128), from one C call.
 //
 // Replaces PlannedBackend._blocked_factor and _blocked_lower_inv
 // (baspacho_tpu/ops/planned_backend.py:1277, :1353), reached through
 // _factor_panels (:1411-1414), with the stored layout of _embed_inv
-// (:1453). ops/kernels.py `_blocked_factor` drives the steps, one
-// diagonal tile k0 = 0, nb, 2 nb, ... at a time:
-//   tile   factor and invert the nb x nb diagonal tile in shared memory,
-//          by sub-blocks of 32 (one warp factors and inverts each
-//          sub-block's diagonal block in registers); write it back in
-//          the stored layout (L, Linv^T of the tile strictly above) and
-//          its Linv^T (diagonal 1 / L) into the tile's diagonal block of
-//          the scratch xt;
-//   trsm   x = A . Linv_tile^T for every row below the tile (the trailing
-//          diagonal rows and the below rows, one stride), a product with
-//          the dense Linv^T tile of xt;
-// then torch.matmul updates the trailing rows (the syrk / gemm of
-// _blocked_factor) and, after the last tile, sweeps the block rows of
-// Linv^T in xt (the products of _blocked_lower_inv); last,
-//   embed  copies xt's strict upper (the full Linv^T) into the panel.
+// (:1453): L on and below the diagonal, the full Linv^T strictly above
+// it, x = below . L^-T in the below rows.
 //
-// Bounds: `tile` runs on one SM per panel, for cp / nb tiles in a row:
-// the latency chain of the wide factor (about 20 CTA barriers and four
-// register-resident 32 x 32 warp factorizations per tile, the products
-// in between blocked 4 rows per warp). `trsm` is a small product
-// (rows x 128 x 128) tiled through shared memory with 4 x 4 outputs per
-// thread. The large products go to cuBLAS through torch.
+// bs_wide_factor runs the right-looking blocked schedule for every panel
+// and batch item of a bucket at once: per diagonal tile k (columns k0 =
+// k kNb .. k1 = k0 + kNb), three ordinary grids in order on the caller's
+// stream (batch item = blockIdx.y):
+//   wide_tile    one CTA per (panel, batch item) factors and inverts the
+//                diagonal tile in shared memory by 32-column sub-blocks,
+//                its products on the tensor cores, and writes it back in
+//                the stored layout (L, the tile's Linv^T above its
+//                diagonal), 1 / diag L into dx, a (batch, B, cp) scratch
+//                every value of which a tile writes before any grid
+//                reads it;
+//   wide_rows    one CTA per (panel, 64-row block, batch item), 64 x 128
+//                outputs of a product with X_k = the tile's Linv, in
+//                place (a CTA owns whole 128-column rows):
+//                - x = a . X_k^T for the rows below tile k (the trailing
+//                  diagonal rows and the below rows);
+//                - block row k of Linv, stored transposed above the
+//                  diagonal: X^T[rows, k0:k1] = -T^T X_k^T, where T^T =
+//                  (L[k, :k0] X[:k0, :k0])^T was summed there by earlier
+//                  steps' wide_update;
+//   wide_update  one CTA per (panel, 64 x 64 tile, batch item) over the
+//                tile's 128 columns:
+//                - the trailing lower tile triangle and the below rows
+//                  against the trailing columns: C -= x x^T on real lower
+//                  elements;
+//                - the inverse's partial sums, right-looking: T^T[c][r]
+//                  (+)= X^T[c][k0:k1] . x_r for the rows c < k1 and the
+//                  trailing rows r, so that _blocked_lower_inv's sweep
+//                  (X[i, :i] = -Dinv_i L[i, :i] X[:i, :i]) is spread over
+//                  the steps in products of 128 columns, not a chain of
+//                  ever longer ones after the factor.
+// 3 cp / kNb - 1 grids a call. Every product sums on the f64 tensor cores
+// (mma.m8n8k4 through mma32, warp_tiles.cuh), FMAs in f32, each output in
+// one fixed column order: a batch item and a single run agree bitwise,
+// and so do reruns. No atomics.
 //
-// Real width n = cols[i]: columns and rows >= n are padding. They come
-// out zero in L, in Linv^T and in x, as in the JAX routine's stored block.
+// Bounds (H100, f64): the chain of diagonal tiles (one SM each, cp / 128
+// in turn, four warp_chol_inv each) and the launch gaps between the
+// 3 cp / 128 grids; the products (2 n^3 / 3 + r n^2 flops in all) are
+// spread over the card, but early steps fill it and late ones do not.
+//
+// Real width n = cols[i], real below rows rows[i]: rows and columns past
+// them are padding (zero on entry), left as they are in L and x and
+// written as zero in the upper triangle, as in the JAX routine's stored
+// block. The strict upper triangle is never read before it is written.
+// A panel that is not positive definite gives NaN from its failing
+// column on.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,303 +62,420 @@
 
 namespace {
 
-__device__ __forceinline__ int tile_width(int64_t n, int k0, int nb) {
+constexpr int kNb = 128;           // the diagonal tile
+constexpr int kTileWarps = 8;      // wide_tile: warps a CTA
+constexpr int kTileCta = 32 * kTileWarps;
+constexpr int kTls = kNb + 4;      // wide_tile: a row of the tile
+constexpr int kDbld = kSub + 1;    // wide_tile: a row of the diagonal block
+constexpr int kRows = 64;          // wide_rows: rows a CTA
+constexpr int kRowThreads = 256;   // wide_rows: 2 x 4 warps of 32 x 32
+constexpr int kAld = kNb + 4;      // wide_rows: a staged row
+constexpr int kXld = kNb + 8;      // wide_rows: a row of the staged X_k^T
+
+__device__ __forceinline__ int tile_width(int64_t n, int k0) {
   const int64_t w = n - k0;
-  return w < 0 ? 0 : (w > nb ? nb : (int)w);
+  return w < 0 ? 0 : (w > kNb ? kNb : (int)w);
 }
 
-// One CTA per (panel, batch item) factors and inverts the diagonal tile,
-// staged in shared memory, in sub-blocks of kSub columns: one warp
-// factors and inverts the sub-block's diagonal block (in registers),
-// all warps multiply the rows below it by that inverse and update
-// the trailing rows; then the tile's inverse is swept by block rows,
-// X[i, :i] = -Dinv_i (L[i, :i] X[:i, :i]). About 20 CTA barriers per tile.
-// A holds L on and below the diagonal and X^T = Linv^T strictly above it
-// (the stored layout), dx the diagonal of X (warp_chol_inv and kSub:
-// warp_tiles.cuh).
-
-constexpr int kWideThreads = 512;  // wide_tile_kernel
-
+// One CTA per (panel, batch item) factors and inverts the diagonal tile
+// in shared memory (A, row stride kTls: L on and below the diagonal, X^T
+// = Linv^T strictly above it, the stored layout; dxs the diagonal of X),
+// by sub-blocks of kSub columns, right-looking, as chol_block_kernel
+// (bucket_factor.cu) does a panel: warp 0 factors and inverts each
+// sub-block's diagonal block in registers (warp_chol_inv, on a copy in
+// dbuf); the rows below it are multiplied by that inverse, one warp per
+// 32-row block; the trailing lower 32 x 32 tiles are updated, warp 0
+// taking the next diagonal block and factoring it at once while the
+// others finish the rest (one step of look-ahead). Then the inverse by
+// block rows, X[i, :i] = -Dinv_i (L[i, :i] X[:i, :i]), formed
+// transposed, one warp per 32-row block of X^T. Every product is a warp's
+// 32 x 32 block on the f64 tensor cores (mma32). Two barriers a
+// sub-block, one a block row.
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
-    wide_tile_kernel(T* data, int64_t bstride, T* xt, const int64_t* off,
-                     const int64_t* cols, int cp, int k0, int nb) {
+__global__ void __launch_bounds__(kTileCta)
+    wide_tile_kernel(T* data, int64_t bstride, T* dx, const int64_t* off,
+                     const int64_t* cols, int cp, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // the tile, its rows padded to nb + 1 values (and the panel scratch's
-  // to kSub + 1) so that a warp walking a column hits distinct banks
-  const int ls = nb + 1, lt = kSub + 1;
-  T* A = reinterpret_cast<T*>(smem_raw);
-  T* dx = A + nb * ls;  // diagonal of X
-  T* tmp = dx + nb;     // (nb - kSub) x lt scratch
+  T* const A = reinterpret_cast<T*>(smem_raw);  // kNb x kTls
+  T* const dxs = A + kNb * kTls;                 // kNb
+  T* const dbuf = dxs + kNb;                     // kSub x kDbld
   const int64_t i = blockIdx.x, B = gridDim.x;
   const int64_t ld = cp;
-  T* P = data + (int64_t)blockIdx.y * bstride + off[i] + k0 * ld + k0;
-  T* X = xt + ((int64_t)blockIdx.y * B + i) * ld * ld + k0 * ld + k0;
-  const int w = tile_width(cols[i], k0, nb);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int tx = tid & 31, ty = tid >> 5, nty = nt >> 5;
-  for (int t0 = 0; t0 < nb * nb; t0 += 8 * nt) {  // 8 loads in flight
+  T* const P = data + (int64_t)blockIdx.y * bstride + off[i] + k0 * ld + k0;
+  T* const D = dx + ((int64_t)blockIdx.y * B + i) * cp + k0;
+  const int w = tile_width(cols[i], k0), nbs = (w + kSub - 1) / kSub;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int t0 = 0; t0 < kNb * kNb; t0 += 8 * kTileCta) {  // 8 in flight
     T v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int t = t0 + u * nt + tid, r = t / nb, c = t % nb;
-      v[u] = (t < nb * nb && r < w && c <= r) ? P[r * ld + c] : T(0);
+      const int t = t0 + u * kTileCta + tid, r = t / kNb, c = t % kNb;
+      v[u] = (r < w && c <= r) ? P[r * ld + c] : T(0);
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int t = t0 + u * nt + tid;
-      if (t < nb * nb) A[(t / nb) * ls + t % nb] = v[u];
+      const int t = t0 + u * kTileCta + tid;
+      A[(t / kNb) * kTls + t % kNb] = v[u];
     }
   }
-  for (int t = tid; t < nb; t += nt) dx[t] = T(0);  // warp_chol_inv reads it
+  for (int t = tid; t < kNb; t += kTileCta) dxs[t] = T(0);
   __syncthreads();
 
-  // The products below give each warp 4 rows and each lane a column:
-  // the rows' values are broadcast reads, the column's walk a padded
-  // stride, and the 4 sums are independent.
-
-  // Cholesky, sub-block by sub-block (right-looking)
-  for (int p0 = 0; p0 < w; p0 += kSub) {
-    const int pw = min(kSub, w - p0), q0 = p0 + pw, nr = w - q0;
-    if (ty == 0) warp_chol_inv<kSub>(A, dx, ls, p0, pw);
-    __syncthreads();
-    // rows below: tmp[r][c] = sum_{m <= c} a[r][m] X[c][m], with
-    // X[c][m] = A[(p0 + m) * ls + p0 + c] for m < c
-    for (int r = 4 * ty; r < nr; r += 4 * nty) {
-      const int c = tx;
-      T acc[4] = {};
-      for (int m = 0; m < pw; ++m) {
-        const T xv = c >= pw ? T(0)
-                     : m < c  ? A[(p0 + m) * ls + p0 + c]
-                     : m == c ? dx[p0 + c] : T(0);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          acc[u] += A[(q0 + min(r + u, nr - 1)) * ls + p0 + m] * xv;
-      }
-      if (c < pw)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (r + u < nr) tmp[(r + u) * lt + c] = acc[u];
+  // warp 0: diagonal block p factored and inverted in dbuf, written back
+  const auto factor_diag = [&](int p) {
+    const int p0 = p * kSub;
+    for (int t = lane; t < kSub * kSub; t += 32) {
+      const int r = t / kSub, c = t % kSub;
+      dbuf[r * kDbld + c] = c <= r ? A[(p0 + r) * kTls + p0 + c] : T(0);
+    }
+    __syncwarp();
+    warp_chol_inv<kSub>(dbuf, dxs + p0, kDbld, 0, min(kSub, w - p0));
+    __syncwarp();
+    for (int t = lane; t < kSub * kSub; t += 32) {
+      const int r = t / kSub, c = t % kSub;
+      A[(p0 + r) * kTls + p0 + c] = dbuf[r * kDbld + c];
+    }
+  };
+  if (warp == 0 && nbs > 0) factor_diag(0);
+  __syncthreads();
+  for (int p = 0; p < nbs; ++p) {
+    const int p0 = p * kSub, m = nbs - p - 1;
+    // the rows below, in place: x[r][c] = sum_{k <= c} a[r][k] X[c][k]
+    if (warp < m) {
+      T* a = A + (p0 + kSub * (warp + 1)) * kTls + p0;
+      T acc[4][4][2] = {};
+      mma32(acc, [&](int r, int k) { return a[r * kTls + k]; },
+            [&](int c, int k) {
+              return k < c ? dbuf[k * kDbld + c]
+                           : (k == c ? dxs[p0 + c] : T(0));
+            },
+            lane);
+      __syncwarp();  // the warp's rows are read; overwrite them
+      acc_each(acc, lane, [&](T& v, int r, int c) { a[r * kTls + c] = v; });
     }
     __syncthreads();
-    // write the panel back and update the trailing lower triangle
-    for (int t = tid; t < nr * pw; t += nt) {
-      const int r = t / pw, c = t % pw;
-      A[(q0 + r) * ls + p0 + c] = tmp[r * lt + c];
-    }
-    for (int r = 4 * ty; r < nr; r += 4 * nty) {
-      for (int c0 = 0; c0 <= r + 3 && c0 < nr; c0 += 32) {
-        const int c = c0 + tx;
-        const T* tc = tmp + min(c, nr - 1) * lt;
-        T acc[4] = {};
-        for (int m = 0; m < pw; ++m) {
-          const T t = tc[m];
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            acc[u] += tmp[min(r + u, nr - 1) * lt + m] * t;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (r + u < nr && c <= r + u) A[(q0 + r + u) * ls + q0 + c] -= acc[u];
+    // the trailing lower triangle: A[I][J] -= x_I x_J^T by 32 x 32 tiles;
+    // warp 0 updates tile (0, 0), the next diagonal block, and factors it
+    const int q0 = p0 + kSub;
+    const auto update = [&](int t) {
+      int I, J;
+      tri_tile(t, I, J);
+      T* tile = A + (q0 + I * kSub) * kTls + q0 + J * kSub;
+      const T* xi = A + (q0 + I * kSub) * kTls + p0;
+      const T* xj = A + (q0 + J * kSub) * kTls + p0;
+      T acc[4][4][2] = {};
+      mma32(acc, [&](int r, int k) { return xi[r * kTls + k]; },
+            [&](int c, int k) { return xj[c * kTls + k]; }, lane);
+      acc_each(acc, lane, [&](T& v, int r, int c) {
+        tile[r * kTls + c] -= v;
+      });
+    };
+    if (warp == 0) {
+      if (m > 0) {
+        update(0);
+        __syncwarp();
+        factor_diag(p + 1);
       }
+    } else {
+      for (int t = warp; t < m * (m + 1) / 2; t += kTileWarps - 1)
+        update(t);
     }
     __syncthreads();
   }
 
-  // inverse by block rows: tmp = L[i, :i] X[:i, :i], then
-  // X[i, :i] = -Dinv_i tmp, stored transposed (X[m][c] = A[c * ls + m]
-  // for m > c)
-  for (int r0 = kSub; r0 < w; r0 += kSub) {
-    const int rw = min(kSub, w - r0), ng = r0 / 32;
-    for (int it = ty; it < ((rw + 3) / 4) * ng; it += nty) {
-      const int r = 4 * (it / ng), c0 = 32 * (it % ng), c = c0 + tx;
-      T acc[4] = {};
-      for (int m = c0; m < r0; ++m) {
-        const T xv = m > c ? A[c * ls + m] : m == c ? dx[c] : T(0);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          acc[u] += A[(r0 + min(r + u, rw - 1)) * ls + m] * xv;
+  // Linv by block rows i: S^T = X[:i, :i]^T L[i, :i]^T into the block of
+  // X^T it becomes, then X^T[C][i] = -S^T Dinv_i^T, one warp per block C
+  for (int bi = 1; bi < nbs; ++bi) {
+    const int r0 = bi * kSub;
+    if (warp < bi) {
+      const int c0 = warp * kSub;
+      T* dst = A + c0 * kTls + r0;
+      T acc[4][4][2] = {};
+      for (int M = warp; M < bi; ++M) {
+        const int m0 = M * kSub;
+        const T* xt = A + c0 * kTls + m0;
+        const T* li = A + r0 * kTls + m0;
+        const auto lr = [&](int r, int k) { return li[r * kTls + k]; };
+        if (M == warp)
+          mma32(acc, [&](int c, int k) {
+                  return c < k ? xt[c * kTls + k]
+                               : (c == k ? dxs[c0 + c] : T(0));
+                }, lr, lane);
+        else
+          mma32(acc, [&](int c, int k) { return xt[c * kTls + k]; }, lr,
+                lane);
       }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (r + u < rw) tmp[(r + u) * r0 + c] = acc[u];
-    }
-    __syncthreads();
-    for (int it = ty; it < ((rw + 3) / 4) * ng; it += nty) {
-      const int r = 4 * (it / ng), c = 32 * (it % ng) + tx;
-      T acc[4] = {};
-      for (int q = 0; q < min(r + 4, rw); ++q) {
-        const T t = tmp[q * r0 + c];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int ru = r + u;  // X[r0 + ru][r0 + q], q <= ru
-          if (q <= ru && ru < rw)
-            acc[u] += (q == ru ? dx[r0 + ru] : A[(r0 + q) * ls + r0 + ru]) * t;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (r + u < rw) A[c * ls + r0 + r + u] = -acc[u];
+      T out[4][4][2] = {};
+      const T* di = A + r0 * kTls + r0;
+      acc_each(acc, lane, [&](T& v, int c, int r) { dst[c * kTls + r] = v; });
+      __syncwarp();
+      mma32(out, [&](int c, int q) { return -dst[c * kTls + q]; },
+            [&](int r, int q) {
+              return q < r ? di[q * kTls + r]
+                           : (q == r ? dxs[r0 + r] : T(0));
+            },
+            lane);
+      __syncwarp();  // S^T is read; overwrite it
+      acc_each(out, lane, [&](T& v, int c, int r) { dst[c * kTls + r] = v; });
     }
     __syncthreads();
   }
 
-  for (int t = tid; t < nb * nb; t += nt) {
-    const int r = t / nb, c = t % nb;
-    const T a = A[r * ls + c];
-    P[r * ld + c] = a;
-    T v = T(0);
-    if (c < w && r <= c) v = r == c ? dx[r] : a;
-    X[r * ld + c] = v;
+  for (int t = tid; t < kNb * kNb; t += kTileCta) {
+    const int r = t / kNb, c = t % kNb;
+    P[r * ld + c] = A[r * kTls + c];
   }
+  for (int t = tid; t < kNb; t += kTileCta) D[t] = dxs[t];
 }
 
-// x = a . Linv_tile^T = a . Xt_tile for the rows below the tile, read
-// from the dense Linv^T tile in xt: one CTA per (panel, 32 rows, batch
-// item), each thread a 4 x 4 block of outputs. The rows are staged in
-// shared memory first, so the product overwrites them in place.
-constexpr int kTrsmRows = 32;
-constexpr int kTrsmK = 8;
-
+// The rows of step k (see the header), one CTA per (panel, job, batch
+// item): out = a . X_k^T, 64 rows a of columns k0..k1, in place. Per
+// panel, jobs [0, nd) are the trailing diagonal rows k1 + 64 j, [nd, nd +
+// nbl) the below rows (out = x), [nd + nbl, nd + nbl + k0 / 64) the rows
+// 64 j of X^T, whose columns k0..k1 hold T^T = (L[k, :k0] X[:k0, :k0])^T
+// as the update grids of earlier steps summed it (out = -X^T[rows,
+// k0:k1]). Warp (wm, wn) owns the 32 x 32 outputs at (32 wm, 32 wn).
+// Shared memory: As (64 x kAld, the rows) and Xs (kNb x kXld: X_k^T,
+// 1 / diag L on its diagonal, zero below).
 template <typename T>
-__global__ void wide_trsm_kernel(T* data, int64_t bstride, const T* xt,
-                                 const int64_t* off, const int64_t* rows,
-                                 int cp, int k0) {
-  constexpr int nb = 128;
+__global__ void __launch_bounds__(kRowThreads)
+    wide_rows_kernel(T* data, int64_t bstride, const T* dx,
+                     const int64_t* off, const int64_t* rows,
+                     const int64_t* cols, int64_t B, int cp, int rp, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sa = reinterpret_cast<T*>(smem_raw);  // kTrsmRows x nb
-  T* sb = sa + kTrsmRows * nb;              // kTrsmK x nb
-  const int64_t i = blockIdx.x, B = gridDim.x, ld = cp;
-  T* P = data + (int64_t)blockIdx.z * bstride + off[i];
-  const T* Xt = xt + ((int64_t)blockIdx.z * B + i) * ld * ld + k0 * ld + k0;
-  const int first = k0 + nb;  // rows first .. cp + rows[i] - 1
-  const int r0 = blockIdx.y * kTrsmRows;
-  const int nr = min(kTrsmRows, cp + (int)rows[i] - first - r0);
-  if (nr <= 0) return;  // uniform over the CTA
-  T* A = P + (first + r0) * ld + k0;
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  for (int t = tid; t < kTrsmRows * nb; t += 256) {
-    const int r = t / nb, c = t % nb;
-    sa[t] = r < nr ? A[r * ld + c] : T(0);
+  T* const As = reinterpret_cast<T*>(smem_raw);
+  T* const Xs = As + kRows * kAld;
+  const int k1 = k0 + kNb;
+  const int nd = (cp - k1) / kRows, nbl = (rp + kRows - 1) / kRows;
+  const int jobs = nd + nbl + k0 / kRows;
+  const int64_t i = blockIdx.x / jobs, z = blockIdx.y;
+  const int j = blockIdx.x % jobs;
+  T* const P = data + z * bstride + off[i];
+  const T* const D = dx + (z * B + i) * cp + k0;
+  const int n = (int)cols[i], nr = (int)rows[i], w = tile_width(n, k0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int64_t ld = cp;
+  const bool inv = j >= nd + nbl;
+  int r0, cnt;  // the block's first panel row, its real rows
+  if (j < nd) {
+    r0 = k1 + j * kRows;
+    cnt = min(kRows, n - r0);
+  } else if (!inv) {
+    r0 = cp + (j - nd) * kRows;
+    cnt = min(kRows, nr - (j - nd) * kRows);
+  } else {
+    r0 = (j - nd - nbl) * kRows;
+    cnt = kRows;
+    if (w == 0) {  // block row k is padding: its X^T block is zero
+      for (int t = tid; t < kRows * kNb; t += kRowThreads)
+        P[(r0 + t / kNb) * ld + k0 + t % kNb] = T(0);
+      return;
+    }
   }
-  T acc[4][4] = {};
-  for (int k = 0; k < nb; k += kTrsmK) {
-    __syncthreads();
-    for (int t = tid; t < kTrsmK * nb; t += 256) {
-      const int kk = t / nb, c = t % nb;
-      sb[t] = Xt[(k + kk) * ld + c];
+  if (cnt <= 0 || w == 0) return;  // padding rows or columns: left as is
+  for (int e = tid; e < kRows * kNb; e += kRowThreads) {
+    const int r = e / kNb, c = e % kNb;
+    const bool ok = r < cnt;
+    cp_async_el(As + r * kAld + c, ok ? P + (r0 + r) * ld + k0 + c : P,
+                ok ? (int)sizeof(T) : 0);
+  }
+  // X_k^T: Xs[m][c] = X_k[c][m]
+  for (int e = tid; e < kNb * kNb; e += kRowThreads) {
+    const int m = e / kNb, c = e % kNb;
+    T* dst = Xs + m * kXld + c;
+    if (m < c)
+      cp_async_el(dst, P + (k0 + m) * ld + k0 + c);
+    else
+      *dst = m == c ? D[c] : T(0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // out[r][c] = sum_{m < w} As[r][m] X_k[c][m], by 32 columns in order
+  T acc[4][4][2] = {};
+  const T* a = As + wm * 32 * kAld;
+  const T* b = Xs + wn * 32;
+  for (int m0 = 0; m0 < w; m0 += kTk)
+    mma32(acc, [&](int r, int k) { return a[r * kAld + m0 + k]; },
+          [&](int c, int k) { return b[(m0 + k) * kXld + c]; }, lane);
+  acc_each(acc, lane, [&](T& v, int r, int c) {
+    if (wm * 32 + r < cnt)
+      P[(r0 + wm * 32 + r) * ld + k0 + wn * 32 + c] = inv ? -v : v;
+  });
+}
+
+// The update of step k, one CTA per (panel, 64 x 64 tile, batch item), K
+// = the w real columns of block k, in 32-column cp.async stages,
+// double-buffered. In the trailing row space (panel row k1 + r, x = its
+// columns k0..k1), per panel, with m = (cp - k1) / 64:
+//   tiles [0, m (m + 1) / 2)   the trailing lower tile triangle
+//                              (tri_tile): C[r][c] -= x_r . x_c on real
+//                              lower elements;
+//   then ceil(rp / 64) m       the below rows' tiles against the trailing
+//                              columns, row by row: the same, real rows;
+//   then (k1 / 64) m           the inverse's partial sums, stored
+//                              transposed above the diagonal: T^T[c][r]
+//                              (+)= X^T[c][k0..k1] . x_r for the rows c <
+//                              k1 (X^T of block k: the rows grid's output
+//                              above the tile, the tile's own below its
+//                              end) and the trailing rows r of the real
+//                              128-column blocks; the first step that
+//                              reaches T^T[c] (c in block k) writes it.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    wide_update_kernel(T* data, int64_t bstride, const T* dx,
+                       const int64_t* off, const int64_t* rows,
+                       const int64_t* cols, int64_t B, int cp, int rp,
+                       int k0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int k1 = k0 + kNb;
+  const int m = (cp - k1) / kTile, tri = m * (m + 1) / 2;
+  const int below_end = tri + (rp + kTile - 1) / kTile * m;
+  const int per = below_end + k1 / kTile * m;
+  const int64_t i = blockIdx.x / per, z = blockIdx.y;
+  const int t = blockIdx.x % per;
+  const int kind = t < tri ? 0 : (t < below_end ? 1 : 2);
+  int I, J;
+  if (kind == 0) {
+    tri_tile(t, I, J);
+  } else {
+    I = (kind == 1 ? m : 0) + (t - (kind == 1 ? tri : below_end)) / m;
+    J = (t - (kind == 1 ? tri : below_end)) % m;
+  }
+  const int n = (int)cols[i], nr = (int)rows[i], w = tile_width(n, k0);
+  const int nd = n - k1;  // real trailing diagonal rows and columns
+  const int nx = m * kTile + nr;  // the trailing rows held in memory
+  const int r0 = I * kTile, c0 = J * kTile;
+  // uniform over the CTA: no real column, or no real row
+  if (w == 0 || (kind == 2 ? c0 >= (n + kNb - 1) / kNb * kNb - k1
+                           : c0 >= nd || (kind == 1 ? r0 - m * kTile >= nr
+                                                    : r0 >= nd)))
+    return;
+  T* const P = data + z * bstride + off[i];
+  const T* const Dk = dx + (z * B + i) * cp + k0;
+  const T* const X = P + (int64_t)k1 * cp + k0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nchunk = (w + kTk - 1) / kTk;
+  // rows 0..63 of a stage: x rows r0.. or X^T rows r0..; 64..127: x rows
+  // c0..
+  const auto stage = [&](int ci) {
+    T* b = sm + (ci & 1) * 2 * kTile * kTld;
+    const int q0 = ci * kTk;
+    for (int e = tid; e < 2 * kTile * kTk; e += kTileThreads) {
+      const int r = e / kTk, q = q0 + e % kTk;
+      T* dst = b + r * kTld + e % kTk;
+      if (kind == 2 && r < kTile) {
+        const int c = r0 + r;  // X^T[c][k0 + q]
+        if (c < k0 || q > c - k0)
+          cp_async_el(dst, P + (int64_t)c * cp + k0 + q);
+        else
+          *dst = q == c - k0 ? Dk[q] : T(0);
+      } else {
+        const int R = r < kTile ? r0 + r : c0 + r - kTile;
+        const bool ok = R < nx;
+        cp_async_el(dst, ok ? X + (int64_t)R * cp + q : X,
+                    ok ? (int)sizeof(T) : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  T acc[4][4][2] = {};
+  stage(0);
+  for (int ci = 0; ci < nchunk; ++ci) {
+    if (ci + 1 < nchunk) {
+      stage(ci + 1);  // its buffer was last read in chunk ci - 1
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    for (int kk = 0; kk < kTrsmK; ++kk) {
-      T a[4], b[4];
-      for (int u = 0; u < 4; ++u) a[u] = sa[(4 * ty + u) * nb + k + kk];
-      for (int v = 0; v < 4; ++v) b[v] = sb[kk * nb + tx + 32 * v];
-      for (int u = 0; u < 4; ++u)
-        for (int v = 0; v < 4; ++v) acc[u][v] += a[u] * b[v];
-    }
+    const T* a = sm + (ci & 1) * 2 * kTile * kTld + (warp >> 1) * 32 * kTld;
+    const T* b = sm + (ci & 1) * 2 * kTile * kTld +
+                 (kTile + (warp & 1) * 32) * kTld;
+    mma32(acc, [&](int r, int k) { return a[r * kTld + k]; },
+          [&](int c, int k) { return b[c * kTld + k]; }, lane);
+    __syncthreads();  // chunk ci's buffer may be refilled
   }
-  for (int u = 0; u < 4; ++u) {
-    const int r = 4 * ty + u;
-    if (r < nr)
-      for (int v = 0; v < 4; ++v) A[r * ld + tx + 32 * v] = acc[u][v];
+  const int wr = r0 + (warp >> 1) * 32, wc = c0 + (warp & 1) * 32;
+  if (kind == 2) {
+    const bool first = r0 >= k0;
+    acc_each(acc, lane, [&](T& v, int r, int c) {
+      T* o = P + (int64_t)(wr + r) * cp + k1 + wc + c;
+      *o = first ? v : *o + v;
+    });
+  } else {
+    acc_each(acc, lane, [&](T& v, int r, int c) {
+      const int R = wr + r, C = wc + c;
+      if (C < nd && (kind == 1 ? R - m * kTile < nr : (R < nd && C <= R)))
+        P[(int64_t)(k1 + R) * cp + k1 + C] -= v;
+    });
   }
 }
 
 template <typename T>
-__global__ void wide_embed_kernel(T* data, int64_t bstride, const T* xt,
-                                  const int64_t* off, int cp) {
-  const int64_t i = blockIdx.y, B = gridDim.y, ld = cp;
-  T* P = data + (int64_t)blockIdx.z * bstride + off[i];
-  const T* X = xt + ((int64_t)blockIdx.z * B + i) * ld * ld;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       e < ld * ld; e += (int64_t)gridDim.x * blockDim.x) {
-    if (e % ld > e / ld) P[e] = X[e];
-  }
-}
-
-template <typename T>
-int launch_tile(void* data, int64_t bstride, void* xt, const int64_t* off,
-                const int64_t* cols, int64_t B, int cp, int k0, int nb,
-                int batch, cudaStream_t stream) {
-  const size_t smem = ((size_t)nb * (nb + 1) + nb +
-                       (size_t)(nb - kSub) * (kSub + 1)) * sizeof(T);
+int launch(void* data, int64_t bstride, void* dx, const int64_t* off,
+           const int64_t* rows, const int64_t* cols, int64_t B, int cp,
+           int rp, int batch, cudaStream_t stream) {
+  if (cp % kNb || cp <= 4 * kNb) return (int)cudaErrorInvalidValue;
+  T* d = static_cast<T*>(data);
+  T* x = static_cast<T*>(dx);
+  const int tile_smem =
+      (int)(((size_t)kNb * kTls + kNb + kSub * kDbld) * sizeof(T));
+  const int rows_smem =
+      (int)(((size_t)kRows * kAld + (size_t)kNb * kXld) * sizeof(T));
+  const int upd_smem = (int)(2 * 2 * kTile * kTld * sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
       wide_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      tile_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(wide_rows_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             rows_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(wide_update_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             upd_smem);
   if (e != cudaSuccess) return (int)e;
-  wide_tile_kernel<T><<<dim3((unsigned)B, batch), kWideThreads, smem,
-                        stream>>>(
-      static_cast<T*>(data), bstride, static_cast<T*>(xt), off, cols, cp,
-      k0, nb);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_trsm(void* data, int64_t bstride, const void* xt,
-                const int64_t* off, const int64_t* rows, int64_t B, int cp,
-                int rp, int k0, int nb, int batch, cudaStream_t stream) {
-  if (nb != 128) return (int)cudaErrorInvalidValue;
-  const int total = cp + rp - (k0 + nb);
-  if (total <= 0) return 0;
-  const size_t smem = (size_t)(kTrsmRows + kTrsmK) * nb * sizeof(T);
-  wide_trsm_kernel<T><<<dim3((unsigned)B,
-                             (total + kTrsmRows - 1) / kTrsmRows, batch),
-                        256, smem, stream>>>(
-      static_cast<T*>(data), bstride, static_cast<const T*>(xt), off, rows,
-      cp, k0);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_embed(void* data, int64_t bstride, const void* xt,
-                 const int64_t* off, int64_t B, int cp, int batch,
-                 cudaStream_t stream) {
-  int64_t blocks = ((int64_t)cp * cp + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  wide_embed_kernel<T><<<dim3((unsigned)blocks, (unsigned)B, batch), 256, 0,
-                         stream>>>(static_cast<T*>(data), bstride,
-                                   static_cast<const T*>(xt), off, cp);
-  return (int)cudaGetLastError();
+  const int nbl = (rp + kRows - 1) / kRows;
+  for (int k0 = 0; k0 < cp; k0 += kNb) {
+    const int k1 = k0 + kNb;
+    wide_tile_kernel<T><<<dim3((unsigned)B, batch), kTileCta, tile_smem,
+                          stream>>>(d, bstride, x, off, cols, cp, k0);
+    const int jobs = (cp - k1) / kRows + nbl + k0 / kRows;  // > 0: cp > 512
+    wide_rows_kernel<T><<<dim3((unsigned)(B * jobs), batch), kRowThreads,
+                          rows_smem, stream>>>(d, bstride, x, off, rows,
+                                               cols, B, cp, rp, k0);
+    if (k1 < cp) {
+      const int m = (cp - k1) / kTile;
+      const int per = m * (m + 1) / 2 + (rp + kTile - 1) / kTile * m +
+                      k1 / kTile * m;
+      wide_update_kernel<T><<<dim3((unsigned)(B * per), batch),
+                              kTileThreads, upd_smem, stream>>>(
+          d, bstride, x, off, rows, cols, B, cp, rp, k0);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64. Each returns the cudaError_t of its launch.
-extern "C" int bs_wide_tile(int dtype, void* data, int64_t bstride, void* xt,
-                            const int64_t* off, const int64_t* cols,
-                            int64_t B, int cp, int k0, int nb, int batch,
-                            void* stream) {
+// dtype: 0 float32, 1 float64; dx a scratch of batch x B x cp values.
+// Launches 3 cp / 128 - 1 grids; returns the first cudaError_t.
+extern "C" int bs_wide_factor(int dtype, void* data, int64_t bstride,
+                              void* dx, const int64_t* off,
+                              const int64_t* rows, const int64_t* cols,
+                              int64_t B, int cp, int rp, int batch,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_tile<float>(data, bstride, xt, off, cols, B, cp, k0, nb,
-                              batch, s);
+    return launch<float>(data, bstride, dx, off, rows, cols, B, cp, rp,
+                         batch, s);
   if (dtype == 1)
-    return launch_tile<double>(data, bstride, xt, off, cols, B, cp, k0, nb,
-                               batch, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int bs_wide_trsm(int dtype, void* data, int64_t bstride,
-                            const void* xt, const int64_t* off,
-                            const int64_t* rows, int64_t B, int cp, int rp,
-                            int k0, int nb, int batch, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_trsm<float>(data, bstride, xt, off, rows, B, cp, rp, k0,
-                              nb, batch, s);
-  if (dtype == 1)
-    return launch_trsm<double>(data, bstride, xt, off, rows, B, cp, rp, k0,
-                               nb, batch, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int bs_wide_embed(int dtype, void* data, int64_t bstride,
-                             const void* xt, const int64_t* off, int64_t B,
-                             int cp, int batch, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_embed<float>(data, bstride, xt, off, B, cp, batch, s);
-  if (dtype == 1)
-    return launch_embed<double>(data, bstride, xt, off, B, cp, batch, s);
+    return launch<double>(data, bstride, dx, off, rows, cols, B, cp, rp,
+                          batch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,6 +45,8 @@ from typing import Optional
 
 import torch
 
+from .schedule import NARROW_MAX
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
@@ -61,8 +63,8 @@ WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu
 class LaunchCount:
     launches: int = 0    # wrapper calls that launched the kernel
     grid_launches: int = 0  # __global__ launches among them (K1 launches
-    #                         up to three grids per call, K1-wide two per
-    #                         diagonal tile)
+    #                         up to three grids per call, K1-wide three
+    #                         per diagonal tile but the last)
     twin_calls: int = 0  # calls of the plain twin (any device)
 
 
@@ -152,11 +154,8 @@ def _lib() -> ctypes.CDLL:
             "bs_bucket_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
                                 vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
                                 vp],
-            "bs_wide_tile": [i32, vp, i64, vp, vp, vp, i64, i32, i32, i32,
-                             i32, vp],
-            "bs_wide_trsm": [i32, vp, i64, vp, vp, vp, i64, i32, i32, i32,
-                             i32, i32, vp],
-            "bs_wide_embed": [i32, vp, i64, vp, vp, i64, i32, i32, vp],
+            "bs_wide_factor": [i32, vp, i64, vp, vp, vp, vp, i64, i32, i32,
+                               i32, vp],
             "bs_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
                               vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
                               i32, vp],
@@ -293,24 +292,37 @@ def wide_factor(data, off, rows, cols, cp: int, rp: int, off_h,
     """Blocked factor of a bucket of wide panels (cp > 512, a multiple of
     WIDE_TILE), in place in the layout bucket_factor writes: L on and
     below the diagonal, the full Linv^T strictly above, x = below . L^-T
-    below; no product. off_h / cols_h are host copies of off / cols (the
-    per-panel views of the large matrix products need them)."""
+    below; no product. On the card, one C call runs the whole schedule
+    (csrc/wide_factor.cu: per diagonal tile a tile grid, a rows grid and,
+    but after the last tile, an update grid, each over every panel and
+    batch item), with 1 / diag L in a cached scratch. off_h / cols_h are
+    host copies of off / cols (the twin's per-panel views need them)."""
     if data.device.type == "cpu":
         return wide_factor_twin(data, off, rows, cols, cp, rp, off_h,
                                 cols_h)
     _check_cuda("wide_factor", [data], [off, rows, cols])
+    nb = WIDE_TILE
+    if cp % nb or cp <= NARROW_MAX:
+        raise ValueError(f"wide_factor: cp {cp} is not a multiple of {nb} "
+                         f"above {NARROW_MAX}")
+    batch, B = data.shape[0], off.shape[0]
+    dx = _scratch(data, batch * B * cp)
+    err = _lib().bs_wide_factor(
+        _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
+        dx.data_ptr(), off.data_ptr(), rows.data_ptr(), cols.data_ptr(), B,
+        cp, rp, batch, _stream(data))
     COUNTS["wide_factor"].launches += 1
-    _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h,
-                    _WideKernelSteps)
+    COUNTS["wide_factor"].grid_launches += 3 * (cp // nb) - 1
+    _raise_on("wide_factor", err)
 
 
 def wide_factor_twin(data, off, rows, cols, cp: int, rp: int, off_h,
                      cols_h) -> None:
-    """Plain twin of K1-wide: the same blocked schedule with the three
-    hand-written steps in plain torch."""
+    """Plain twin of K1-wide: the blocked schedule with the diagonal
+    tile's factor and inverse, the rows below it and the embedded
+    inverse in plain torch."""
     COUNTS["wide_factor"].twin_calls += 1
-    _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h,
-                    _WideTwinSteps)
+    _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h)
 
 
 def _panel_view(data, o: int, cp: int, r: int, c: int, nr: int, nc: int):
@@ -320,20 +332,18 @@ def _panel_view(data, o: int, cp: int, r: int, c: int, nr: int, nc: int):
                            data.storage_offset() + o + r * cp + c)
 
 
-def _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h, steps):
+def _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h):
     """Right-looking blocked Cholesky (PlannedBackend._blocked_factor) and
-    blocked inverse (_blocked_lower_inv), embedded as _embed_inv does.
+    blocked inverse (_blocked_lower_inv), embedded as _embed_inv does, in
+    plain torch: the twin's schedule (the kernels' is csrc/wide_factor.cu).
 
-    Per diagonal tile k (WIDE_TILE wide): `steps.tile` factors and
-    inverts it (hand-written), `steps.trsm` multiplies the rows below it
-    by the tile's inverse (hand-written), and one matrix product per
-    panel updates the trailing diagonal and below rows. Then the block
-    rows of Linv^T are swept with two products each (Xt holds Linv^T, its
-    diagonal tiles written by `steps.tile`), and `steps.embed` copies Xt's
-    strict upper into the panels. The products run per batch item, so a
-    batch item gets the same matrix-product kernels, hence the same bits,
-    as a single run."""
-    nb = WIDE_TILE
+    Per diagonal tile k (WIDE_TILE wide): `tile` factors and inverts it,
+    `trsm` multiplies the rows below it by the tile's inverse, and one
+    matrix product per panel and batch item updates the trailing
+    diagonal and below rows. Then the block rows of Linv^T are swept
+    with two products each in a scratch Xt (its diagonal tiles written
+    by `tile`), and `embed` copies Xt's strict upper into the panels."""
+    nb, steps = WIDE_TILE, _WideTwinSteps
     if cp % nb:
         raise ValueError(f"wide_factor: cp {cp} is not a multiple of {nb}")
     batch = data.shape[0]
@@ -364,37 +374,6 @@ def _blocked_factor(data, off, rows, cols, cp, rp, off_h, cols_h, steps):
     steps.embed(data, xt, off, cp, off_h)
 
 
-class _WideKernelSteps:
-    """The hand-written steps of K1-wide (csrc/wide_factor.cu)."""
-
-    @staticmethod
-    def tile(data, xt, off, cols, cp, k0, off_h, cols_h):
-        err = _lib().bs_wide_tile(
-            _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
-            xt.data_ptr(), off.data_ptr(), cols.data_ptr(), off.shape[0],
-            cp, k0, WIDE_TILE, data.shape[0], _stream(data))
-        COUNTS["wide_factor"].grid_launches += 1
-        _raise_on("wide_factor (tile)", err)
-
-    @staticmethod
-    def trsm(data, xt, off, rows, cols, cp, rp, k0, off_h, cols_h):
-        err = _lib().bs_wide_trsm(
-            _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
-            xt.data_ptr(), off.data_ptr(), rows.data_ptr(), off.shape[0],
-            cp, rp, k0, WIDE_TILE, data.shape[0], _stream(data))
-        COUNTS["wide_factor"].grid_launches += 1
-        _raise_on("wide_factor (trsm)", err)
-
-    @staticmethod
-    def embed(data, xt, off, cp, off_h):
-        err = _lib().bs_wide_embed(
-            _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
-            xt.data_ptr(), off.data_ptr(), off.shape[0], cp, data.shape[0],
-            _stream(data))
-        COUNTS["wide_factor"].grid_launches += 1
-        _raise_on("wide_factor (embed)", err)
-
-
 def _tile_linv(t: torch.Tensor, w: int) -> torch.Tensor:
     """Linv of a stored (.., w, w) diagonal tile: strict upper transposed
     and 1 / diagonal (PlannedBackend._tri_stored)."""
@@ -406,7 +385,7 @@ def _tile_linv(t: torch.Tensor, w: int) -> torch.Tensor:
 
 
 class _WideTwinSteps:
-    """Plain torch versions of the three hand-written K1-wide steps."""
+    """The twin's diagonal tile, rows below it and embedded inverse."""
 
     @staticmethod
     def tile(data, xt, off, cols, cp, k0, off_h, cols_h):
@@ -769,7 +748,7 @@ def _scratch(like, n: int, dtype=None) -> torch.Tensor:
     grown as needed, so that a call allocates nothing: calls on one
     stream run in order, and no call reads what an earlier one left
     (K3-rest wide's pre kernel zeroes its flags; K5 writes every partial
-    it reads)."""
+    it reads; K1-wide's tiles write every 1 / diag L it reads)."""
     dtype = dtype or like.dtype
     key = (like.device, dtype, _stream(like))
     buf = _SCRATCH.get(key)

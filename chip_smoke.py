@@ -67,9 +67,19 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                calls); the pcg stage of BAL's first damped system, 10
                iterations, traced (device ms per kernel, idle share)
 
+  K1-wide per call (k1w_levels, after k1_levels) on FLAT's cp-3072 panel,
+               Schur 50k's corner, WIDE_BELOW and BAL 871's camera levels
+               (cp 1024, 3072 and 4096): against its twin (f64, f32),
+               batched and rerun bitwise, ms by events, device ms per grid
+               from complete traces, bounds, and cholesky_ex +
+               solve_triangular per panel, a yardstick the port never
+               calls; on panels that are not positive definite
+               (k1_not_pd), NaN from the failing column on
+
 With `--only k5` it builds the kernels and runs K5's phases alone (BAL
 871's set-up and damped system, the PCG trace, k5_levels) and prints no
-last line.
+last line; with `--only k1w`, K1-wide's (k1_not_pd, BAL 871's direct LM
+costs, k1w_levels).
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -138,8 +148,8 @@ NAMES = [k for k, _, _ in KERNELS]
 GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
                            "below_kernel", "prod_entry_kernel",
                            "prod_tile_kernel"),
-         "wide_factor": ("wide_tile_kernel", "wide_trsm_kernel",
-                         "wide_embed_kernel"),
+         "wide_factor": ("wide_tile_kernel", "wide_rows_kernel",
+                         "wide_update_kernel"),
          "segmented_subtract": ("seg_sub_kernel",),
          "bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
          "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
@@ -582,29 +592,141 @@ def spd_panels(cp: int, n: int, B: int, seed: int, dev, bad=None):
 
 
 def k1_not_pd(dev, name_limit: str) -> list:
-    """K1 on a panel that is not positive definite, f64 and f32: in a
-    bucket of two, the second panel's diagonal made negative at one
-    column, for chol_warp (cp 4, 32) and chol_block (cp 64, 256, 512);
-    L must be finite before that column and NaN in it from the diagonal
-    down, and the first panel finite."""
+    """K1 and K1-wide on a panel that is not positive definite, f64 and
+    f32: in a bucket of two, the second panel's diagonal made negative at
+    one column, for chol_warp (cp 4, 32), chol_block (cp 64, 256, 512)
+    and K1-wide (cp 1024 at a column inside a tile and at a tile's first,
+    cp 3072); L must be finite before that column and NaN in it from the
+    diagonal down, and the first panel finite."""
     out = []
     for dt in (torch.float64, torch.float32):
         for cp, n, col in ((4, 3, 1), (32, 30, 7), (64, 60, 40),
-                           (256, 200, 150), (512, 282, 100)):
+                           (256, 200, 150), (512, 282, 100),
+                           (1024, 1000, 600), (1024, 1000, 384),
+                           (3072, 2985, 2000)):
             data, off, rows, cols = spd_panels(cp, n, 2, 99, dev,
                                                bad=(1, col))
             data = data.to(dt)
-            kernels.bucket_factor(data, None, off, rows, cols, cp, 0, 0)
+            if cp > NARROW_MAX:
+                kernels.wide_factor(data, off, rows, cols, cp, 0,
+                                    (0, cp * cp), (n, n))
+            else:
+                kernels.bucket_factor(data, None, off, rows, cols, cp, 0, 0)
             P = data.view(2, cp, cp)
             L = torch.tril(P[1, :n, :n])
             check(bool(torch.isfinite(P[0]).all()) and
                   bool(torch.isfinite(L[:col, :col]).all()) and
                   bool(torch.isnan(L[col:, col]).all()),
-                  f"bucket_factor on a panel not positive definite (cp "
-                  f"{cp}, n {n}, column {col}, {dt}): not NaN from the "
-                  "failing column on, or NaN elsewhere")
+                  f"{'wide' if cp > NARROW_MAX else 'bucket'}_factor on a "
+                  f"panel not positive definite (cp {cp}, n {n}, column "
+                  f"{col}, {dt}): not NaN from the failing column on, or "
+                  "NaN elsewhere")
             out.append([str(dt)[6:], cp, n, col])
     log("k1_not_pd", card=name_limit, cases=out)
+    return out
+
+
+class WideCapture:
+    """The kernels, for a factor program, keeping a copy of the panels of
+    each K1-wide call before the call, packed one after the other (a
+    bucket of their own)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(kernels, name)
+
+    def wide_factor(self, data, off, rows, cols, cp, rp, off_h, cols_h):
+        idx = off[:, None] + torch.arange((cp + rp) * cp, device=off.device)
+        self.calls.append((data[:, idx].reshape(data.shape[0], -1), rows,
+                           cols, cp, rp, tuple(cols_h)))
+        kernels.wide_factor(data, off, rows, cols, cp, rp, off_h, cols_h)
+
+
+def k1w_levels(cases, name_limit: str) -> list:
+    """K1-wide on every call of one factor of each case ((label, solver,
+    data single f64)), each call's panels packed as a bucket of their
+    own, as [cp, rp, panels, widest real width, most real below rows]:
+    against its twin in f64 and f32 (CheckedOps); a batch of two (the
+    second item scaled) against single runs and a rerun, bitwise; the
+    wrapper's ms by CUDA events, its twin's; device ms per grid from a
+    trace that shows every grid of every run (complete_trace), with the
+    trace's device busy ms per call and its kernels' ms; the bound
+    (cost()); and wide_factor_library_call by events, a yardstick the
+    port never calls. The timed and traced calls factor their own output
+    again, in place: no grid's work depends on the values. Returns one
+    row per call."""
+    out = []
+    for label, s, data in cases:
+        cap = WideCapture()
+        s.factor_program()(data[None], ops=cap)
+        check(len(cap.calls) > 0, f"{label}: no K1-wide call")
+        for snap, rows, cols, cp, rp, cols_h in cap.calls:
+            B, h, dev = cols.numel(), cp + rp, snap.device
+            off_h = tuple(b * h * cp for b in range(B))
+            off = torch.tensor(off_h, dtype=torch.int64, device=dev)
+            bucket = (off, rows, cols, cp, rp, off_h, cols_h)
+            row = {"case": label,
+                   "bucket": [cp, rp, B, int(cols.max()),
+                              int(rows.max()) if rp else 0],
+                   "max_rel": {}}
+            what = f"wide_factor on {label} {row['bucket']}"
+            for dt in (torch.float64, torch.float32):
+                chk = CheckedOps()  # on a copy: snap stays the input
+                chk.wide_factor(snap.to(dt, copy=True), *bucket)
+                r, key = chk.rel["wide_factor"], str(dt)[6:]
+                check(r <= KERNEL_RTOL[dt], f"{what} vs twin {dt}: rel {r}")
+                row["max_rel"][key] = r
+                del chk
+            two = torch.cat([snap, snap * 1.01])
+            kernels.wide_factor(two, *bucket)
+            for b in range(2):
+                one = two[b:b + 1].clone()
+                for _ in range(2):  # the single run, then its rerun
+                    one.copy_((snap * 1.01) if b else snap)
+                    kernels.wide_factor(one, *bucket)
+                    check(torch.equal(one[0], two[b]),
+                          f"{what}: batch item {b} differs from its single "
+                          "run")
+            del two, one
+            w = snap.clone()
+            run = functools.partial(kernels.wide_factor, w, *bucket)
+            row["ms"] = time_ms(run, 10)
+            row["twin_ms"] = time_ms(lambda: kernels.wide_factor_twin(
+                w.copy_(snap), *bucket), 1, warmup=1)
+            row["library_ms"] = time_ms(
+                wide_factor_library_call(snap, *bucket), 5)
+            kernels.reset_counts()
+            run()
+            torch.cuda.synchronize()
+            grids = kernels.COUNTS["wide_factor"].grid_launches
+            reps = int(min(20, max(3, 20.0 / max(row["ms"], 1e-3))))
+            row["device_ms"], tr, row["trace_tries"] = complete_trace(
+                run, GRIDS["wide_factor"], grids, reps, what)
+            row["grids"] = grids
+            row["device_busy_ms"] = tr["device_busy_ms_per_call"]
+            row["idle_share"] = tr["idle_share"]
+            row["kernels_ms"] = tr["device_ms_per_call_by_kernel"]
+            row["bound_ms"], row["bound_by"] = bound(
+                *cost("wide_factor", (w, *bucket)))
+            out.append(row)
+            del w
+    cases_ = [c for c, _, _ in cases]
+    log("k1w_levels", card=name_limit, dtype="float64",
+        limits={"float64": 1e-10, "float32": 1e-4}, bitwise=True,
+        library_call="per panel torch.linalg.cholesky_ex + "
+                     "solve_triangular(L, I) + solve_triangular(L.mT, "
+                     "below, upper=True, left=False)",
+        ms_by_case={c: sum(r["ms"] for r in out if r["case"] == c)
+                    for c in cases_},
+        device_busy_ms_by_case={c: sum(r["device_busy_ms"] for r in out
+                                       if r["case"] == c) for c in cases_},
+        library_ms_by_case={c: sum(r["library_ms"] for r in out
+                                   if r["case"] == c) for c in cases_},
+        bound_ms_by_case={c: sum(r["bound_ms"] for r in out
+                                 if r["case"] == c) for c in cases_},
+        buckets=out)
     return out
 
 
@@ -1766,6 +1888,38 @@ def k5_only(dev, name_limit: str) -> int:
     return 0
 
 
+def k1w_only(dev, name_limit: str) -> int:
+    """`--only k1w`: the build, then K1-wide's phases alone: the NaN
+    pattern (k1_not_pd), BAL 871's direct LM held to BAL_COSTS, and
+    k1w_levels on FLAT n=1000, FLAT+Schur 50k, WIDE_BELOW and BAL 871's
+    first damped system, for iterating on K1-wide without the whole
+    run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    k1_not_pd(dev, name_limit)
+    cases = []
+    for pname, make in (("flat1000", flat1000),
+                        ("flat_schur50k", flat_schur50k),
+                        ("wide_below", wide_below)):
+        s = make(T, device=dev)
+        cases.append((pname, s, torch.from_numpy(spd_data(s, 1)).to(dev)))
+    opt, values0, _ = bal_setup(dev)
+    direct = ba_settings(T.BackendType.PLANNED, 3, **BAL_DAMP)
+    costs = opt.optimize(direct)["costs"]
+    check(len(costs) == len(BAL_COSTS["direct"]) and
+          all(abs(a / b - 1) <= 1e-9 for a, b in zip(costs,
+                                                      BAL_COSTS["direct"])),
+          f"BAL 871 direct LM costs {costs}, expected {BAL_COSTS['direct']}")
+    log("bal871_lm_direct", card=name_limit, costs=costs)
+    damped, _, _ = bal_damped(opt, values0, direct)
+    cases.append(("bal871", opt.solver, damped))
+    k1w_levels(cases, name_limit)
+    log("k1w_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
 def main(argv=()) -> int:
     # 1. card
     if not torch.cuda.is_available():
@@ -1783,9 +1937,11 @@ def main(argv=()) -> int:
         python=sys.version.split()[0])
     if list(argv) == ["--only", "k5"]:
         return k5_only(dev, name_limit)
+    if list(argv) == ["--only", "k1w"]:
+        return k1w_only(dev, name_limit)
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {list(argv)} (none, "
-                         "or --only k5)")
+                         "--only k5 or --only k1w)")
 
     # 2. build
     t0 = time.perf_counter()
@@ -2341,9 +2497,17 @@ def main(argv=()) -> int:
                         "grid100", name_limit)
     k1_bal = k1_levels(bal["opt"].solver, bal["damped"], "bal871",
                        name_limit)
+    # 13b. K1-wide on every wide bucket of FLAT, Schur 50k's corner,
+    # WIDE_BELOW and BAL 871's camera levels
+    k1w = k1w_levels(
+        [(p, probs[p], torch.from_numpy(d64[p]).to(dev))
+         for p in ("flat1000", "flat_schur50k", "wide_below")] +
+        [("bal871", bal["opt"].solver, bal["damped"])], name_limit)
     # 14. K5 per bucket on BAL 871's and FLAT+Schur 50k's mat-vecs
     k5 = k5_phase(schur50, torch.from_numpy(d64["flat_schur50k"]).to(dev),
                   opt, bal.pop("damped"), name_limit)
+    by_case["wide_factor"] = {
+        f"{r['case']} {r['bucket'][:2]} (k1w_levels)": r["ms"] for r in k1w}
     by_case["bucket_factor"] = {
         f"{c} f64 factor, device ms (trace)": sum(
             sum(r["device_ms"].values()) for r in rows)
