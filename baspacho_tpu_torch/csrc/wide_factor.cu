@@ -67,14 +67,60 @@ constexpr int kTileWarps = 8;      // wide_tile: warps a CTA
 constexpr int kTileCta = 32 * kTileWarps;
 constexpr int kTls = kNb + 4;      // wide_tile: a row of the tile
 constexpr int kDbld = kSub + 1;    // wide_tile: a row of the diagonal block
-constexpr int kRows = 64;          // wide_rows: rows a CTA
-constexpr int kRowThreads = 256;   // wide_rows: 2 x 4 warps of 32 x 32
+constexpr int kRows = 32;          // wide_rows: rows a CTA
+constexpr int kRowThreads = 256;   // wide_rows: 8 warps stage, 4 multiply
 constexpr int kAld = kNb + 4;      // wide_rows: a staged row
-constexpr int kXld = kNb + 8;      // wide_rows: a row of the staged X_k^T
+constexpr int kXld = kNb + 4;      // wide_rows: a row of the staged X_k^T
 
 __device__ __forceinline__ int tile_width(int64_t n, int k0) {
   const int64_t w = n - k0;
   return w < 0 ? 0 : (w > kNb ? kNb : (int)w);
+}
+
+// 16 bytes, global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+// Columns q0 .. q0 + width of `rows` rows into dst (row stride ld) by
+// cp.async: row r from src(r) (null: zeros), by 16-byte groups when vec
+// (every source row and dst 16-byte aligned), else value by value; any
+// valid global address `some` stands in for a null source.
+template <typename T, typename F>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const F& src,
+                                           int rows, int width, int q0,
+                                           bool vec, const T* some, int tid,
+                                           int nt) {
+  if (vec) {
+    constexpr int kv = 16 / sizeof(T);
+    const int per = width / kv;
+    for (int e = tid; e < rows * per; e += nt) {
+      const int r = e / per, o = e % per * kv;
+      const T* s = src(r);
+      cp_async16(dst + r * ld + o, s ? s + q0 + o : some, s ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < rows * width; e += nt) {
+      const int r = e / width, o = e % width;
+      const T* s = src(r);
+      cp_async_el(dst + r * ld + o, s ? s + q0 + o : some,
+                  s ? (int)sizeof(T) : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// warp_chol_inv (warp_tiles.cuh) on the pw x pw block D, one copy of its
+// fully unrolled code for all the tile's calls.
+template <typename T>
+__device__ __noinline__ void diag_chol_inv(T* D, T* dx, int ld, int pw) {
+  warp_chol_inv<kSub>(D, dx, ld, 0, pw);
 }
 
 // One CTA per (panel, batch item) factors and inverts the diagonal tile
@@ -84,16 +130,19 @@ __device__ __forceinline__ int tile_width(int64_t n, int k0) {
 // (bucket_factor.cu) does a panel: warp 0 factors and inverts each
 // sub-block's diagonal block in registers (warp_chol_inv, on a copy in
 // dbuf); the rows below it are multiplied by that inverse, one warp per
-// 32-row block; the trailing lower 32 x 32 tiles are updated, warp 0
-// taking the next diagonal block and factoring it at once while the
-// others finish the rest (one step of look-ahead). Then the inverse by
-// block rows, X[i, :i] = -Dinv_i (L[i, :i] X[:i, :i]), formed
-// transposed, one warp per 32-row block of X^T. Every product is a warp's
+// 32-row block;
+// then, at once, warp 0 updates the next diagonal block and factors it
+// (one step of look-ahead), warps of the three other schedulers update
+// the rest of the trailing lower triangle, and warps 7, 6, 5 carry the
+// inverse forward, right-looking: block row p of X^T is finished from
+// the partial sums T^T that earlier steps left in its place, X^T[j][p] =
+// -T^T[j][p] X_p^T, then folded into the partial sums of the later
+// blocks, T^T[j][i] += X^T[j][p] L[i][p]^T. Every product is a warp's
 // 32 x 32 block on the f64 tensor cores (mma32). Two barriers a
-// sub-block, one a block row.
+// sub-block.
 template <typename T>
 __global__ void __launch_bounds__(kTileCta)
-    wide_tile_kernel(T* data, int64_t bstride, T* dx, const int64_t* off,
+    wide_tile_kernel(T* data, int64_t bstride, T* xk, const int64_t* off,
                      const int64_t* cols, int cp, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const A = reinterpret_cast<T*>(smem_raw);  // kNb x kTls
@@ -102,7 +151,7 @@ __global__ void __launch_bounds__(kTileCta)
   const int64_t i = blockIdx.x, B = gridDim.x;
   const int64_t ld = cp;
   T* const P = data + (int64_t)blockIdx.y * bstride + off[i] + k0 * ld + k0;
-  T* const D = dx + ((int64_t)blockIdx.y * B + i) * cp + k0;
+  T* const Xk = xk + ((int64_t)blockIdx.y * B + i) * kNb * kNb;
   const int w = tile_width(cols[i], k0), nbs = (w + kSub - 1) / kSub;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int t0 = 0; t0 < kNb * kNb; t0 += 8 * kTileCta) {  // 8 in flight
@@ -129,7 +178,7 @@ __global__ void __launch_bounds__(kTileCta)
       dbuf[r * kDbld + c] = c <= r ? A[(p0 + r) * kTls + p0 + c] : T(0);
     }
     __syncwarp();
-    warp_chol_inv<kSub>(dbuf, dxs + p0, kDbld, 0, min(kSub, w - p0));
+    diag_chol_inv(dbuf, dxs + p0, kDbld, min(kSub, w - p0));
     __syncwarp();
     for (int t = lane; t < kSub * kSub; t += 32) {
       const int r = t / kSub, c = t % kSub;
@@ -144,9 +193,10 @@ __global__ void __launch_bounds__(kTileCta)
     if (warp < m) {
       T* a = A + (p0 + kSub * (warp + 1)) * kTls + p0;
       T acc[4][4][2] = {};
+      const T* dp = A + p0 * kTls + p0;
       mma32(acc, [&](int r, int k) { return a[r * kTls + k]; },
             [&](int c, int k) {
-              return k < c ? dbuf[k * kDbld + c]
+              return k < c ? dp[k * kTls + c]
                            : (k == c ? dxs[p0 + c] : T(0));
             },
             lane);
@@ -166,9 +216,45 @@ __global__ void __launch_bounds__(kTileCta)
       T acc[4][4][2] = {};
       mma32(acc, [&](int r, int k) { return xi[r * kTls + k]; },
             [&](int c, int k) { return xj[c * kTls + k]; }, lane);
-      acc_each(acc, lane, [&](T& v, int r, int c) {
-        tile[r * kTls + c] -= v;
-      });
+      acc_each(acc, lane, [&](T& v, int r, int c) { v = tile[r * kTls + c] - v; });
+      acc_each(acc, lane, [&](T& v, int r, int c) { tile[r * kTls + c] = v; });
+    };
+    // the inverse, right-looking, on warps 7, 6, 5 (none of them a
+    // trailing update's at the same step): task j <= p finalises
+    // X^T[j][p] = -T^T[j][p] X_p^T (j < p), then adds X^T[j][p] L[i][p]^T
+    // into T^T[j][i] for the later blocks i (the first, at p = j, writes)
+    const T* const dp = A + p0 * kTls + p0;  // block p: L, X_p^T above
+    const auto inverse = [&](int j) {
+      T* xt = A + j * kSub * kTls + p0;  // block (j, p) of X^T
+      if (j < p) {
+        T acc[4][4][2] = {};
+        mma32(acc, [&](int c, int q) { return xt[c * kTls + q]; },
+              [&](int r, int q) {
+                return q < r ? dp[q * kTls + r]
+                             : (q == r ? dxs[p0 + r] : T(0));
+              },
+              lane);
+        __syncwarp();  // the block is read; overwrite it
+        acc_each(acc, lane, [&](T& v, int c, int r) { xt[c * kTls + r] = -v; });
+        __syncwarp();
+      }
+      for (int bi = p + 1; bi < nbs; ++bi) {
+        T* dst = A + j * kSub * kTls + bi * kSub;
+        const T* li = A + bi * kSub * kTls + p0;
+        T acc[4][4][2] = {};
+        if (j < p)
+          mma32(acc, [&](int c, int q) { return xt[c * kTls + q]; },
+                [&](int r, int q) { return li[r * kTls + q]; }, lane);
+        else
+          mma32(acc, [&](int c, int q) {
+                  return c < q ? dp[c * kTls + q]
+                               : (c == q ? dxs[p0 + c] : T(0));
+                },
+                [&](int r, int q) { return li[r * kTls + q]; }, lane);
+        if (j < p)
+          acc_each(acc, lane, [&](T& v, int c, int r) { v += dst[c * kTls + r]; });
+        acc_each(acc, lane, [&](T& v, int c, int r) { dst[c * kTls + r] = v; });
+      }
     };
     if (warp == 0) {
       if (m > 0) {
@@ -176,70 +262,37 @@ __global__ void __launch_bounds__(kTileCta)
         __syncwarp();
         factor_diag(p + 1);
       }
-    } else {
-      for (int t = warp; t < m * (m + 1) / 2; t += kTileWarps - 1)
+    } else if (warp >= 5 && 7 - warp <= p) {
+      inverse(7 - warp);
+    } else if (warp & 3) {  // the warps of the other three schedulers
+      const int u = warp - 1 - (warp >> 2);  // 0..5
+      for (int t = 1 + u; t < m * (m + 1) / 2; t += kTileWarps - 2)
         update(t);
-    }
-    __syncthreads();
-  }
-
-  // Linv by block rows i: S^T = X[:i, :i]^T L[i, :i]^T into the block of
-  // X^T it becomes, then X^T[C][i] = -S^T Dinv_i^T, one warp per block C
-  for (int bi = 1; bi < nbs; ++bi) {
-    const int r0 = bi * kSub;
-    if (warp < bi) {
-      const int c0 = warp * kSub;
-      T* dst = A + c0 * kTls + r0;
-      T acc[4][4][2] = {};
-      for (int M = warp; M < bi; ++M) {
-        const int m0 = M * kSub;
-        const T* xt = A + c0 * kTls + m0;
-        const T* li = A + r0 * kTls + m0;
-        const auto lr = [&](int r, int k) { return li[r * kTls + k]; };
-        if (M == warp)
-          mma32(acc, [&](int c, int k) {
-                  return c < k ? xt[c * kTls + k]
-                               : (c == k ? dxs[c0 + c] : T(0));
-                }, lr, lane);
-        else
-          mma32(acc, [&](int c, int k) { return xt[c * kTls + k]; }, lr,
-                lane);
-      }
-      T out[4][4][2] = {};
-      const T* di = A + r0 * kTls + r0;
-      acc_each(acc, lane, [&](T& v, int c, int r) { dst[c * kTls + r] = v; });
-      __syncwarp();
-      mma32(out, [&](int c, int q) { return -dst[c * kTls + q]; },
-            [&](int r, int q) {
-              return q < r ? di[q * kTls + r]
-                           : (q == r ? dxs[r0 + r] : T(0));
-            },
-            lane);
-      __syncwarp();  // S^T is read; overwrite it
-      acc_each(out, lane, [&](T& v, int c, int r) { dst[c * kTls + r] = v; });
     }
     __syncthreads();
   }
 
   for (int t = tid; t < kNb * kNb; t += kTileCta) {
     const int r = t / kNb, c = t % kNb;
-    P[r * ld + c] = A[r * kTls + c];
+    const T a = A[r * kTls + c];
+    P[r * ld + c] = a;
+    Xk[t] = r < c ? a : (r == c ? dxs[r] : T(0));
   }
-  for (int t = tid; t < kNb; t += kTileCta) D[t] = dxs[t];
 }
 
 // The rows of step k (see the header), one CTA per (panel, job, batch
-// item): out = a . X_k^T, 64 rows a of columns k0..k1, in place. Per
-// panel, jobs [0, nd) are the trailing diagonal rows k1 + 64 j, [nd, nd +
-// nbl) the below rows (out = x), [nd + nbl, nd + nbl + k0 / 64) the rows
-// 64 j of X^T, whose columns k0..k1 hold T^T = (L[k, :k0] X[:k0, :k0])^T
+// item): out = a . X_k^T, 32 rows a of columns k0..k1, in place. Per
+// panel, jobs [0, nd) are the trailing diagonal rows k1 + 32 j, [nd, nd +
+// nbl) the below rows (out = x), [nd + nbl, nd + nbl + k0 / 32) the rows
+// 32 j of X^T, whose columns k0..k1 hold T^T = (L[k, :k0] X[:k0, :k0])^T
 // as the update grids of earlier steps summed it (out = -X^T[rows,
-// k0:k1]). Warp (wm, wn) owns the 32 x 32 outputs at (32 wm, 32 wn).
-// Shared memory: As (64 x kAld, the rows) and Xs (kNb x kXld: X_k^T,
-// 1 / diag L on its diagonal, zero below).
+// k0:k1]). All warps stage, warps 0-3 own the outputs' 32-column blocks:
+// 32-row jobs spread a step's rows over twice as many SMs as 64-row ones.
+// Shared memory: As (32 x kAld, the rows) and Xs (kNb x kXld: X_k^T,
+// 1 / diag L on its diagonal, zero below, from the tile's dense copy).
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-    wide_rows_kernel(T* data, int64_t bstride, const T* dx,
+    wide_rows_kernel(T* data, int64_t bstride, const T* xk,
                      const int64_t* off, const int64_t* rows,
                      const int64_t* cols, int64_t B, int cp, int rp, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -251,10 +304,9 @@ __global__ void __launch_bounds__(kRowThreads)
   const int64_t i = blockIdx.x / jobs, z = blockIdx.y;
   const int j = blockIdx.x % jobs;
   T* const P = data + z * bstride + off[i];
-  const T* const D = dx + (z * B + i) * cp + k0;
+  const T* const Xk = xk + (z * B + i) * kNb * kNb;
   const int n = (int)cols[i], nr = (int)rows[i], w = tile_width(n, k0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
   const int64_t ld = cp;
   const bool inv = j >= nd + nbl;
   int r0, cnt;  // the block's first panel row, its real rows
@@ -274,34 +326,27 @@ __global__ void __launch_bounds__(kRowThreads)
     }
   }
   if (cnt <= 0 || w == 0) return;  // padding rows or columns: left as is
-  for (int e = tid; e < kRows * kNb; e += kRowThreads) {
-    const int r = e / kNb, c = e % kNb;
-    const bool ok = r < cnt;
-    cp_async_el(As + r * kAld + c, ok ? P + (r0 + r) * ld + k0 + c : P,
-                ok ? (int)sizeof(T) : 0);
-  }
-  // X_k^T: Xs[m][c] = X_k[c][m]
-  for (int e = tid; e < kNb * kNb; e += kRowThreads) {
-    const int m = e / kNb, c = e % kNb;
-    T* dst = Xs + m * kXld + c;
-    if (m < c)
-      cp_async_el(dst, P + (k0 + m) * ld + k0 + c);
-    else
-      *dst = m == c ? D[c] : T(0);
-  }
+  stage_rows(As, kAld,
+             [&](int r) -> const T* {
+               return r < cnt ? P + (r0 + r) * ld + k0 : nullptr;
+             },
+             kRows, kNb, 0, aligned16(P), P, tid, kRowThreads);
+  // X_k^T, as the tile wrote it: Xs[m][c] = X_k[c][m]
+  stage_rows(Xs, kXld, [&](int m) -> const T* { return Xk + m * kNb; }, kNb,
+             kNb, 0, true, Xk, tid, kRowThreads);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  // out[r][c] = sum_{m < w} As[r][m] X_k[c][m], by 32 columns in order
+  // out[r][c] = sum_{m < w} As[r][m] X_k[c][m], by 32 columns in order;
+  // warp w the columns 32 w..
+  if (warp >= 4) return;
   T acc[4][4][2] = {};
-  const T* a = As + wm * 32 * kAld;
-  const T* b = Xs + wn * 32;
+  const T* b = Xs + warp * 32;
   for (int m0 = 0; m0 < w; m0 += kTk)
-    mma32(acc, [&](int r, int k) { return a[r * kAld + m0 + k]; },
+    mma32(acc, [&](int r, int k) { return As[r * kAld + m0 + k]; },
           [&](int c, int k) { return b[(m0 + k) * kXld + c]; }, lane);
   acc_each(acc, lane, [&](T& v, int r, int c) {
-    if (wm * 32 + r < cnt)
-      P[(r0 + wm * 32 + r) * ld + k0 + wn * 32 + c] = inv ? -v : v;
+    if (r < cnt) P[(r0 + r) * ld + k0 + warp * 32 + c] = inv ? -v : v;
   });
 }
 
@@ -324,12 +369,14 @@ __global__ void __launch_bounds__(kRowThreads)
 //                              reaches T^T[c] (c in block k) writes it.
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads)
-    wide_update_kernel(T* data, int64_t bstride, const T* dx,
+    wide_update_kernel(T* data, int64_t bstride, const T* xk,
                        const int64_t* off, const int64_t* rows,
                        const int64_t* cols, int64_t B, int cp, int rp,
                        int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
+  T* const sm = reinterpret_cast<T*>(smem_raw);  // two stages of 128 rows
+  const T** const rs =
+      reinterpret_cast<const T**>(sm + 2 * 2 * kTile * kTld);  // 128 rows
   const int k1 = k0 + kNb;
   const int m = (cp - k1) / kTile, tri = m * (m + 1) / 2;
   const int below_end = tri + (rp + kTile - 1) / kTile * m;
@@ -354,33 +401,39 @@ __global__ void __launch_bounds__(kTileThreads)
                                                     : r0 >= nd)))
     return;
   T* const P = data + z * bstride + off[i];
-  const T* const Dk = dx + (z * B + i) * cp + k0;
+  const T* const Xk = xk + (z * B + i) * kNb * kNb;
   const T* const X = P + (int64_t)k1 * cp + k0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nchunk = (w + kTk - 1) / kTk;
-  // rows 0..63 of a stage: x rows r0.. or X^T rows r0..; 64..127: x rows
-  // c0..
+  const bool vec = aligned16(P);
+  // the staged rows' sources: 0..63 x rows r0.. (or X^T rows r0.., the
+  // tile's own from its dense copy), 64..127 x rows c0..; null: zeros
+  {
+    const int r = tid;
+    const T* src;
+    if (kind == 2 && r < kTile) {
+      const int c = r0 + r;
+      src = c < k0 ? P + (int64_t)c * cp + k0 : Xk + (c - k0) * kNb;
+    } else {
+      const int R = r < kTile ? r0 + r : c0 + r - kTile;
+      src = R < nx ? X + (int64_t)R * cp : nullptr;
+    }
+    rs[r] = src;
+  }
+  __syncthreads();
   const auto stage = [&](int ci) {
     T* b = sm + (ci & 1) * 2 * kTile * kTld;
-    const int q0 = ci * kTk;
-    for (int e = tid; e < 2 * kTile * kTk; e += kTileThreads) {
-      const int r = e / kTk, q = q0 + e % kTk;
-      T* dst = b + r * kTld + e % kTk;
-      if (kind == 2 && r < kTile) {
-        const int c = r0 + r;  // X^T[c][k0 + q]
-        if (c < k0 || q > c - k0)
-          cp_async_el(dst, P + (int64_t)c * cp + k0 + q);
-        else
-          *dst = q == c - k0 ? Dk[q] : T(0);
-      } else {
-        const int R = r < kTile ? r0 + r : c0 + r - kTile;
-        const bool ok = R < nx;
-        cp_async_el(dst, ok ? X + (int64_t)R * cp + q : X,
-                    ok ? (int)sizeof(T) : 0);
-      }
-    }
+    stage_rows(b, kTld, [&](int r) { return rs[r]; }, 2 * kTile, kTk,
+               ci * kTk, vec, P, tid, kTileThreads);
     cp_async_commit();
   };
+  // the outputs' old values, for the update (kind 2: unless this step
+  // writes the partial sums first), into the stage buffer the last chunk
+  // does not use, while that chunk loads and multiplies
+  constexpr int kCld = 2 * kTld;  // 64 x kCld fills a stage buffer
+  T* const o = kind == 2 ? P + (int64_t)r0 * cp + k1 + c0
+                         : P + (int64_t)(k1 + r0) * cp + k1 + c0;
+  const bool rmw = kind != 2 || r0 < k0;
   T acc[4][4][2] = {};
   stage(0);
   for (int ci = 0; ci < nchunk; ++ci) {
@@ -388,7 +441,18 @@ __global__ void __launch_bounds__(kTileThreads)
       stage(ci + 1);  // its buffer was last read in chunk ci - 1
       cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      if (rmw) {
+        stage_rows(sm + ((ci + 1) & 1) * 2 * kTile * kTld, kCld,
+                   [&](int r) -> const T* {
+                     return kind != 2 && r0 + r >= nx ? nullptr
+                                                      : o + (int64_t)r * cp;
+                   },
+                   kTile, kTile, 0, vec, P, tid, kTileThreads);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
     }
     __syncthreads();
     const T* a = sm + (ci & 1) * 2 * kTile * kTld + (warp >> 1) * 32 * kTld;
@@ -396,36 +460,39 @@ __global__ void __launch_bounds__(kTileThreads)
                  (kTile + (warp & 1) * 32) * kTld;
     mma32(acc, [&](int r, int k) { return a[r * kTld + k]; },
           [&](int c, int k) { return b[c * kTld + k]; }, lane);
-    __syncthreads();  // chunk ci's buffer may be refilled
+    if (ci + 1 < nchunk) __syncthreads();  // chunk ci's buffer may be refilled
   }
-  const int wr = r0 + (warp >> 1) * 32, wc = c0 + (warp & 1) * 32;
+  cp_async_wait<0>();
+  __syncthreads();
+  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;
+  const T* const old = sm + (nchunk & 1) * 2 * kTile * kTld;
   if (kind == 2) {
-    const bool first = r0 >= k0;
     acc_each(acc, lane, [&](T& v, int r, int c) {
-      T* o = P + (int64_t)(wr + r) * cp + k1 + wc + c;
-      *o = first ? v : *o + v;
+      if (rmw) v += old[(wr + r) * kCld + wc + c];
+      o[(int64_t)(wr + r) * cp + wc + c] = v;
     });
   } else {
     acc_each(acc, lane, [&](T& v, int r, int c) {
-      const int R = wr + r, C = wc + c;
+      const int R = r0 + wr + r, C = c0 + wc + c;
       if (C < nd && (kind == 1 ? R - m * kTile < nr : (R < nd && C <= R)))
-        P[(int64_t)(k1 + R) * cp + k1 + C] -= v;
+        o[(int64_t)(wr + r) * cp + wc + c] = old[(wr + r) * kCld + wc + c] - v;
     });
   }
 }
 
 template <typename T>
-int launch(void* data, int64_t bstride, void* dx, const int64_t* off,
+int launch(void* data, int64_t bstride, void* xk, const int64_t* off,
            const int64_t* rows, const int64_t* cols, int64_t B, int cp,
            int rp, int batch, cudaStream_t stream) {
   if (cp % kNb || cp <= 4 * kNb) return (int)cudaErrorInvalidValue;
   T* d = static_cast<T*>(data);
-  T* x = static_cast<T*>(dx);
+  T* x = static_cast<T*>(xk);
   const int tile_smem =
       (int)(((size_t)kNb * kTls + kNb + kSub * kDbld) * sizeof(T));
   const int rows_smem =
       (int)(((size_t)kRows * kAld + (size_t)kNb * kXld) * sizeof(T));
-  const int upd_smem = (int)(2 * 2 * kTile * kTld * sizeof(T));
+  const int upd_smem =
+      (int)(2 * 2 * kTile * kTld * sizeof(T) + 2 * kTile * sizeof(void*));
   cudaError_t e = cudaFuncSetAttribute(
       wide_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       tile_smem);
@@ -463,19 +530,20 @@ int launch(void* data, int64_t bstride, void* dx, const int64_t* off,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64; dx a scratch of batch x B x cp values.
+// dtype: 0 float32, 1 float64; xk a scratch of batch x B x 128 x 128
+// values (16-byte aligned).
 // Launches 3 cp / 128 - 1 grids; returns the first cudaError_t.
 extern "C" int bs_wide_factor(int dtype, void* data, int64_t bstride,
-                              void* dx, const int64_t* off,
+                              void* xk, const int64_t* off,
                               const int64_t* rows, const int64_t* cols,
                               int64_t B, int cp, int rp, int batch,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(data, bstride, dx, off, rows, cols, B, cp, rp,
+    return launch<float>(data, bstride, xk, off, rows, cols, B, cp, rp,
                          batch, s);
   if (dtype == 1)
-    return launch<double>(data, bstride, dx, off, rows, cols, B, cp, rp,
+    return launch<double>(data, bstride, xk, off, rows, cols, B, cp, rp,
                           batch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -295,7 +295,8 @@ def wide_factor(data, off, rows, cols, cp: int, rp: int, off_h,
     below; no product. On the card, one C call runs the whole schedule
     (csrc/wide_factor.cu: per diagonal tile a tile grid, a rows grid and,
     but after the last tile, an update grid, each over every panel and
-    batch item), with 1 / diag L in a cached scratch. off_h / cols_h are
+    batch item), with each diagonal tile's dense Linv^T in a cached
+    scratch. off_h / cols_h are
     host copies of off / cols (the twin's per-panel views need them)."""
     if data.device.type == "cpu":
         return wide_factor_twin(data, off, rows, cols, cp, rp, off_h,
@@ -306,10 +307,10 @@ def wide_factor(data, off, rows, cols, cp: int, rp: int, off_h,
         raise ValueError(f"wide_factor: cp {cp} is not a multiple of {nb} "
                          f"above {NARROW_MAX}")
     batch, B = data.shape[0], off.shape[0]
-    dx = _scratch(data, batch * B * cp)
+    xk = _scratch(data, batch * B * nb * nb)
     err = _lib().bs_wide_factor(
         _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
-        dx.data_ptr(), off.data_ptr(), rows.data_ptr(), cols.data_ptr(), B,
+        xk.data_ptr(), off.data_ptr(), rows.data_ptr(), cols.data_ptr(), B,
         cp, rp, batch, _stream(data))
     COUNTS["wide_factor"].launches += 1
     COUNTS["wide_factor"].grid_launches += 3 * (cp // nb) - 1
@@ -748,7 +749,7 @@ def _scratch(like, n: int, dtype=None) -> torch.Tensor:
     grown as needed, so that a call allocates nothing: calls on one
     stream run in order, and no call reads what an earlier one left
     (K3-rest wide's pre kernel zeroes its flags; K5 writes every partial
-    it reads; K1-wide's tiles write every 1 / diag L it reads)."""
+    it reads; K1-wide's tiles write every Linv^T tile it reads)."""
     dtype = dtype or like.dtype
     key = (like.device, dtype, _stream(like))
     buf = _SCRATCH.get(key)

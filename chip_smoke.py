@@ -649,7 +649,9 @@ def k1w_levels(cases, name_limit: str) -> list:
     data single f64)), each call's panels packed as a bucket of their
     own, as [cp, rp, panels, widest real width, most real below rows]:
     against its twin in f64 and f32 (CheckedOps); a batch of two (the
-    second item scaled) against single runs and a rerun, bitwise; the
+    second item scaled) against single runs and a rerun, bitwise, and
+    the bucket moved one value on (its panels off 16-byte alignment)
+    against itself, bitwise; the
     wrapper's ms by CUDA events, its twin's; device ms per grid from a
     trace that shows every grid of every run (complete_trace), with the
     trace's device busy ms per call and its kernels' ms; the bound
@@ -690,6 +692,16 @@ def k1w_levels(cases, name_limit: str) -> list:
                           f"{what}: batch item {b} differs from its single "
                           "run")
             del two, one
+            # the bucket one value further on, off the 16-byte alignment
+            # the grids stage by: the same bits, value by value
+            ref, moved = snap.clone(), snap.new_zeros((1, snap.shape[1] + 1))
+            moved[:, 1:] = snap
+            kernels.wide_factor(ref, *bucket)
+            kernels.wide_factor(moved, off + 1, rows, cols, cp, rp,
+                                tuple(o + 1 for o in off_h), cols_h)
+            check(torch.equal(moved[:, 1:], ref),
+                  f"{what}: one value further on, the result differs")
+            del ref, moved
             w = snap.clone()
             run = functools.partial(kernels.wide_factor, w, *bucket)
             row["ms"] = time_ms(run, 10)

@@ -5,9 +5,9 @@ _blocked_lower_inv + _embed_inv), f64 on the CPU.
 
 Per diagonal tile k of 128 columns, three grids over every panel:
   wide_tile    the tile's blocked factor and inverse by 32-column
-               sub-blocks (right-looking, the next diagonal block one
-               step ahead), then the tile's inverse by block rows;
-  wide_rows    64-row jobs: x = a . X_k^T for the rows below the tile,
+               sub-blocks, both right-looking (the next diagonal block
+               one step ahead);
+  wide_rows    32-row jobs: x = a . X_k^T for the rows below the tile,
                and block row k of the inverse, stored transposed:
                X^T[rows, k0:k1] = -T^T X_k^T, T^T the partial sums that
                earlier steps left there;
@@ -37,7 +37,7 @@ torch.set_num_threads(1)
 
 RTOL = 1e-10  # f64: XLA, torch and the model sum in different orders, and
 #               the stored inverse amplifies rounding
-NB, SUB, ROWS, TILE = 128, 32, 64, 64  # wide_factor.cu kNb, kSub, kRows,
+NB, SUB, ROWS, TILE = 128, 32, 32, 64  # wide_factor.cu kNb, kSub, kRows,
 #                                        warp_tiles.cuh kTile
 
 # cp, rp, real widths, real below rows, NaN in the input's strict upper
@@ -94,18 +94,22 @@ def x_of(A, dx):
 
 def tile_model(T, w):
     """wide_tile on one diagonal tile (its lower triangle read, real
-    width w): the stored tile (zero outside w) and dx (zero past w).
-    Sub-block p's diagonal block is factored once the update of step
-    p - 1 has reached it; the rest of that update runs beside it, which
-    changes no sum."""
+    width w): the stored tile (zero outside w) and dx (zero past w). At
+    sub-block p: the diagonal block's factor and inverse, the rows below
+    it, the trailing update, and the inverse carried forward: X^T[j][p] =
+    -T^T[j][p] X_p^T from the partial sums T^T stored in its place, then
+    T^T[j][i] (+)= X^T[j][p] L[i][p]^T for the later blocks i. Sub-block
+    p + 1's diagonal block is factored once its own update is done; the
+    rest runs beside it, which changes no sum."""
     A, dx = np.zeros((NB, NB)), np.zeros(NB)
     A[:w, :w] = np.tril(T[:w, :w])
     nb = -(-w // SUB)
+    blk = lambda i: slice(i * SUB, (i + 1) * SUB)
     for p in range(nb):
         p0, q0 = p * SUB, (p + 1) * SUB
         _warp_chol_inv(A, dx, p0, min(SUB, w - p0))
         with np.errstate(invalid="ignore"):
-            Xp = x_of(A[p0:q0, p0:q0], dx[p0:q0])
+            Xp = x_of(A[blk(p), blk(p)], dx[blk(p)])
             A[q0:, p0:q0] = chunked(A[q0:, p0:q0], Xp, SUB)
             m = nb - p - 1
             for t in range(m * (m + 1) // 2):
@@ -113,16 +117,14 @@ def tile_model(T, w):
                 r, c = q0 + I * SUB, q0 + J_ * SUB
                 A[r:r + SUB, c:c + SUB] -= chunked(
                     A[r:r + SUB, p0:q0], A[c:c + SUB, p0:q0], SUB)
-    with np.errstate(invalid="ignore"):
-        for i in range(1, nb):  # S = L[i, :i] X[:i, :i]; X[i, :i] = -Dinv S
-            r0 = i * SUB
-            dinv = x_of(A[r0:r0 + SUB, r0:r0 + SUB], dx[r0:r0 + SUB])
-            for C in range(i):
-                c0 = C * SUB
-                xt = np.triu(A[c0:c0 + SUB, c0:r0], 1)
-                xt[:, :SUB] += np.diag(dx[c0:c0 + SUB])
-                st = chunked(xt, A[r0:r0 + SUB, c0:r0], r0 - c0)
-                A[c0:c0 + SUB, r0:r0 + SUB] = -chunked(st, dinv, SUB)
+            for j in range(p + 1):
+                if j < p:
+                    A[blk(j), blk(p)] = -chunked(A[blk(j), blk(p)], Xp, SUB)
+                xt = A[blk(j), blk(p)] if j < p else Xp.T
+                for i in range(p + 1, nb):
+                    acc = chunked(xt, A[blk(i), blk(p)], SUB)
+                    A[blk(j), blk(i)] = acc if j == p else \
+                        acc + A[blk(j), blk(i)]
     A[w:], A[:, w:] = 0.0, 0.0
     return A, dx
 
