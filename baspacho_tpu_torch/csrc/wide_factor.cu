@@ -112,6 +112,16 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const F& src,
   }
 }
 
+// The dense Linv^T of diagonal tile k0 / kNb of panel i, batch item z:
+// two slots a panel, by the tile's parity, so that tile k + 1 may write
+// its own while step k's update grid still reads tile k's.
+template <typename T>
+__device__ __forceinline__ T* xk_tile(T* xk, int k0, int64_t z, int64_t B,
+                                      int64_t i) {
+  const int64_t slot = ((k0 / kNb) & 1) * (int64_t)gridDim.y + z;
+  return xk + (slot * B + i) * kNb * kNb;
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -148,10 +158,14 @@ __global__ void __launch_bounds__(kTileCta)
   T* const A = reinterpret_cast<T*>(smem_raw);  // kNb x kTls
   T* const dxs = A + kNb * kTls;                 // kNb
   T* const dbuf = dxs + kNb;                     // kSub x kDbld
+  T* const xs = dbuf + kSub * kDbld;             // kNb x kTld
+  // step k - 1's update grid may start beside this tile (its launch is
+  // programmatic on this one's)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int64_t i = blockIdx.x, B = gridDim.x;
   const int64_t ld = cp;
   T* const P = data + (int64_t)blockIdx.y * bstride + off[i] + k0 * ld + k0;
-  T* const Xk = xk + ((int64_t)blockIdx.y * B + i) * kNb * kNb;
+  T* const Xk = xk_tile(xk, k0, blockIdx.y, B, i);
   const int w = tile_width(cols[i], k0), nbs = (w + kSub - 1) / kSub;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int t0 = 0; t0 < kNb * kNb; t0 += 8 * kTileCta) {  // 8 in flight
@@ -169,6 +183,48 @@ __global__ void __launch_bounds__(kTileCta)
   }
   for (int t = tid; t < kNb; t += kTileCta) dxs[t] = T(0);
   __syncthreads();
+  // the update of step k - 1 on this tile, which that step's update grid
+  // leaves to it: A[I][J] -= x_I x_J^T over the previous block's columns,
+  // the 10 lower 32 x 32 blocks (warps 0, 1 take two), 32 columns at a
+  // time in order, as the update grid sums
+  if (k0 > 0 && w > 0) {
+    T acc[2][4][4][2] = {};
+    for (int ci = 0; ci < kNb / kTk; ++ci) {
+      stage_rows(xs, kTld,
+                 [&](int r) -> const T* {
+                   return r < w ? P + r * ld - kNb : nullptr;
+                 },
+                 kNb, kTk, ci * kTk, aligned16(P), P, tid, kTileCta);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && warp >= 2) break;
+        int I, J;
+        tri_tile(warp + kTileWarps * h, I, J);
+        const T* xi = xs + I * kSub * kTld;
+        const T* xj = xs + J * kSub * kTld;
+        mma32(acc[h], [&](int r, int k) { return xi[r * kTld + k]; },
+              [&](int c, int k) { return xj[c * kTld + k]; }, lane);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && warp >= 2) break;
+      int I, J;
+      tri_tile(warp + kTileWarps * h, I, J);
+      T* blk = A + I * kSub * kTls + J * kSub;
+      acc_each(acc[h], lane, [&](T& v, int r, int c) {
+        v = blk[r * kTls + c] - v;
+      });
+      acc_each(acc[h], lane, [&](T& v, int r, int c) {
+        blk[r * kTls + c] = v;
+      });
+    }
+    __syncthreads();
+  }
 
   // warp 0: diagonal block p factored and inverted in dbuf, written back
   const auto factor_diag = [&](int p) {
@@ -304,7 +360,7 @@ __global__ void __launch_bounds__(kRowThreads)
   const int64_t i = blockIdx.x / jobs, z = blockIdx.y;
   const int j = blockIdx.x % jobs;
   T* const P = data + z * bstride + off[i];
-  const T* const Xk = xk + (z * B + i) * kNb * kNb;
+  const T* const Xk = xk_tile(xk, k0, z, B, i);
   const int n = (int)cols[i], nr = (int)rows[i], w = tile_width(n, k0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t ld = cp;
@@ -373,6 +429,11 @@ __global__ void __launch_bounds__(kTileThreads)
                        const int64_t* off, const int64_t* rows,
                        const int64_t* cols, int64_t B, int cp, int rp,
                        int k0) {
+  // this grid starts beside tile k + 1's (programmatic launch); its last
+  // CTA waits for that grid, so that the next step's rows grid, which
+  // waits for this one, finds tile k + 1 done
+  if (blockIdx.x == gridDim.x - 1 && blockIdx.y == gridDim.y - 1)
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);  // two stages of 128 rows
   const T** const rs =
@@ -395,13 +456,15 @@ __global__ void __launch_bounds__(kTileThreads)
   const int nd = n - k1;  // real trailing diagonal rows and columns
   const int nx = m * kTile + nr;  // the trailing rows held in memory
   const int r0 = I * kTile, c0 = J * kTile;
-  // uniform over the CTA: no real column, or no real row
+  // uniform over the CTA: no real column, or no real row, or a part of
+  // tile k + 1 (which updates itself)
   if (w == 0 || (kind == 2 ? c0 >= (n + kNb - 1) / kNb * kNb - k1
                            : c0 >= nd || (kind == 1 ? r0 - m * kTile >= nr
-                                                    : r0 >= nd)))
+                                                    : r0 >= nd)) ||
+      (kind == 0 && r0 < kNb))
     return;
   T* const P = data + z * bstride + off[i];
-  const T* const Xk = xk + (z * B + i) * kNb * kNb;
+  const T* const Xk = xk_tile(xk, k0, z, B, i);
   const T* const X = P + (int64_t)k1 * cp + k0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nchunk = (w + kTk - 1) / kTk;
@@ -487,8 +550,8 @@ int launch(void* data, int64_t bstride, void* xk, const int64_t* off,
   if (cp % kNb || cp <= 4 * kNb) return (int)cudaErrorInvalidValue;
   T* d = static_cast<T*>(data);
   T* x = static_cast<T*>(xk);
-  const int tile_smem =
-      (int)(((size_t)kNb * kTls + kNb + kSub * kDbld) * sizeof(T));
+  const int tile_smem = (int)(((size_t)kNb * kTls + kNb + kSub * kDbld +
+                               (size_t)kNb * kTld) * sizeof(T));
   const int rows_smem =
       (int)(((size_t)kRows * kAld + (size_t)kNb * kXld) * sizeof(T));
   const int upd_smem =
@@ -506,21 +569,42 @@ int launch(void* data, int64_t bstride, void* xk, const int64_t* off,
                              upd_smem);
   if (e != cudaSuccess) return (int)e;
   const int nbl = (rp + kRows - 1) / kRows;
-  for (int k0 = 0; k0 < cp; k0 += kNb) {
-    const int k1 = k0 + kNb;
+  const auto tile = [&](int k0) {
     wide_tile_kernel<T><<<dim3((unsigned)B, batch), kTileCta, tile_smem,
                           stream>>>(d, bstride, x, off, cols, cp, k0);
-    const int jobs = (cp - k1) / kRows + nbl + k0 / kRows;  // > 0: cp > 512
+  };
+  const auto rows_grid = [&](int k0) {
+    const int jobs = (cp - k0 - kNb) / kRows + nbl + k0 / kRows;  // > 0
     wide_rows_kernel<T><<<dim3((unsigned)(B * jobs), batch), kRowThreads,
                           rows_smem, stream>>>(d, bstride, x, off, rows,
                                                cols, B, cp, rp, k0);
+  };
+  // per step: the rows grid, then tile k + 1 (which applies step k's
+  // update to itself), then step k's update grid, launched programmatically
+  // on the tile so that it fills the card beside the tile's CTAs
+  tile(0);
+  for (int k0 = 0; k0 < cp; k0 += kNb) {
+    const int k1 = k0 + kNb;
+    rows_grid(k0);
     if (k1 < cp) {
+      tile(k1);
       const int m = (cp - k1) / kTile;
       const int per = m * (m + 1) / 2 + (rp + kTile - 1) / kTile * m +
                       k1 / kTile * m;
-      wide_update_kernel<T><<<dim3((unsigned)(B * per), batch),
-                              kTileThreads, upd_smem, stream>>>(
-          d, bstride, x, off, rows, cols, B, cp, rp, k0);
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3((unsigned)(B * per), batch);
+      cfg.blockDim = dim3(kTileThreads);
+      cfg.dynamicSmemBytes = upd_smem;
+      cfg.stream = stream;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr[0].val.programmaticStreamSerializationAllowed = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      e = cudaLaunchKernelEx(&cfg, wide_update_kernel<T>, d, bstride,
+                             static_cast<const T*>(x), off, rows, cols, B,
+                             cp, rp, k0);
+      if (e != cudaSuccess) return (int)e;
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -530,7 +614,7 @@ int launch(void* data, int64_t bstride, void* xk, const int64_t* off,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64; xk a scratch of batch x B x 128 x 128
+// dtype: 0 float32, 1 float64; xk a scratch of 2 x batch x B x 128 x 128
 // values (16-byte aligned).
 // Launches 3 cp / 128 - 1 grids; returns the first cudaError_t.
 extern "C" int bs_wide_factor(int dtype, void* data, int64_t bstride,

@@ -307,7 +307,7 @@ def wide_factor(data, off, rows, cols, cp: int, rp: int, off_h,
         raise ValueError(f"wide_factor: cp {cp} is not a multiple of {nb} "
                          f"above {NARROW_MAX}")
     batch, B = data.shape[0], off.shape[0]
-    xk = _scratch(data, batch * B * nb * nb)
+    xk = _scratch(data, 2 * batch * B * nb * nb)
     err = _lib().bs_wide_factor(
         _DTYPE_CODE[data.dtype], data.data_ptr(), data.shape[1],
         xk.data_ptr(), off.data_ptr(), rows.data_ptr(), cols.data_ptr(), B,

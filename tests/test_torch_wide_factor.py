@@ -4,15 +4,17 @@ routine it ports, PlannedBackend._factor_bucket (_blocked_factor +
 _blocked_lower_inv + _embed_inv), f64 on the CPU.
 
 Per diagonal tile k of 128 columns, three grids over every panel:
-  wide_tile    the tile's blocked factor and inverse by 32-column
+  wide_tile    step k - 1's update of the tile's own lower triangle,
+               then the tile's blocked factor and inverse by 32-column
                sub-blocks, both right-looking (the next diagonal block
                one step ahead);
   wide_rows    32-row jobs: x = a . X_k^T for the rows below the tile,
                and block row k of the inverse, stored transposed:
                X^T[rows, k0:k1] = -T^T X_k^T, T^T the partial sums that
                earlier steps left there;
-  wide_update  64 x 64 tiles of the trailing lower tile triangle and of
-               the below rows, C -= x x^T on real lower elements only;
+  wide_update  64 x 64 tiles of the trailing lower tile triangle (but
+               tile k + 1's) and of the below rows, C -= x x^T on real
+               lower elements only;
                and of the inverse's partial sums, T^T[c][r] (+)=
                X^T[c][k0:k1] . x_r for c < k1 and the trailing rows r of
                the real 128-column blocks (written, not added, by the
@@ -150,7 +152,8 @@ def rows_jobs(cp, rp, k0, n, nr):
 
 def update_tiles(cp, rp, k0, n, nr):
     """wide_update_kernel's tiles of one panel at step k: the written
-    elements of each, as (panel rows, panel columns) index arrays."""
+    elements of each, as (panel rows, panel columns) index arrays. The
+    lower triangle of tile k + 1 is left to that tile (tile_pre)."""
     k1, w = k0 + NB, max(0, min(NB, n - k0))
     m = (cp - k1) // TILE
     tri = m * (m + 1) // 2
@@ -161,8 +164,8 @@ def update_tiles(cp, rp, k0, n, nr):
                                              (t - tri) % m)
         r0, c0, below = I * TILE, J_ * TILE, I >= m
         if w == 0 or c0 >= nd or (r0 - m * TILE >= nr if below
-                                  else r0 >= nd):
-            continue
+                                  else r0 >= nd) or (not below and r0 < NB):
+            continue  # ... or a part of tile k + 1, which updates itself
         R, C = np.meshgrid(np.arange(r0, r0 + TILE),
                            np.arange(c0, c0 + TILE), indexing="ij")
         ok = (C < nd) & ((R - m * TILE < nr) if below
@@ -180,12 +183,28 @@ def inv_tiles(cp, k0, n):
             for J_ in range(m) if w > 0 and J_ * TILE < rend - k1]
 
 
+def tile_pre(P, k0, n):
+    """wide_tile's first part for k0 > 0: step k - 1's update of the
+    tile's own lower triangle, over the previous block's columns, as the
+    update grid would sum it."""
+    w = max(0, min(NB, n - k0))
+    if k0 == 0 or w == 0:
+        return
+    x = P[k0:k0 + NB, k0 - NB:k0].copy()
+    x[w:] = 0.0
+    with np.errstate(invalid="ignore"):
+        acc = chunked(x, x, NB)
+    low = np.tril(np.ones((NB, NB), dtype=bool))
+    P[k0:k0 + NB, k0:k0 + NB][low] -= acc[low]
+
+
 def wide_model(panel, n, nr, cp, rp):
     """One panel ((cp + rp) x cp, as stored) through the kernels'
     schedule; returns the stored panel. Checks each step's writes."""
     P, dx = panel.copy(), np.zeros(cp)
     for k0 in range(0, cp, NB):
         k1, w = k0 + NB, max(0, min(NB, n - k0))
+        tile_pre(P, k0, n)
         P[k0:k1, k0:k1], dx[k0:k1] = tile_model(P[k0:k1, k0:k1], w)
         Xk = x_of(P[k0:k1, k0:k1], dx[k0:k1])
         wrote = np.zeros(P.shape, dtype=int)
@@ -287,7 +306,8 @@ def test_wide_grids_cover_each_element_once(case):
     as a partial sum by the first step whose tiles reach it; the rows
     jobs write the real rows below each tile once; the update tiles
     write exactly the real lower trailing elements and the real below
-    rows' trailing columns."""
+    rows' trailing columns, but for tile k + 1's lower triangle, which
+    that tile updates itself."""
     _, cols, nrow, cp, rp = bucket(case)
     for n, nr in zip(cols, nrow):
         upper = np.zeros((cp, cp), dtype=int)
@@ -310,6 +330,7 @@ def test_wide_grids_cover_each_element_once(case):
             if k0 < n:
                 want[k1:n, k1:n] = np.tril(np.ones((n - k1, n - k1), int)) \
                     if n > k1 else 0
+                want[k1:k1 + NB, k1:k1 + NB] = 0  # tile k + 1's own
                 want[cp:cp + nr, k1:n] = 1
             assert (got == want).all()
             partial = np.zeros((cp, cp), dtype=int)
