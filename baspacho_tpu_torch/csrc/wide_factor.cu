@@ -8,17 +8,17 @@
 // it, x = below . L^-T in the below rows.
 //
 // bs_wide_factor runs the right-looking blocked schedule for every panel
-// and batch item of a bucket at once: per diagonal tile k (columns k0 =
-// k kNb .. k1 = k0 + kNb), three ordinary grids in order on the caller's
-// stream (batch item = blockIdx.y):
-//   wide_tile    one CTA per (panel, batch item) factors and inverts the
-//                diagonal tile in shared memory by 32-column sub-blocks,
-//                its products on the tensor cores, and writes it back in
-//                the stored layout (L, the tile's Linv^T above its
-//                diagonal), 1 / diag L into dx, a (batch, B, cp) scratch
-//                every value of which a tile writes before any grid
-//                reads it;
-//   wide_rows    one CTA per (panel, 64-row block, batch item), 64 x 128
+// and batch item of a bucket at once, three kinds of ordinary grid per
+// diagonal tile k (columns k0 = k kNb .. k1 = k0 + kNb) on the caller's
+// stream, batch item = blockIdx.y:
+//   wide_tile    one CTA per (panel, batch item): applies step k - 1's
+//                update to the tile's own lower triangle, then factors and
+//                inverts the tile in shared memory by 32-column
+//                sub-blocks, products on the tensor cores, and writes it
+//                back in the stored layout (L, the tile's Linv^T above its
+//                diagonal) and densely (Linv^T with 1 / diag L on the
+//                diagonal) into a scratch slot of its own;
+//   wide_rows    one CTA per (panel, 32-row block, batch item), 32 x 128
 //                outputs of a product with X_k = the tile's Linv, in
 //                place (a CTA owns whole 128-column rows):
 //                - x = a . X_k^T for the rows below tile k (the trailing
@@ -29,24 +29,29 @@
 //                  steps' wide_update;
 //   wide_update  one CTA per (panel, 64 x 64 tile, batch item) over the
 //                tile's 128 columns:
-//                - the trailing lower tile triangle and the below rows
-//                  against the trailing columns: C -= x x^T on real lower
-//                  elements;
+//                - the trailing lower tile triangle (but tile k + 1's
+//                  own) and the below rows against the trailing columns:
+//                  C -= x x^T on real lower elements;
 //                - the inverse's partial sums, right-looking: T^T[c][r]
 //                  (+)= X^T[c][k0:k1] . x_r for the rows c < k1 and the
 //                  trailing rows r, so that _blocked_lower_inv's sweep
 //                  (X[i, :i] = -Dinv_i L[i, :i] X[:i, :i]) is spread over
 //                  the steps in products of 128 columns, not a chain of
 //                  ever longer ones after the factor.
+// Order: tile 0, then per step rows k, tile k + 1, update k. The update
+// grid is launched programmatically on tile k + 1's (griddepcontrol):
+// it fills the card beside the tile's CTAs, and its last CTA waits for
+// the tile grid, so that rows k + 1, an ordinary launch, finds both done.
 // 3 cp / kNb - 1 grids a call. Every product sums on the f64 tensor cores
 // (mma.m8n8k4 through mma32, warp_tiles.cuh), FMAs in f32, each output in
 // one fixed column order: a batch item and a single run agree bitwise,
 // and so do reruns. No atomics.
 //
 // Bounds (H100, f64): the chain of diagonal tiles (one SM each, cp / 128
-// in turn, four warp_chol_inv each) and the launch gaps between the
-// 3 cp / 128 grids; the products (2 n^3 / 3 + r n^2 flops in all) are
-// spread over the card, but early steps fill it and late ones do not.
+// in turn, four 32 x 32 warp factorizations each, whose unrolled code
+// runs cold on an SM that ran other grids since) and the rows grid
+// between them; the products (2 n^3 / 3 + r n^2 flops in all) are spread
+// over the card beside the tile.
 //
 // Real width n = cols[i], real below rows rows[i]: rows and columns past
 // them are padding (zero on entry), left as they are in L and x and
@@ -57,6 +62,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "warp_tiles.cuh"
 
@@ -328,11 +335,25 @@ __global__ void __launch_bounds__(kTileCta)
     __syncthreads();
   }
 
-  for (int t = tid; t < kNb * kNb; t += kTileCta) {
+  // written back 16 bytes at a time where the panel allows
+  using V = typename std::conditional<sizeof(T) == 8, double2, float4>::type;
+  constexpr int kv = 16 / sizeof(T);
+  const bool vec = aligned16(P);
+  for (int t = tid * kv; t < kNb * kNb; t += kTileCta * kv) {
     const int r = t / kNb, c = t % kNb;
-    const T a = A[r * kTls + c];
-    P[r * ld + c] = a;
-    Xk[t] = r < c ? a : (r == c ? dxs[r] : T(0));
+    V a = *reinterpret_cast<const V*>(A + r * kTls + c);
+    if (vec) {
+      *reinterpret_cast<V*>(P + r * ld + c) = a;
+    } else {
+      const T* av = reinterpret_cast<const T*>(&a);
+#pragma unroll
+      for (int u = 0; u < kv; ++u) P[r * ld + c + u] = av[u];
+    }
+    T* xv = reinterpret_cast<T*>(&a);
+#pragma unroll
+    for (int u = 0; u < kv; ++u)
+      xv[u] = r < c + u ? xv[u] : (r == c + u ? dxs[r] : T(0));
+    *reinterpret_cast<V*>(Xk + t) = a;
   }
 }
 
