@@ -72,12 +72,12 @@ namespace {
 constexpr int kNb = 128;           // the diagonal tile
 constexpr int kTileWarps = 8;      // wide_tile: warps a CTA
 constexpr int kTileCta = 32 * kTileWarps;
-constexpr int kTls = kNb + 4;      // wide_tile: a row of the tile
+constexpr int kLd = kNb + 4;       // a 128-column row in shared memory:
+//                                    16-byte aligned, mma32 fragments
+//                                    free of bank conflicts
 constexpr int kDbld = kSub + 1;    // wide_tile: a row of the diagonal block
 constexpr int kRows = 32;          // wide_rows: rows a CTA
 constexpr int kRowThreads = 256;   // wide_rows: 8 warps stage, 4 multiply
-constexpr int kAld = kNb + 4;      // wide_rows: a staged row
-constexpr int kXld = kNb + 4;      // wide_rows: a row of the staged X_k^T
 
 __device__ __forceinline__ int tile_width(int64_t n, int k0) {
   const int64_t w = n - k0;
@@ -141,7 +141,7 @@ __device__ __noinline__ void diag_chol_inv(T* D, T* dx, int ld, int pw) {
 }
 
 // One CTA per (panel, batch item) factors and inverts the diagonal tile
-// in shared memory (A, row stride kTls: L on and below the diagonal, X^T
+// in shared memory (A, row stride kLd: L on and below the diagonal, X^T
 // = Linv^T strictly above it, the stored layout; dxs the diagonal of X),
 // by sub-blocks of kSub columns, right-looking, as chol_block_kernel
 // (bucket_factor.cu) does a panel: warp 0 factors and inverts each
@@ -162,8 +162,8 @@ __global__ void __launch_bounds__(kTileCta)
     wide_tile_kernel(T* data, int64_t bstride, T* xk, const int64_t* off,
                      const int64_t* cols, int cp, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const A = reinterpret_cast<T*>(smem_raw);  // kNb x kTls
-  T* const dxs = A + kNb * kTls;                 // kNb
+  T* const A = reinterpret_cast<T*>(smem_raw);  // kNb x kLd
+  T* const dxs = A + kNb * kLd;                  // kNb
   T* const dbuf = dxs + kNb;                     // kSub x kDbld
   T* const xs = dbuf + kSub * kDbld;             // kNb x kTld
   // step k - 1's update grid may start beside this tile (its launch is
@@ -185,7 +185,7 @@ __global__ void __launch_bounds__(kTileCta)
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int t = t0 + u * kTileCta + tid;
-      A[(t / kNb) * kTls + t % kNb] = v[u];
+      A[(t / kNb) * kLd + t % kNb] = v[u];
     }
   }
   for (int t = tid; t < kNb; t += kTileCta) dxs[t] = T(0);
@@ -222,12 +222,12 @@ __global__ void __launch_bounds__(kTileCta)
       if (h == 1 && warp >= 2) break;
       int I, J;
       tri_tile(warp + kTileWarps * h, I, J);
-      T* blk = A + I * kSub * kTls + J * kSub;
+      T* blk = A + I * kSub * kLd + J * kSub;
       acc_each(acc[h], lane, [&](T& v, int r, int c) {
-        v = blk[r * kTls + c] - v;
+        v = blk[r * kLd + c] - v;
       });
       acc_each(acc[h], lane, [&](T& v, int r, int c) {
-        blk[r * kTls + c] = v;
+        blk[r * kLd + c] = v;
       });
     }
     __syncthreads();
@@ -238,14 +238,14 @@ __global__ void __launch_bounds__(kTileCta)
     const int p0 = p * kSub;
     for (int t = lane; t < kSub * kSub; t += 32) {
       const int r = t / kSub, c = t % kSub;
-      dbuf[r * kDbld + c] = c <= r ? A[(p0 + r) * kTls + p0 + c] : T(0);
+      dbuf[r * kDbld + c] = c <= r ? A[(p0 + r) * kLd + p0 + c] : T(0);
     }
     __syncwarp();
     diag_chol_inv(dbuf, dxs + p0, kDbld, min(kSub, w - p0));
     __syncwarp();
     for (int t = lane; t < kSub * kSub; t += 32) {
       const int r = t / kSub, c = t % kSub;
-      A[(p0 + r) * kTls + p0 + c] = dbuf[r * kDbld + c];
+      A[(p0 + r) * kLd + p0 + c] = dbuf[r * kDbld + c];
     }
   };
   if (warp == 0 && nbs > 0) factor_diag(0);
@@ -254,17 +254,17 @@ __global__ void __launch_bounds__(kTileCta)
     const int p0 = p * kSub, m = nbs - p - 1;
     // the rows below, in place: x[r][c] = sum_{k <= c} a[r][k] X[c][k]
     if (warp < m) {
-      T* a = A + (p0 + kSub * (warp + 1)) * kTls + p0;
+      T* a = A + (p0 + kSub * (warp + 1)) * kLd + p0;
       T acc[4][4][2] = {};
-      const T* dp = A + p0 * kTls + p0;
-      mma32(acc, [&](int r, int k) { return a[r * kTls + k]; },
+      const T* dp = A + p0 * kLd + p0;
+      mma32(acc, [&](int r, int k) { return a[r * kLd + k]; },
             [&](int c, int k) {
-              return k < c ? dp[k * kTls + c]
+              return k < c ? dp[k * kLd + c]
                            : (k == c ? dxs[p0 + c] : T(0));
             },
             lane);
       __syncwarp();  // the warp's rows are read; overwrite them
-      acc_each(acc, lane, [&](T& v, int r, int c) { a[r * kTls + c] = v; });
+      acc_each(acc, lane, [&](T& v, int r, int c) { a[r * kLd + c] = v; });
     }
     __syncthreads();
     // the trailing lower triangle: A[I][J] -= x_I x_J^T by 32 x 32 tiles;
@@ -273,50 +273,50 @@ __global__ void __launch_bounds__(kTileCta)
     const auto update = [&](int t) {
       int I, J;
       tri_tile(t, I, J);
-      T* tile = A + (q0 + I * kSub) * kTls + q0 + J * kSub;
-      const T* xi = A + (q0 + I * kSub) * kTls + p0;
-      const T* xj = A + (q0 + J * kSub) * kTls + p0;
+      T* tile = A + (q0 + I * kSub) * kLd + q0 + J * kSub;
+      const T* xi = A + (q0 + I * kSub) * kLd + p0;
+      const T* xj = A + (q0 + J * kSub) * kLd + p0;
       T acc[4][4][2] = {};
-      mma32(acc, [&](int r, int k) { return xi[r * kTls + k]; },
-            [&](int c, int k) { return xj[c * kTls + k]; }, lane);
-      acc_each(acc, lane, [&](T& v, int r, int c) { v = tile[r * kTls + c] - v; });
-      acc_each(acc, lane, [&](T& v, int r, int c) { tile[r * kTls + c] = v; });
+      mma32(acc, [&](int r, int k) { return xi[r * kLd + k]; },
+            [&](int c, int k) { return xj[c * kLd + k]; }, lane);
+      acc_each(acc, lane, [&](T& v, int r, int c) { v = tile[r * kLd + c] - v; });
+      acc_each(acc, lane, [&](T& v, int r, int c) { tile[r * kLd + c] = v; });
     };
     // the inverse, right-looking, on warps 7, 6, 5 (none of them a
     // trailing update's at the same step): task j <= p finalises
     // X^T[j][p] = -T^T[j][p] X_p^T (j < p), then adds X^T[j][p] L[i][p]^T
     // into T^T[j][i] for the later blocks i (the first, at p = j, writes)
-    const T* const dp = A + p0 * kTls + p0;  // block p: L, X_p^T above
+    const T* const dp = A + p0 * kLd + p0;  // block p: L, X_p^T above
     const auto inverse = [&](int j) {
-      T* xt = A + j * kSub * kTls + p0;  // block (j, p) of X^T
+      T* xt = A + j * kSub * kLd + p0;  // block (j, p) of X^T
       if (j < p) {
         T acc[4][4][2] = {};
-        mma32(acc, [&](int c, int q) { return xt[c * kTls + q]; },
+        mma32(acc, [&](int c, int q) { return xt[c * kLd + q]; },
               [&](int r, int q) {
-                return q < r ? dp[q * kTls + r]
+                return q < r ? dp[q * kLd + r]
                              : (q == r ? dxs[p0 + r] : T(0));
               },
               lane);
         __syncwarp();  // the block is read; overwrite it
-        acc_each(acc, lane, [&](T& v, int c, int r) { xt[c * kTls + r] = -v; });
+        acc_each(acc, lane, [&](T& v, int c, int r) { xt[c * kLd + r] = -v; });
         __syncwarp();
       }
       for (int bi = p + 1; bi < nbs; ++bi) {
-        T* dst = A + j * kSub * kTls + bi * kSub;
-        const T* li = A + bi * kSub * kTls + p0;
+        T* dst = A + j * kSub * kLd + bi * kSub;
+        const T* li = A + bi * kSub * kLd + p0;
         T acc[4][4][2] = {};
         if (j < p)
-          mma32(acc, [&](int c, int q) { return xt[c * kTls + q]; },
-                [&](int r, int q) { return li[r * kTls + q]; }, lane);
+          mma32(acc, [&](int c, int q) { return xt[c * kLd + q]; },
+                [&](int r, int q) { return li[r * kLd + q]; }, lane);
         else
           mma32(acc, [&](int c, int q) {
-                  return c < q ? dp[c * kTls + q]
+                  return c < q ? dp[c * kLd + q]
                                : (c == q ? dxs[p0 + c] : T(0));
                 },
-                [&](int r, int q) { return li[r * kTls + q]; }, lane);
+                [&](int r, int q) { return li[r * kLd + q]; }, lane);
         if (j < p)
-          acc_each(acc, lane, [&](T& v, int c, int r) { v += dst[c * kTls + r]; });
-        acc_each(acc, lane, [&](T& v, int c, int r) { dst[c * kTls + r] = v; });
+          acc_each(acc, lane, [&](T& v, int c, int r) { v += dst[c * kLd + r]; });
+        acc_each(acc, lane, [&](T& v, int c, int r) { dst[c * kLd + r] = v; });
       }
     };
     if (warp == 0) {
@@ -341,7 +341,7 @@ __global__ void __launch_bounds__(kTileCta)
   const bool vec = aligned16(P);
   for (int t = tid * kv; t < kNb * kNb; t += kTileCta * kv) {
     const int r = t / kNb, c = t % kNb;
-    V a = *reinterpret_cast<const V*>(A + r * kTls + c);
+    V a = *reinterpret_cast<const V*>(A + r * kLd + c);
     if (vec) {
       *reinterpret_cast<V*>(P + r * ld + c) = a;
     } else {
@@ -365,7 +365,7 @@ __global__ void __launch_bounds__(kTileCta)
 // as the update grids of earlier steps summed it (out = -X^T[rows,
 // k0:k1]). All warps stage, warps 0-3 own the outputs' 32-column blocks:
 // 32-row jobs spread a step's rows over twice as many SMs as 64-row ones.
-// Shared memory: As (32 x kAld, the rows) and Xs (kNb x kXld: X_k^T,
+// Shared memory: As (32 x kLd, the rows) and Xs (kNb x kLd: X_k^T,
 // 1 / diag L on its diagonal, zero below, from the tile's dense copy).
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
@@ -374,7 +374,7 @@ __global__ void __launch_bounds__(kRowThreads)
                      const int64_t* cols, int64_t B, int cp, int rp, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const As = reinterpret_cast<T*>(smem_raw);
-  T* const Xs = As + kRows * kAld;
+  T* const Xs = As + kRows * kLd;
   const int k1 = k0 + kNb;
   const int nd = (cp - k1) / kRows, nbl = (rp + kRows - 1) / kRows;
   const int jobs = nd + nbl + k0 / kRows;
@@ -403,13 +403,13 @@ __global__ void __launch_bounds__(kRowThreads)
     }
   }
   if (cnt <= 0 || w == 0) return;  // padding rows or columns: left as is
-  stage_rows(As, kAld,
+  stage_rows(As, kLd,
              [&](int r) -> const T* {
                return r < cnt ? P + (r0 + r) * ld + k0 : nullptr;
              },
              kRows, kNb, 0, aligned16(P), P, tid, kRowThreads);
   // X_k^T, as the tile wrote it: Xs[m][c] = X_k[c][m]
-  stage_rows(Xs, kXld, [&](int m) -> const T* { return Xk + m * kNb; }, kNb,
+  stage_rows(Xs, kLd, [&](int m) -> const T* { return Xk + m * kNb; }, kNb,
              kNb, 0, true, Xk, tid, kRowThreads);
   cp_async_commit();
   cp_async_wait<0>();
@@ -420,8 +420,8 @@ __global__ void __launch_bounds__(kRowThreads)
   T acc[4][4][2] = {};
   const T* b = Xs + warp * 32;
   for (int m0 = 0; m0 < w; m0 += kTk)
-    mma32(acc, [&](int r, int k) { return As[r * kAld + m0 + k]; },
-          [&](int c, int k) { return b[(m0 + k) * kXld + c]; }, lane);
+    mma32(acc, [&](int r, int k) { return As[r * kLd + m0 + k]; },
+          [&](int c, int k) { return b[(m0 + k) * kLd + c]; }, lane);
   acc_each(acc, lane, [&](T& v, int r, int c) {
     if (r < cnt) P[(r0 + r) * ld + k0 + warp * 32 + c] = inv ? -v : v;
   });
@@ -571,10 +571,10 @@ int launch(void* data, int64_t bstride, void* xk, const int64_t* off,
   if (cp % kNb || cp <= 4 * kNb) return (int)cudaErrorInvalidValue;
   T* d = static_cast<T*>(data);
   T* x = static_cast<T*>(xk);
-  const int tile_smem = (int)(((size_t)kNb * kTls + kNb + kSub * kDbld +
+  const int tile_smem = (int)(((size_t)kNb * kLd + kNb + kSub * kDbld +
                                (size_t)kNb * kTld) * sizeof(T));
   const int rows_smem =
-      (int)(((size_t)kRows * kAld + (size_t)kNb * kXld) * sizeof(T));
+      (int)(((size_t)kRows * kLd + (size_t)kNb * kLd) * sizeof(T));
   const int upd_smem =
       (int)(2 * 2 * kTile * kTld * sizeof(T) + 2 * kTile * sizeof(void*));
   cudaError_t e = cudaFuncSetAttribute(

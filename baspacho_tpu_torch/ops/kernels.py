@@ -296,8 +296,8 @@ def wide_factor(data, off, rows, cols, cp: int, rp: int, off_h,
     (csrc/wide_factor.cu: per diagonal tile a tile grid, a rows grid and,
     but after the last tile, an update grid, each over every panel and
     batch item), with each diagonal tile's dense Linv^T in a cached
-    scratch. off_h / cols_h are
-    host copies of off / cols (the twin's per-panel views need them)."""
+    scratch. off_h / cols_h are host copies of off / cols (the twin's
+    per-panel views need them)."""
     if data.device.type == "cpu":
         return wide_factor_twin(data, off, rows, cols, cp, rp, off_h,
                                 cols_h)
