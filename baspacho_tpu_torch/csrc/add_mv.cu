@@ -96,21 +96,6 @@ struct Mv {
   double alpha;
 };
 
-// sum over aligned groups of G lanes (G a power of two), every lane of
-// the group gets it
-template <typename T>
-__device__ __forceinline__ T group_sum(T v, int G) {
-  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// sum over the lanes of the same position in each group of G lanes
-template <typename T>
-__device__ __forceinline__ T across_groups(T v, int G) {
-  for (int o = G; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // the end of row i's real columns: an own row reads m <= i (the lower
 // triangle), a below row m < n; rows past `end` read none
 __device__ __forceinline__ int row_lim(int i, int cp, int n, int end) {

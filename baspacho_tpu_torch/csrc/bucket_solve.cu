@@ -5,165 +5,561 @@
 // as driven level by level by make_solve (:2383).
 //
 // Each panel's diag block holds L on and below the diagonal and Linv^T
-// strictly above (written by bucket_factor); Linv is rebuilt on the fly
-// from the strict upper and 1 / diag. With n = cols[i], the RHS rows of
-// the panel are vec_off[i] .. vec_off[i] + n - 1 of vv (order x nrhs,
-// row-major, one block per batch item).
-//   L mode:  x = Linv . vv[rows]; vv[rows] = x;
-//            y[y_base + i * rp * nrhs ..] = below . x  (rp x nrhs; the
-//            segmented-subtract kernel then applies vv[bidx] -= y)
-//   Lt mode: x = vv[rows] - below^T . vv[bidx]  (skipping rows whose
-//            index is the sentinel `order`), vv[rows] = Linv^T . x
-// Panels of one level touch disjoint RHS rows, and their below rows
-// belong to later levels, so the CTAs of one launch never race.
+// strictly above (written by bucket_factor): U[m][j] = P[m * cp + j] is
+// Linv[j][m] for m < j, and Linv[j][j] = 1 / d[j], d[j] = P[j * cp + j].
+// With n = cols[p] real columns and nrows = rows[p] real below rows, the
+// panel's RHS rows are vec_off[p] .. vec_off[p] + n - 1 of vv (order x
+// nrhs, row-major, one block per batch item).
+//   L pass:  x[j] = b[j] / d[j] + sum_{m < j} U[m][j] b[m]   (b: own rows)
+//            vv[own] = x; y[y_base + p * rp + r] = below[r] . x (0 past
+//            nrows; the segmented-subtract kernel, K2, then applies
+//            vv[bidx] -= y)
+//   Lt pass: x[j] = b[j] - sum_r below[r][j] vv[bidx[r]]  (no term for the
+//            sentinel bidx == order)
+//            vv[own][j] = x[j] / d[j] + sum_{m > j} U[j][m] x[m]
+// So each pass is a column-sum phase over one set of the panel's rows
+// (L: the own rows' strict upper, weights b; Lt: the below rows, weights
+// the gathered vv[bidx]) that gives x, then a row-dot phase with x over
+// the other set (L: the below rows, into y; Lt: the strict upper). Only
+// real rows and columns are read. Panels of one level touch disjoint RHS
+// rows and their below rows belong to other levels, so no two work items
+// of a launch race.
 //
-// One CTA per (panel, batch item). The RHS columns are processed in
-// chunks of kc columns staged in shared memory (2 * cp * kc values).
-// Bound by latency on the short per-level chains: a level is a handful
-// of small launches.
+// Bound by reading the panels and by the gathers' latency: BAL 871's
+// point bucket is 527,478 cp-4 panels of ~45 real below rows. The
+// earlier design ran one CTA per panel with a thread per (column, RHS)
+// walking every below row in turn, a dependent bidx -> vv gather a row:
+// 3 of 64 threads busy there, 10.3 ms a solve on an H100 (PERF.md). Here
+// the rows are on the lanes, as in K5 (add_mv.cu): G = min(cp, 32) lanes
+// a row, each lane on columns m + 32 t (t < CT = max(1, cp / 32)), RG =
+// 32 / G rows a warp step; a row's dot by a butterfly within its group,
+// column sums per lane in row order, joined across the groups by a
+// butterfly and across warps in warp order. Every sum's order depends on
+// the bucket's shape (cp, rp) only (ops/kernels.py solve_layout), so
+// batch items equal their single runs and reruns each other, bitwise:
+//   solve_l_warp_kernel / solve_lt_warp_kernel (4 <= cp <= 32, rp cp <=
+//     1024, at least 64 panels: BAL's and Schur's points, MERI's and
+//     GRID's many small panels):
+//     one warp per panel, eight a CTA, no block barrier. The panel's
+//     real below elements are copied into shared memory by cp.async
+//     first; meanwhile Lt loads all its rows' bidx, then all their
+//     gathers, and L runs its n x n phase; x sits in the lanes, and the
+//     n x n phase runs on them with shuffles.
+//   solve_l_diag_kernel / solve_lt_diag_kernel (every other bucket): one
+//     CTA of eight warps per panel for the own rows' phase (Lt: a thread
+//     a row of the strict upper); when the below rows are one chunk of at
+//     most crc rows, their phase too.
+//   solve_l_rows_kernel / solve_lt_rows_kernel (more below rows than one
+//     chunk: FLAT's 15-wide lump, BAL's pair levels, GRID's long panels):
+//     a CTA per (panel, chunk of crc rows). L, after the diag grid: each
+//     row's dot with x (read back from vv) into y. Lt, before the diag
+//     grid: each chunk's column sums into a partial scratch, its gathers
+//     loaded a warp's rows at once; the diag grid adds them in chunk
+//     order.
+// Grids run over (work item, batch item x RHS column): each RHS column
+// of each batch item is an independent pass over the same panels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_tiles.cuh"
+
 namespace {
 
+constexpr int kWarps = 8;  // warps per CTA of every grid
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpElems = 1024;  // rp * cp of a warp's panel at most
+//                                   (ops/kernels.py SOLVE_WARP_ELEMS)
+constexpr int kMaxChunk = 256;  // below rows per chunk at most: 32 a warp
+constexpr unsigned kFull = 0xffffffffu;
+
+// one launch's operands and grid layout (bs_bucket_solve); strides in
+// elements
+struct Sv {
+  const void* data;
+  int64_t data_bs;
+  void* vv;
+  int64_t vv_bs;
+  void* y;
+  int64_t y_bs;
+  int64_t y_base;  // first y row of the bucket
+  void* part;      // Lt column partials: (batch x RHS, B, nchunk, cp)
+  const int64_t* off;
+  const int64_t* rows;
+  const int64_t* cols;
+  const int64_t* vec_off;
+  const int64_t* bidx;
+  int64_t order;
+  int64_t B;
+  int cp, rp, nrhs;
+  int crc;     // below rows per chunk (0: one warp per panel)
+  int nchunk;  // ceil(rp / crc)
+};
+
+// the operands of work item (panel p, blockIdx.y = batch item z x RHS
+// column k)
 template <typename T>
-__global__ void solve_l_kernel(const T* data, int64_t data_bstride, T* vv,
-                               int64_t vv_bstride, T* y, int64_t y_bstride,
-                               int64_t y_base, const int64_t* off,
-                               const int64_t* rows, const int64_t* cols,
-                               const int64_t* vec_off, int cp, int rp,
-                               int nrhs, int kc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sb = reinterpret_cast<T*>(smem_raw);
-  T* sx = sb + (int64_t)cp * kc;
-  const int64_t i = blockIdx.x;
-  const T* P = data + (int64_t)blockIdx.y * data_bstride + off[i];
-  const T* below = P + (int64_t)cp * cp;
-  T* v = vv + (int64_t)blockIdx.y * vv_bstride;
-  const int n = (int)cols[i], nrows = (int)rows[i];
-  const int64_t v0 = vec_off[i], ld = cp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k0 = 0; k0 < nrhs; k0 += kc) {
-    const int w = min(kc, nrhs - k0);
-    for (int t = tid; t < n * w; t += nt) {
-      const int j = t / w, k = t % w;
-      sb[t] = v[(v0 + j) * nrhs + k0 + k];
-    }
-    __syncthreads();
-    // x[j] = sum_{m <= j} Linv[j][m] b[m]; Linv[j][m] = P[m * cp + j]
-    for (int t = tid; t < n * w; t += nt) {
-      const int j = t / w, k = t % w;
-      T acc = sb[t] / P[j * ld + j];
-      for (int m = 0; m < j; ++m) acc += P[m * ld + j] * sb[m * w + k];
-      sx[t] = acc;
-      v[(v0 + j) * nrhs + k0 + k] = acc;
-    }
-    __syncthreads();
-    if (rp > 0) {
-      T* yo = y + (int64_t)blockIdx.y * y_bstride + y_base +
-              i * rp * (int64_t)nrhs;
-      for (int t = tid; t < rp * w; t += nt) {
-        const int r = t / w, k = t % w;
-        T acc = T(0);
-        if (r < nrows) {
-          const T* br = below + r * ld;
-          for (int j = 0; j < n; ++j) acc += br[j] * sx[j * w + k];
-        }
-        yo[(int64_t)r * nrhs + k0 + k] = acc;
-      }
-    }
-    __syncthreads();
+struct Item {
+  const T* P;  // the panel, (cp + rp) x cp
+  T* v;        // vv of batch item z, column k: element i at v[i * nrhs]
+  T* y;        // the panel's y rows, column k (nullptr without below rows)
+  const int64_t* bidx;
+  int64_t v0;
+  int n, nrows;
+  __device__ __forceinline__ Item(const Sv& a, int64_t p) {
+    const int z = blockIdx.y / a.nrhs, k = blockIdx.y % a.nrhs;
+    P = static_cast<const T*>(a.data) + z * a.data_bs + a.off[p];
+    v = static_cast<T*>(a.vv) + z * a.vv_bs + k;
+    y = a.rp > 0 && a.y != nullptr
+            ? static_cast<T*>(a.y) + z * a.y_bs +
+                  (a.y_base + p * a.rp) * a.nrhs + k
+            : nullptr;
+    bidx = a.bidx + p * a.rp;
+    v0 = a.vec_off[p];
+    n = (int)a.cols[p];
+    nrows = a.rp > 0 ? (int)a.rows[p] : 0;
+  }
+};
+
+// ---------------------------------------------------------------------
+// one warp per panel (4 <= CP <= 32)
+// ---------------------------------------------------------------------
+
+// the panel's real below elements (rows < nrows, columns < n; zeros in
+// their place elsewhere) copied into sp by cp.async, in flight until
+// cp_async_wait
+template <typename T, int CP>
+__device__ __forceinline__ void stage_below(T* sp, const T* below, int n,
+                                            int nrows, int lane) {
+  for (int e = lane; e < nrows * CP; e += 32) {
+    const bool real = e % CP < n;
+    cp_async_el(sp + e, real ? below + e : below, real ? (int)sizeof(T) : 0);
+  }
+  cp_async_commit();
+}
+
+// L pass: the below rows staged; x = Linv b by column sums of the strict
+// upper (lane column m, rows over the groups); then y = below . x by row
+// dots from shared memory
+template <typename T, int CP>
+__global__ void __launch_bounds__(kThreads) solve_l_warp_kernel(Sv a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int RG = 32 / CP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t p = (int64_t)blockIdx.x * kWarps + warp;
+  if (p >= a.B) return;
+  const Item<T> it(a, p);
+  const int nrhs = a.nrhs, n = it.n, gi = lane / CP, m = lane % CP;
+  T* sp = reinterpret_cast<T*>(smem) + warp * a.rp * CP;
+  stage_below<T, CP>(sp, it.P + CP * CP, n, it.nrows, lane);
+  const T b = m < n ? it.v[(it.v0 + m) * nrhs] : T(0);
+  T acc = T(0);
+  for (int i0 = 0; i0 < n; i0 += RG) {
+    const int i = i0 + gi;  // < 32: i0 < n <= CP and CP + RG <= 32
+    const T bi = __shfl_sync(kFull, b, i & 31);
+    if (i < n && m > i && m < n) acc += it.P[i * CP + m] * bi;
+  }
+  acc = across_groups(acc, CP);
+  const T x = m < n ? b / it.P[m * CP + m] + acc : T(0);
+  if (gi == 0 && m < n) it.v[(it.v0 + m) * nrhs] = x;
+  cp_async_wait<0>();
+  __syncwarp();
+  for (int r0 = 0; r0 < a.rp; r0 += RG) {
+    const int r = r0 + gi;
+    const T e = r < it.nrows && m < n ? sp[r * CP + m] : T(0);
+    const T d = group_sum(e * x, CP);
+    if (m == 0 && r < a.rp) it.y[(int64_t)r * nrhs] = d;
   }
 }
 
-template <typename T>
-__global__ void solve_lt_kernel(const T* data, int64_t data_bstride, T* vv,
-                                int64_t vv_bstride, const int64_t* off,
-                                const int64_t* rows, const int64_t* cols,
-                                const int64_t* vec_off,
-                                const int64_t* below_idx, int64_t order,
-                                int cp, int rp, int nrhs, int kc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sb = reinterpret_cast<T*>(smem_raw);
-  const int64_t i = blockIdx.x;
-  const T* P = data + (int64_t)blockIdx.y * data_bstride + off[i];
-  const T* below = P + (int64_t)cp * cp;
-  const int64_t* bidx = below_idx + i * rp;
-  T* v = vv + (int64_t)blockIdx.y * vv_bstride;
-  const int n = (int)cols[i], nrows = rp > 0 ? (int)rows[i] : 0;
-  const int64_t v0 = vec_off[i], ld = cp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k0 = 0; k0 < nrhs; k0 += kc) {
-    const int w = min(kc, nrhs - k0);
-    // x[j] = b[j] - sum_r below[r][j] vv[bidx[r]]
-    for (int t = tid; t < n * w; t += nt) {
-      const int j = t / w, k = t % w;
-      T acc = v[(v0 + j) * nrhs + k0 + k];
-      for (int r = 0; r < nrows; ++r) {
-        const int64_t q = bidx[r];
-        if (q != order) acc -= below[r * ld + j] * v[q * nrhs + k0 + k];
-      }
-      sb[t] = acc;
+// Lt pass: the below rows staged, and meanwhile their bidx, then their
+// gathers, loaded into shared memory; x = b - below^T g by column sums;
+// then vv[own] = Linv^T x by row dots of the strict upper
+template <typename T, int CP>
+__global__ void __launch_bounds__(kThreads) solve_lt_warp_kernel(Sv a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int RG = 32 / CP, NQ = 4;  // NQ x 32 rows' gathers at once
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t p = (int64_t)blockIdx.x * kWarps + warp;
+  if (p >= a.B) return;
+  const Item<T> it(a, p);
+  const int nrhs = a.nrhs, n = it.n, nrows = it.nrows;
+  const int gi = lane / CP, m = lane % CP;
+  T* sp = reinterpret_cast<T*>(smem) + warp * a.rp * (CP + 1);
+  T* gsm = sp + a.rp * CP;
+  int64_t q[NQ];
+#pragma unroll
+  for (int w = 0; w < NQ; ++w) {
+    const int i = 32 * w + lane;
+    q[w] = i < nrows ? it.bidx[i] : a.order;
+  }
+  stage_below<T, CP>(sp, it.P + CP * CP, n, nrows, lane);
+  for (int i0 = 0; i0 < nrows; i0 += 32 * NQ) {
+#pragma unroll
+    for (int w = 0; w < NQ; ++w) {
+      const int i = i0 + 32 * w + lane;
+      if (i0 > 0) q[w] = i < nrows ? it.bidx[i] : a.order;
     }
-    __syncthreads();
-    // z[j] = sum_{m >= j} Linv[m][j] x[m]; Linv[m][j] = P[j * cp + m]
-    for (int t = tid; t < n * w; t += nt) {
-      const int j = t / w, k = t % w;
-      T acc = sb[t] / P[j * ld + j];
-      for (int m = j + 1; m < n; ++m) acc += P[j * ld + m] * sb[m * w + k];
-      v[(v0 + j) * nrhs + k0 + k] = acc;
+#pragma unroll
+    for (int w = 0; w < NQ; ++w) {
+      const int i = i0 + 32 * w + lane;
+      if (i < nrows) gsm[i] = q[w] != a.order ? it.v[q[w] * nrhs] : T(0);
     }
-    __syncthreads();
+  }
+  const T b = m < n ? it.v[(it.v0 + m) * nrhs] : T(0);
+  cp_async_wait<0>();
+  __syncwarp();
+  T acc = T(0);
+  for (int i0 = 0; i0 < nrows; i0 += RG) {
+    const int i = i0 + gi;
+    if (i < nrows && m < n) acc += sp[i * CP + m] * gsm[i];
+  }
+  acc = across_groups(acc, CP);
+  const T x = b - acc;  // x[m] in every lane of column m
+  for (int j0 = 0; j0 < n; j0 += RG) {
+    const int j = j0 + gi;  // < 32, as i in the L pass
+    const T e = j < n && m > j && m < n ? it.P[j * CP + m] : T(0);
+    const T d = group_sum(e * x, CP);
+    const T xj = __shfl_sync(kFull, x, j & 31);
+    if (m == 0 && j < n) it.v[(it.v0 + j) * nrhs] = xj / it.P[j * CP + j] + d;
   }
 }
 
-template <typename T>
-int launch(int transpose, const void* data, int64_t data_bstride, void* vv,
-           int64_t vv_bstride, void* y, int64_t y_bstride, int64_t y_base,
-           const int64_t* off, const int64_t* rows, const int64_t* cols,
-           const int64_t* vec_off, const int64_t* below_idx, int64_t order,
-           int64_t B, int cp, int rp, int nrhs, int batch,
-           cudaStream_t stream) {
-  const int nt = cp <= 8 ? 64 : (cp <= 32 ? 128 : 256);
-  int kc = 32768 / (2 * cp * (int)sizeof(T));
-  kc = kc < 1 ? 1 : (kc > nrhs ? nrhs : kc);
-  const dim3 grid((unsigned)B, batch);
-  const T* d = static_cast<const T*>(data);
-  if (!transpose) {
-    solve_l_kernel<T><<<grid, nt, 2 * cp * kc * sizeof(T), stream>>>(
-        d, data_bstride, static_cast<T*>(vv), vv_bstride,
-        static_cast<T*>(y), y_bstride, y_base, off, rows, cols, vec_off, cp,
-        rp, nrhs, kc);
-  } else {
-    solve_lt_kernel<T><<<grid, nt, cp * kc * sizeof(T), stream>>>(
-        d, data_bstride, static_cast<T*>(vv), vv_bstride, off, rows, cols,
-        vec_off, below_idx, order, cp, rp, nrhs, kc);
+// ---------------------------------------------------------------------
+// CTAs per panel: G = min(cp, 32) lanes a row, CT columns a lane
+// ---------------------------------------------------------------------
+
+// Lt column sums of the below rows [r0, r1) (r1 - r0 <= kMaxChunk) into
+// red[warp][column]: warp w on the rows of steps w, w + 8, ..., its
+// rows' gathers loaded first, lane l holding the l-th
+template <typename T, int CT>
+__device__ __forceinline__ void lt_below_sums(const Sv& a, const Item<T>& it,
+                                              int r0, int r1,
+                                              T (*red)[CT * 32]) {
+  const int cp = a.cp, G = cp < 32 ? cp : 32, RG = 32 / G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane / G, m = lane % G;
+  const int il = r0 + warp * RG + (lane / RG) * kWarps * RG + lane % RG;
+  T gw = T(0);
+  if (il < r1) {
+    const int64_t q = it.bidx[il];
+    if (q != a.order) gw = it.v[q * a.nrhs];
   }
+  const T* below = it.P + (int64_t)cp * cp;
+  T acc[CT];
+#pragma unroll
+  for (int t = 0; t < CT; ++t) acc[t] = T(0);
+  int kk = 0;
+#pragma unroll(CT >= 16 ? 1 : 16 / CT)
+  for (int ib = r0 + warp * RG; ib < r1; ib += kWarps * RG, ++kk) {
+    const int i = ib + gi;
+    const T g = __shfl_sync(kFull, gw, kk * RG + gi);
+    const T* Bi = below + (int64_t)i * cp;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int col = m + 32 * t;
+      if (i < r1 && col < it.n) acc[t] += Bi[col] * g;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < CT; ++t) {
+    acc[t] = across_groups(acc[t], G);
+    if (gi == 0) red[warp][m + 32 * t] = acc[t];
+  }
+}
+
+// below row r's elements in this lane's columns (col = m + 32 t), 0 past
+// the real rows and columns
+template <typename T, int CT>
+__device__ __forceinline__ void below_row(const Sv& a, const Item<T>& it,
+                                          int r, int m, T (&e)[CT]) {
+  const T* Br = it.P + (int64_t)(a.cp + r) * a.cp;
+#pragma unroll
+  for (int t = 0; t < CT; ++t) {
+    const int col = m + 32 * t;
+    e[t] = r < it.nrows && col < it.n ? Br[col] : T(0);
+  }
+}
+
+// y rows [r0, r1) of the L pass: row dots with x (x[col] in xs[t] for
+// col = m + 32 t), 0 past nrows; e holds the elements of this thread's
+// first row, loaded by the caller ahead of x, and each step loads the
+// next step's row before its dot
+template <typename T, int CT>
+__device__ __forceinline__ void l_below_dots(const Sv& a, const Item<T>& it,
+                                             int r0, int r1, const T* xs,
+                                             T (&e)[CT]) {
+  const int cp = a.cp, G = cp < 32 ? cp : 32, RG = 32 / G;
+  const int step = kWarps * RG, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, gi = lane / G, m = lane % G;
+#pragma unroll(CT >= 8 ? 1 : 8 / CT)
+  for (int rb = r0 + warp * RG; rb < r1; rb += step) {
+    const int r = rb + gi;
+    T nx[CT];
+    below_row<T, CT>(a, it, r + step < r1 ? r + step : it.nrows, m, nx);
+    T d = T(0);
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int col = m + 32 * t;
+      if (r < it.nrows && col < it.n) d += e[t] * xs[t];
+      e[t] = nx[t];
+    }
+    d = group_sum(d, G);
+    if (m == 0 && r < r1) it.y[(int64_t)r * a.nrhs] = d;
+  }
+}
+
+// L pass, the own rows of panel blockIdx.x: x = Linv b (column sums of
+// the strict upper over the warps), into vv; with one chunk of below
+// rows, their dots into y too. Every load that does not need x (b, the
+// strict upper, the diagonal, the first below rows) is issued before the
+// first barrier
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) solve_l_diag_kernel(Sv a) {
+  __shared__ T red[kWarps][CT * 32];
+  __shared__ T sx[CT * 32];
+  const int64_t p = blockIdx.x;
+  const Item<T> it(a, p);
+  const int cp = a.cp, nrhs = a.nrhs, n = it.n, G = cp < 32 ? cp : 32;
+  const int RG = 32 / G, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane / G, m = lane % G;
+  T bj[2], dj[2];  // b and the diagonal of columns tid, tid + kThreads
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = threadIdx.x + u * kThreads;
+    bj[u] = j < n ? it.v[(it.v0 + j) * nrhs] : T(0);
+    dj[u] = j < n ? it.P[(int64_t)j * cp + j] : T(1);
+  }
+  T e[CT];
+  below_row<T, CT>(a, it, a.nchunk == 1 ? warp * RG + gi : it.nrows, m, e);
+  T acc[CT];
+#pragma unroll
+  for (int t = 0; t < CT; ++t) acc[t] = T(0);
+#pragma unroll 4
+  for (int ib = warp * RG; ib < n; ib += kWarps * RG) {
+    const int i = ib + gi;
+    if (i < n) {
+      const T bi = it.v[(it.v0 + i) * nrhs];
+#pragma unroll
+      for (int t = 0; t < CT; ++t) {
+        const int col = m + 32 * t;
+        if (col > i && col < n) acc[t] += it.P[(int64_t)i * cp + col] * bi;
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < CT; ++t) {
+    acc[t] = across_groups(acc[t], G);
+    if (gi == 0) red[warp][m + 32 * t] = acc[t];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = threadIdx.x + u * kThreads;
+    if (j >= n) break;
+    T s = T(0);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][j];
+    const T x = bj[u] / dj[u] + s;
+    sx[j] = x;
+    it.v[(it.v0 + j) * nrhs] = x;
+  }
+  if (a.nchunk != 1) return;
+  __syncthreads();
+  T xs[CT];
+#pragma unroll
+  for (int t = 0; t < CT; ++t) {
+    const int col = m + 32 * t;
+    xs[t] = col < n ? sx[col] : T(0);
+  }
+  l_below_dots<T, CT>(a, it, 0, a.rp, xs, e);
+}
+
+// L pass, below rows of chunk blockIdx.x % nchunk, after the diag grid:
+// their dots with x from vv into y
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) solve_l_rows_kernel(Sv a) {
+  const int64_t p = blockIdx.x / a.nchunk;
+  const int c = (int)(blockIdx.x % a.nchunk);
+  const Item<T> it(a, p);
+  const int G = a.cp < 32 ? a.cp : 32, m = (threadIdx.x & 31) % G;
+  const int r0 = c * a.crc, r1 = min(r0 + a.crc, a.rp);
+  const int RG = 32 / G, gi = (threadIdx.x & 31) / G;
+  T e[CT], xs[CT];
+  below_row<T, CT>(a, it, r0 + (threadIdx.x >> 5) * RG + gi, m, e);
+#pragma unroll
+  for (int t = 0; t < CT; ++t) {
+    const int col = m + 32 * t;
+    xs[t] = col < it.n ? it.v[(it.v0 + col) * a.nrhs] : T(0);
+  }
+  l_below_dots<T, CT>(a, it, r0, r1, xs, e);
+}
+
+// Lt pass, below rows of chunk blockIdx.x % nchunk, before the diag grid:
+// their column sums into the partial scratch (chunks past the real rows
+// write nothing, and the diag grid reads nothing of them)
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) solve_lt_rows_kernel(Sv a) {
+  __shared__ T red[kWarps][CT * 32];
+  const int64_t p = blockIdx.x / a.nchunk;
+  const int c = (int)(blockIdx.x % a.nchunk);
+  const Item<T> it(a, p);
+  const int r0 = c * a.crc;
+  if (r0 >= it.nrows) return;
+  lt_below_sums<T, CT>(a, it, r0, min(r0 + a.crc, it.nrows), red);
+  __syncthreads();
+  T* part = static_cast<T*>(a.part) +
+            (((int64_t)blockIdx.y * a.B + p) * a.nchunk + c) * a.cp;
+  for (int j = threadIdx.x; j < it.n; j += kThreads) {
+    T s = T(0);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][j];
+    part[j] = s;
+  }
+}
+
+// Lt pass, panel blockIdx.x: x = b - (the below rows' column sums: of its
+// one chunk here, or the rows grid's partials in chunk order), then vv[own]
+// = Linv^T x, a thread a row of the strict upper walking its columns in
+// order (each row's loads stay in its thread's cache lines); b and the
+// diagonal are loaded first
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) solve_lt_diag_kernel(Sv a) {
+  __shared__ T red[kWarps][CT * 32];
+  __shared__ T sx[CT * 32];
+  const int64_t p = blockIdx.x;
+  const Item<T> it(a, p);
+  const int cp = a.cp, nrhs = a.nrhs, n = it.n, nrows = it.nrows;
+  T bj[2], dj[2];  // b and the diagonal of columns tid, tid + kThreads
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = threadIdx.x + u * kThreads;
+    bj[u] = j < n ? it.v[(it.v0 + j) * nrhs] : T(0);
+    dj[u] = j < n ? it.P[(int64_t)j * cp + j] : T(1);
+  }
+  const bool one = a.nchunk == 1 && nrows > 0;
+  if (one) lt_below_sums<T, CT>(a, it, 0, nrows, red);
+  __syncthreads();
+  const T* part = static_cast<const T*>(a.part) +
+                  ((int64_t)blockIdx.y * a.B + p) * a.nchunk * cp;
+  const int nc = a.nchunk > 1 ? (nrows + a.crc - 1) / a.crc : 0;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = threadIdx.x + u * kThreads;
+    if (j >= n) break;
+    T s = T(0);
+    if (one) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[w][j];
+    }
+    for (int c = 0; c < nc; ++c) s += part[(int64_t)c * cp + j];
+    sx[j] = bj[u] - s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = threadIdx.x + u * kThreads;
+    if (j >= n) break;
+    const T* Pj = it.P + (int64_t)j * cp;
+    T z = sx[j] / dj[u];
+    for (int m = j + 1; m < n; ++m) z += Pj[m] * sx[m];
+    it.v[(it.v0 + j) * nrhs] = z;
+  }
+}
+
+// shared memory of a warp grid's CTA: each warp's staged below rows
+// (and, Lt, their gathers), up to 80 KB, past the default 48
+template <typename T, int CP>
+int launch_warp(const Sv& a, bool lt, unsigned zk, cudaStream_t st) {
+  static bool sized = false;
+  if (!sized) {
+    const int most = kWarps * (kWarpElems + kWarpElems / CP) * sizeof(T);
+    cudaFuncSetAttribute(solve_l_warp_kernel<T, CP>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    cudaFuncSetAttribute(solve_lt_warp_kernel<T, CP>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    sized = true;
+  }
+  const dim3 grid((unsigned)((a.B + kWarps - 1) / kWarps), zk);
+  const size_t smem = kWarps * a.rp * (CP + (lt ? 1 : 0)) * sizeof(T);
+  if (lt)
+    solve_lt_warp_kernel<T, CP><<<grid, kThreads, smem, st>>>(a);
+  else
+    solve_l_warp_kernel<T, CP><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int CT>
+int launch_cta(const Sv& a, bool lt, unsigned zk, cudaStream_t st) {
+  const dim3 diag((unsigned)a.B, zk);
+  const dim3 rows((unsigned)(a.B * a.nchunk), zk);
+  cudaError_t e;
+  if (lt) {
+    if (a.nchunk > 1) {
+      solve_lt_rows_kernel<T, CT><<<rows, kThreads, 0, st>>>(a);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    solve_lt_diag_kernel<T, CT><<<diag, kThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  solve_l_diag_kernel<T, CT><<<diag, kThreads, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess || a.nchunk <= 1) return (int)e;
+  solve_l_rows_kernel<T, CT><<<rows, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const Sv& a, bool lt, int batch, cudaStream_t st) {
+  const unsigned zk = (unsigned)(batch * a.nrhs);
+  const int cp = a.cp;
+  if (cp < 1 || cp > 512 || (cp & (cp - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.crc == 0) {
+    if (cp < 4 || cp > 32 || a.rp * cp > kWarpElems)
+      return (int)cudaErrorInvalidValue;
+    switch (cp) {
+      case 4: return launch_warp<T, 4>(a, lt, zk, st);
+      case 8: return launch_warp<T, 8>(a, lt, zk, st);
+      case 16: return launch_warp<T, 16>(a, lt, zk, st);
+      default: return launch_warp<T, 32>(a, lt, zk, st);
+    }
+  }
+  const int RG = 32 / (cp < 32 ? cp : 32);
+  if (a.crc > kMaxChunk || a.crc % (kWarps * RG) != 0 ||
+      (int64_t)a.nchunk * a.crc < a.rp)
+    return (int)cudaErrorInvalidValue;
+  switch (cp >= 32 ? cp / 32 : 1) {
+    case 1: return launch_cta<T, 1>(a, lt, zk, st);
+    case 2: return launch_cta<T, 2>(a, lt, zk, st);
+    case 4: return launch_cta<T, 4>(a, lt, zk, st);
+    case 8: return launch_cta<T, 8>(a, lt, zk, st);
+    default: return launch_cta<T, 16>(a, lt, zk, st);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64; transpose: 0 L pass, 1 Lt pass.
-// Returns the cudaError_t of the launch.
+// dtype: 0 float32, 1 float64; transpose: 0 L pass, 1 Lt pass. chunk /
+// nchunk: the grid layout (ops/kernels.py solve_layout; chunk 0: one warp
+// per panel); part: the Lt pass's column partials, batch * nrhs * B *
+// nchunk * cp elements, read only with nchunk > 1. Returns the
+// cudaError_t of the launches.
 extern "C" int bs_bucket_solve(int dtype, int transpose, const void* data,
                                int64_t data_bstride, void* vv,
                                int64_t vv_bstride, void* y, int64_t y_bstride,
-                               int64_t y_base, const int64_t* off,
+                               int64_t y_base, void* part, const int64_t* off,
                                const int64_t* rows, const int64_t* cols,
                                const int64_t* vec_off,
                                const int64_t* below_idx, int64_t order,
                                int64_t B, int cp, int rp, int nrhs,
-                               int batch, void* stream) {
+                               int batch, int chunk, int nchunk,
+                               void* stream) {
+  if (B == 0) return 0;
+  Sv a{data, data_bstride, vv, vv_bstride, y, y_bstride, y_base, part, off,
+       rows, cols, vec_off, below_idx, order, B, cp, rp, nrhs, chunk,
+       nchunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(transpose, data, data_bstride, vv, vv_bstride, y,
-                         y_bstride, y_base, off, rows, cols, vec_off,
-                         below_idx, order, B, cp, rp, nrhs, batch, s);
-  if (dtype == 1)
-    return launch<double>(transpose, data, data_bstride, vv, vv_bstride, y,
-                          y_bstride, y_base, off, rows, cols, vec_off,
-                          below_idx, order, B, cp, rp, nrhs, batch, s);
+  if (dtype == 0) return launch<float>(a, transpose != 0, batch, s);
+  if (dtype == 1) return launch<double>(a, transpose != 0, batch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 // Building blocks shared by K1 (bucket_factor.cu), K1-wide
-// (wide_factor.cu) and K4 (dense_level.cu): the register-resident 32 x 32
-// Cholesky and inverse of a diagonal block; a warp's 32 x 32 block of a
-// product A . B^T over 32 columns on the f64 tensor cores (mma.m8n8k4),
-// or by FMAs in f32; a CTA's 64 x 64 tile of x x^T from cp.async stages.
+// (wide_factor.cu), K3 (bucket_solve.cu), K4 (dense_level.cu) and K5
+// (add_mv.cu): the register-resident 32 x 32 Cholesky and inverse of a
+// diagonal block; a warp's 32 x 32 block of a product A . B^T over 32
+// columns on the f64 tensor cores (mma.m8n8k4), or by FMAs in f32; a
+// CTA's 64 x 64 tile of x x^T from cp.async stages; butterfly sums over
+// groups of lanes.
 
 #pragma once
 
@@ -242,6 +244,21 @@ __device__ __forceinline__ void acc_each(T (&acc)[4][4][2], int lane,
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         f(acc[mi][nj][h], mi * 8 + g, nj * 8 + t2 + h);
+}
+
+// sum over aligned groups of G lanes (G a power of two), every lane of
+// the group gets it
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// sum over the lanes of the same position in each group of G lanes
+template <typename T>
+__device__ __forceinline__ T across_groups(T v, int G) {
+  for (int o = G; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // Tile t of the lower triangle of a grid of tiles, row by row:

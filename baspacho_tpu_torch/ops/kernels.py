@@ -43,6 +43,7 @@ from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .schedule import NARROW_MAX
@@ -53,7 +54,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu",
            "wide_factor.cu", "wide_solve.cu", "dense_level.cu",
            "tri_solve.cu", "add_mv.cu", "grad_hess.cu")
-HEADERS = ("warp_tiles.cuh",)  # included by the K1, K1-wide, K4, K5 sources
+HEADERS = ("warp_tiles.cuh",)  # included by the K1, K1-wide, K3, K4, K5
+#                                sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu)
@@ -152,8 +154,8 @@ def _lib() -> ctypes.CDLL:
             "bs_segmented_subtract": [i32, vp, i64, vp, i64, vp, vp, vp, i64,
                                       i64, i32, vp],
             "bs_bucket_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
-                                vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
-                                vp],
+                                vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
+                                i32, i32, i32, vp],
             "bs_wide_factor": [i32, vp, i64, vp, vp, vp, vp, i64, i32, i32,
                                i32, vp],
             "bs_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
@@ -172,8 +174,8 @@ def _lib() -> ctypes.CDLL:
             "bs_add_mv": [i32, vp, i64, vp, i64, vp, i64, vp, i64, i64, vp,
                           vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
                           i32, i32, i32, i32, f64, vp],
-            "bs_grad_hess": [i32, vp, i64, i32, vp, vp, i64, i32, i32, i32,
-                             vp, vp, vp, vp, vp, vp, vp, vp, i64, vp],
+            "bs_grad_hess": [i32, vp, i64, i32, vp, vp, i64, vp, vp, i32, vp,
+                             i32, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -479,12 +481,42 @@ def _check_solve(name, data, vv, y, rp, transpose):
     return use_y
 
 
+SOLVE_WARP_ELEMS = 1024   # below elements (rp x cp) of a panel one warp
+#                           takes at most, 4 <= cp <= 32 (csrc/bucket_solve.cu
+#                           solve_l_warp_kernel / solve_lt_warp_kernel)
+SOLVE_WARP_PANELS = 64    # panels of a bucket one warp each at least: fewer
+#                           get a CTA each
+SOLVE_CHUNK_ELEMS = 8192  # below elements of one CTA's chunk of rows
+SOLVE_MAX_CHUNK = 256     # below rows per chunk at most: 32 a warp
+
+
+def solve_layout(cp: int, rp: int, B: int) -> tuple:
+    """K3's grid for a bucket of B (cp, rp) panels, from the bucket's
+    shape alone (so that batch items equal their single runs): (below
+    rows per chunk, chunks per panel); 0 rows per chunk: one warp per
+    panel. cp must be a power of two up to NARROW_MAX (the padding's)."""
+    if cp < 1 or cp > NARROW_MAX or cp & (cp - 1):
+        raise ValueError(f"bucket_solve: cp {cp} is not a power of two "
+                         f"up to {NARROW_MAX}")
+    if 4 <= cp <= 32 and rp * cp <= SOLVE_WARP_ELEMS and \
+            B >= SOLVE_WARP_PANELS:
+        return 0, 1
+    # a multiple of a CTA step's 8 (32 / G) rows, G = min(cp, 32)
+    crc = min(SOLVE_MAX_CHUNK, max(8 * (32 // min(cp, 32)),
+                                   SOLVE_CHUNK_ELEMS // cp))
+    return crc, -(-rp // crc)
+
+
 def bucket_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
                  below_idx, cp: int, rp: int, transpose: bool) -> None:
     """Stored-inverse diagonal solve of one bucket, in place in vv.
     L pass (transpose=False): vv[rows] = Linv . vv[rows] and, when rp > 0,
     y[:, y_base + b*rp + r] = (below . x)[b, r]. Lt pass: vv[rows] =
-    Linv^T . (vv[rows] - below^T . vv[below_idx])."""
+    Linv^T . (vv[rows] - below^T . vv[below_idx]). On the card
+    (csrc/bucket_solve.cu): one warp per small panel, else a CTA per panel
+    for its own rows and, past one chunk of below rows, a CTA per chunk
+    of them (`solve_layout`), the Lt pass's chunk sums through a cached
+    scratch."""
     use_y = _check_solve("bucket_solve", data, vv, y, rp, transpose)
     if data.device.type == "cpu":
         return bucket_solve_twin(data, vv, y, y_base, off, rows, cols,
@@ -492,15 +524,24 @@ def bucket_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
     _check_cuda("bucket_solve", [data, vv, y] if use_y else [data, vv],
                 [off, rows, cols, vec_off, below_idx])
     batch, order, nrhs = vv.shape
+    B = off.shape[0]
+    if batch * nrhs > 65535:
+        raise ValueError(f"bucket_solve: batch x nrhs {batch * nrhs} "
+                         "exceeds the grid's 65535")
+    crc, nchunk = solve_layout(cp, rp, B)
+    two = crc > 0 and nchunk > 1
+    part = _scratch(vv, batch * nrhs * B * nchunk * cp).data_ptr() \
+        if two and transpose else None
     err = _lib().bs_bucket_solve(
         _DTYPE_CODE[data.dtype], int(transpose), data.data_ptr(),
         data.shape[1], vv.data_ptr(), order * nrhs,
         y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,
-        y_base * nrhs, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-        vec_off.data_ptr(), below_idx.data_ptr(), order, off.shape[0], cp,
-        rp, nrhs, batch, _stream(data))
+        y_base, part, off.data_ptr(), rows.data_ptr(),
+        cols.data_ptr(), vec_off.data_ptr(), below_idx.data_ptr(), order, B,
+        cp, rp, nrhs, batch, crc, nchunk, _stream(data))
     COUNTS["bucket_solve"].launches += 1
-    COUNTS["bucket_solve"].grid_launches += 1
+    # the warp grid, or the diag grid and, past one chunk, the rows grid
+    COUNTS["bucket_solve"].grid_launches += 2 if two else 1
     _raise_on("bucket_solve", err)
 
 
@@ -962,19 +1003,19 @@ def wide_add_mv_twin(*args) -> None:
 # ----------------------------------------------------------------------
 # K6 grad_hess
 # ----------------------------------------------------------------------
-GH_SMEM_BYTES = 48 * 1024  # static shared-memory limit of gh_block_kernel
-GH_BLOCK_THREADS = 256     # threads of gh_block_kernel (csrc/grad_hess.cu)
-GH_MAX_CHUNK = 64          # records staged at a time by gh_block_kernel
-
-
 def grad_hess(W, hdata, grad, plan) -> None:
     """Adds one factor family's contributions into the Hessian data and
     the gradient, in place: per factor f, J_k^T J_l of every pair of its
     live slots into hdata (transposed where the block is stored so) and
     J_k^T r into grad. W is the family's (F, rdim, tdw) buffer of
     weighted Jacobians and residual, `plan` its ops.assembly
-    FamilyAssembly. Every destination element is summed by one thread in
-    a fixed order: no atomics, the same bits from run to run."""
+    FamilyAssembly. On the card (csrc/grad_hess.cu), one C call: per
+    output a CTA per chunk of a long segment's records into a cached
+    scratch of partial blocks, then a thread per element of both
+    outputs' short segments, piece by piece, then a thread per element
+    of the long ones adding its chunks' partials. Every destination
+    element is summed in a fixed order: no atomics, the same bits from
+    run to run."""
     if W.shape[1:] != (plan.rdim, plan.tdw):
         raise ValueError(f"grad_hess: W is {tuple(W.shape)}, the plan wants "
                          f"(F, {plan.rdim}, {plan.tdw})")
@@ -985,34 +1026,40 @@ def grad_hess(W, hdata, grad, plan) -> None:
                 [plan.tab_a, plan.tab_b, *(getattr(s, k) for s in (h, g)
                                            for k in ("off", "stride", "rows",
                                                      "cols", "ptr", "rec",
-                                                     "short", "long"))])
-    lib, code, st = _lib(), _DTYPE_CODE[W.dtype], _stream(W)
-    item = W.element_size()
+                                                     "chunk_seg", "chunk_p0",
+                                                     "chunk_ptr"))])
+    sizes = [s.chunk_seg.shape[0] * s.max_e_long for s in (h, g)]
+    part = _scratch(W, max(1, sum(sizes)))
+    outs = np.asarray([
+        v for out, s, p in ((hdata, h, part.data_ptr()),
+                            (grad, g, part[sizes[0]:].data_ptr()))
+        for v in (out.data_ptr(), *(getattr(s, k).data_ptr() for k in (
+            "off", "stride", "rows", "cols", "ptr", "rec", "chunk_seg",
+            "chunk_p0", "chunk_ptr")), p, s.chunk_seg.shape[0],
+            s.short.shape[0], s.chunk_rec, s.max_rc_long, s.max_e_long)],
+        dtype=np.int64)
+    se, le = plan.short_entries, plan.long_entries
+    err = _lib().bs_grad_hess(
+        _DTYPE_CODE[W.dtype], W.data_ptr(), plan.tdw, plan.rdim,
+        plan.tab_a.data_ptr(), plan.tab_b.data_ptr(), plan.Q,
+        outs.ctypes.data, se.ctypes.data, len(se), le.ctypes.data, len(le),
+        _stream(W))
     COUNTS["grad_hess"].launches += 1
-    for out, seg in ((hdata, h), (grad, g)):
-        for ids, long_mode in ((seg.short, 0), (seg.long, 1)):
-            n = ids.shape[0]
-            if n == 0:
-                continue
-            chunk = 0
-            if long_mode:
-                room = GH_SMEM_BYTES // item - GH_BLOCK_THREADS
-                chunk = min(GH_MAX_CHUNK,
-                            room // (plan.rdim * seg.max_rc_long))
-                if chunk < 1:
-                    raise ValueError("grad_hess: a block of "
-                                     f"{seg.max_rc_long} rows + columns at "
-                                     f"rdim {plan.rdim} does not fit in "
-                                     "shared memory")
-            err = lib.bs_grad_hess(
-                code, W.data_ptr(), plan.tdw, plan.rdim, out.data_ptr(),
-                ids.data_ptr(), n, long_mode, chunk, seg.max_rc_long,
-                seg.off.data_ptr(), seg.stride.data_ptr(),
-                seg.rows.data_ptr(), seg.cols.data_ptr(), seg.ptr.data_ptr(),
-                seg.rec.data_ptr(), plan.tab_a.data_ptr(),
-                plan.tab_b.data_ptr(), plan.Q, st)
-            COUNTS["grad_hess"].grid_launches += 1
-            _raise_on("grad_hess", err)
+    COUNTS["grad_hess"].grid_launches += gh_grids(plan)
+    _raise_on("grad_hess", err)
+
+
+GH_MAX_CLASSES = 32  # class entries of one launch (csrc/grad_hess.cu
+#                      kMaxCls)
+
+
+def gh_grids(plan) -> int:
+    """The grids K6 launches for one family: a chunk grid per output with
+    long segments, the short grid and the post grid, each in launches of
+    up to GH_MAX_CLASSES class entries."""
+    chunks = [s.chunk_seg.shape[0] > 0 for s in (plan.hess, plan.grad)]
+    return sum(chunks) + -(-len(plan.short_entries) // GH_MAX_CLASSES) + \
+        (-(-len(plan.long_entries) // GH_MAX_CLASSES) if any(chunks) else 0)
 
 
 def grad_hess_twin(W, hdata, grad, plan) -> None:

@@ -76,10 +76,24 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                calls; on panels that are not positive definite
                (k1_not_pd), NaN from the failing column on
 
+  K3 per bucket and pass (k3_levels, after k5_levels) of one solve of
+               MERI, GRID, FLAT, FLAT+Schur 50k and BAL 871's first damped
+               system: against its twin (f64 at nrhs 1 and 3, f32),
+               batched and rerun bitwise, ms by events, device ms per grid
+               from complete traces, bounds, torch.sparse.mm with the
+               bucket's below block as CSR (a yardstick the port never
+               calls; the n x n product left out)
+  K6 per family (k6_levels, last) of BAL 871's first assembly: against
+               its twin (f64, f32) and a rerun, bitwise, ms by events,
+               device ms per grid from a complete trace, the bounds of its
+               short and long parts
+
 With `--only k5` it builds the kernels and runs K5's phases alone (BAL
 871's set-up and damped system, the PCG trace, k5_levels) and prints no
 last line; with `--only k1w`, K1-wide's (k1_not_pd, BAL 871's direct LM
-costs, k1w_levels).
+costs, k1w_levels); with `--only k3`, K3's (k3_levels, BAL 871's direct
+LM costs); with `--only k6`, K6's (k6_levels, BAL 871's direct LM
+costs).
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -151,7 +165,9 @@ GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
          "wide_factor": ("wide_tile_kernel", "wide_rows_kernel",
                          "wide_update_kernel"),
          "segmented_subtract": ("seg_sub_kernel",),
-         "bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
+         "bucket_solve": ("solve_l_warp_kernel", "solve_lt_warp_kernel",
+                          "solve_l_diag_kernel", "solve_lt_diag_kernel",
+                          "solve_l_rows_kernel", "solve_lt_rows_kernel"),
          "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
                         "wide_ltpre_kernel", "wide_ltmv_kernel"),
          "dense_update": ("dense_wide_kernel", "dense_warp_kernel",
@@ -161,7 +177,12 @@ GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
                             "tri_wide_post_kernel"),
          "add_mv": ("mv_warp_kernel", "mv_chunk_kernel", "mv_post_kernel"),
          "wide_add_mv": ("wide_mv_chunk_kernel", "wide_mv_post_kernel"),
-         "grad_hess": ("gh_warp_kernel", "gh_block_kernel")}
+         "grad_hess": ("gh_chunk_kernel", "gh_short_kernel",
+                       "gh_post_kernel")}
+# the grids of K3's and K6's earlier design (PERF.md), so that k3_levels
+# and k6_levels also time a checkout of it, beside these
+EARLIER_GRIDS = {"bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
+                 "grad_hess": ("gh_warp_kernel", "gh_block_kernel")}
 PRECONDS = ("IdentityPrecond", "BlockJacobiPrecond",
             "BlockGaussSeidelPrecond", "LowerPrecSolvePrecond")
 # the narrow K5 runs on the refined path: PCG's operator covers only the
@@ -935,6 +956,253 @@ def k5_levels(s, cases, label: str, name_limit: str, alpha=0.7) -> list:
     return out
 
 
+class SolveCapture:
+    """The kernels, for a solve program, keeping each K3 call's pass and
+    bucket: (transpose, off, rows, cols, vec_off, below_idx, cp, rp)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(kernels, name)
+
+    def bucket_solve(self, data, vv, y, y_base, off, rows, cols, vec_off,
+                     below_idx, cp, rp, transpose):
+        self.calls.append((transpose, off, rows, cols, vec_off, below_idx,
+                           cp, rp))
+        kernels.bucket_solve(data, vv, y, y_base, off, rows, cols, vec_off,
+                             below_idx, cp, rp, transpose)
+
+
+def below_sparse(data, order: int, off, rows, cols, vec_off, below_idx,
+                 cp: int, rp: int, transpose: bool):
+    """The gather product of one K3 bucket as a CUDA sparse_csr matrix of
+    its real below entries (sentinel rows left out), built from data[0]:
+    Lt pass, order x order with below[r][j] at (vec_off + j, bidx[r]), so
+    A @ vv is below^T vv[bidx] on the own rows; L pass, B rp x order with
+    below[r][j] at (p rp + r, vec_off + j), so A @ vv is y. For the
+    torch.sparse.mm yardstick, which the port never calls; the n x n
+    product with the stored inverse is left out."""
+    dev, d = data.device, data[0]
+    bi = below_idx.view(-1, rp)
+    live = ((torch.arange(rp, device=dev)[:, None] < rows[:, None, None])
+            & (torch.arange(cp, device=dev) < cols[:, None, None])
+            & (bi != order)[:, :, None])
+    p, r, j = live.nonzero(as_tuple=True)
+    val = d[off[p] + (cp + r) * cp + j]
+    if transpose:
+        idx, shape = torch.stack([vec_off[p] + j, bi[p, r]]), (order, order)
+    else:
+        idx, shape = torch.stack([p * rp + r, vec_off[p] + j]), \
+            (off.numel() * rp, order)
+    A = torch.sparse_coo_tensor(idx, val, shape)
+    return A.coalesce().to_sparse_csr()
+
+
+def k3_levels(cases, name_limit: str) -> list:
+    """K3 on every bucket and pass of one solve of each case ((label,
+    solver, factor single f64)), as [cp, rp, panels, widest real width,
+    most real below rows] with its layout (kernels.solve_layout):
+    against its twin (f64 at nrhs 1 and 3, f32 at nrhs 1; CheckedOps); a
+    batch of two (the second item's factor scaled) against single runs
+    and a rerun, bitwise, at nrhs 3; the wrapper's ms by CUDA events
+    (nrhs 1, solving its own output again in place: no grid's work
+    depends on the values), its twin's; device ms per grid from a
+    complete trace; the bound (cost()); and torch.sparse.mm of the
+    bucket's below block as CSR (below_sparse) with the RHS, a yardstick
+    the port never calls. Returns one row per call."""
+    out = []
+    rng = np.random.RandomState(7)
+    for label, s, f in cases:
+        order, dev = s.order, f.device
+        V = {n: torch.from_numpy(rng.rand(2, order, n) - 0.5).to(dev)
+             for n in (1, 3)}
+        cap = SolveCapture()
+        s.solve_program()(f[None], V[3][:1], ops=cap)
+        check(len(cap.calls) > 0, f"{label}: no bucket_solve call")
+        D = {torch.float64: f[None], torch.float32: f[None].float()}
+        D2 = torch.stack([f, f * 1.01])
+        for transpose, *bucket in cap.calls:
+            off, rows, cols, _, _, cp, rp = bucket
+            B, use_y = off.numel(), rp > 0 and not transpose
+            bucket = (*bucket, transpose)
+
+            def y_of(b, n, dt=torch.float64):
+                return torch.full((b, B * rp, n), float("nan"), dtype=dt,
+                                  device=dev) if use_y else None
+            row = {"case": label, "pass": "Lt" if transpose else "L",
+                   "bucket": [cp, rp, B, int(cols.max()),
+                              int(rows.max()) if rp else 0],
+                   "layout": getattr(kernels, "solve_layout",
+                                     lambda *_: ())(cp, rp, B),
+                   "max_rel": {}}
+            what = f"bucket_solve on {label} {row['pass']} {row['bucket']}"
+            for dt, n in ((torch.float64, 1), (torch.float64, 3),
+                          (torch.float32, 1)):
+                chk = CheckedOps()
+                chk.bucket_solve(D[dt], V[n][:1].to(dt), y_of(1, n, dt), 0,
+                                 *bucket)
+                r, key = chk.rel["bucket_solve"], f"{str(dt)[6:]}_nrhs{n}"
+                check(r <= KERNEL_RTOL[dt], f"{what} vs twin {key}: rel {r}")
+                row["max_rel"][key] = r
+            v2, y2 = V[3].clone(), y_of(2, 3)
+            kernels.bucket_solve(D2, v2, y2, 0, *bucket)
+            for b in range(2):
+                for _ in range(2):  # the single run, then its rerun
+                    v1, y1 = V[3][b:b + 1].clone(), y_of(1, 3)
+                    kernels.bucket_solve(D2[b:b + 1], v1, y1, 0, *bucket)
+                    check(torch.equal(v1[0], v2[b]) and
+                          (y1 is None or torch.equal(y1[0], y2[b])),
+                          f"{what}: batch item {b} differs from its single "
+                          "run")
+            del v2, y2
+            v, y = V[1][:1].clone(), y_of(1, 1)
+            args = (D[torch.float64], v, y, 0, *bucket)
+            run = functools.partial(kernels.bucket_solve, *args)
+            row["ms"] = time_ms(run, 20)
+            row["twin_ms"] = time_ms(functools.partial(
+                kernels.bucket_solve_twin, *args), 1, warmup=1)
+            kernels.reset_counts()
+            run()
+            torch.cuda.synchronize()
+            grids = kernels.COUNTS["bucket_solve"].grid_launches
+            reps = int(min(50, max(5, 5.0 / max(row["ms"], 1e-3))))
+            row["device_ms"], _, row["trace_tries"] = complete_trace(
+                run, GRIDS["bucket_solve"] + EARLIER_GRIDS["bucket_solve"],
+                grids, reps, what)
+            row["grids"] = grids
+            row["bound_ms"], row["bound_by"] = bound(*cost("bucket_solve",
+                                                           args))
+            row["library_ms"] = None
+            if rp:
+                A = below_sparse(D[torch.float64], order, *bucket)
+                row["library_ms"] = time_ms(lambda: torch.sparse.mm(A, v[0]),
+                                            5)
+                row["library_nnz"] = int(A.values().numel())
+                del A
+            out.append(row)
+        del D, D2, V
+    keys = sorted({(r["case"], r["pass"]) for r in out})
+
+    def by(field):
+        return {f"{c} {p}": sum(
+            (sum(r[field].values()) if isinstance(r[field], dict)
+             else r[field] or 0.0) for r in out
+            if (r["case"], r["pass"]) == (c, p)) for c, p in keys}
+    log("k3_levels", card=name_limit, dtype="float64", nrhs=1,
+        limits={"float64": 1e-10, "float32": 1e-4}, bitwise=True,
+        library_call="torch.sparse.mm(A, vv), A the bucket's below block as "
+                     "sparse_csr (Lt: below^T, the gather product; L: "
+                     "below, y); the n x n product is left out",
+        ms_by_case=by("ms"), device_ms_by_case=by("device_ms"),
+        bound_ms_by_case=by("bound_ms"), library_ms_by_case=by("library_ms"),
+        buckets=out)
+    return out
+
+
+def k6_costs(W, plan) -> dict:
+    """(bytes, operations) at the least of K6's two parts on one family,
+    from its plan: "short" (the short grid) and "long" (the chunk and
+    post grids), each reading the W values its records touch once
+    (counted per part), its output elements read and written once and
+    the index arrays it reads; a multiply-add per row of W per element
+    of each record's block."""
+    item, dev = W.element_size(), W.device
+    F, rdim, tdw = W.shape
+    out = {}
+    for part in ("short", "long"):
+        touched = torch.zeros((F, tdw), dtype=torch.bool, device=dev)
+        by, ops = 0.0, 0.0
+        for sg in (plan.hess, plan.grad):
+            ids = getattr(sg, part)
+            if ids.numel() == 0:
+                continue
+            s0, s1 = int(ids[0]), int(ids[-1]) + 1
+            ptr = sg.ptr[s0:s1 + 1]
+            cnt = ptr.diff()
+            R, C = sg.rows[s0:s1], sg.cols[s0:s1]
+            rec = sg.rec[int(ptr[0]):int(ptr[-1])]
+            f, q = rec // plan.Q, rec % plan.Q
+            Rr, Cr = torch.repeat_interleave(R, cnt), \
+                torch.repeat_interleave(C, cnt)
+            for qq, rr, cc in torch.unique(torch.stack([q, Rr, Cr]),
+                                           dim=1).T.tolist():
+                fs = f[(q == qq) & (Rr == rr) & (Cr == cc)][:, None]
+                touched[fs, int(plan.tab_a[qq]) + torch.arange(
+                    rr, device=dev)] = True
+                touched[fs, int(plan.tab_b[qq]) + torch.arange(
+                    cc, device=dev)] = True
+            el = int((R * C).sum())
+            idx = 2 * (s1 - s0) + cnt.numel() + 1 + rec.numel() + (
+                sg.chunk_seg.numel() * 2 + sg.chunk_ptr.numel()
+                if part == "long" else 0)
+            by += item * 2 * el + 8 * idx
+            ops += 2.0 * rdim * float((Rr * Cr).sum())
+        out[part] = (by + item * rdim * int(touched.sum()), ops)
+    return out
+
+
+def k6_levels(opt, terms, name_limit: str) -> list:
+    """K6 on one BAL 871 assembly: against its twin (f64, f32) and a
+    rerun, bitwise (testing.flows.k6_vs_twin); per family, the wrapper's
+    ms by CUDA events (adding into its own output again: no grid's work
+    depends on the values), the twin's, device ms per grid from a
+    complete trace, and the bound of the short part and of the long one
+    (k6_costs). Returns one row per family."""
+    s = opt.solver
+    rel = {}
+    for dt in (torch.float64, torch.float32):
+        r, _, same = k6_vs_twin(opt, terms, dt)
+        check(r <= KERNEL_RTOL[dt] and same, f"grad_hess vs twin on BAL 871 "
+              f"{dt}: rel {r}, rerun bitwise {same}")
+        rel[str(dt)[6:]] = r
+    rows = []
+    for fam, ((_, W), (_, plan)) in enumerate(zip(terms, opt._plans)):
+        W = W.to(torch.float64).contiguous()
+        h0 = torch.zeros(s.data_size, dtype=W.dtype, device=W.device)
+        g0 = torch.zeros(s.order, dtype=W.dtype, device=W.device)
+        run = functools.partial(kernels.grad_hess, W, h0, g0, plan)
+        classes = hasattr(plan.hess, "short_classes")  # this design's
+        row = {"family": fam, "F": W.shape[0], "rdim": plan.rdim,
+               "tdw": plan.tdw}
+        if classes:
+            row["classes"] = {k: {
+                "short": getattr(plan, k).short_classes.tolist(),
+                "long": getattr(plan, k).long_classes.tolist(),
+                "chunks": int(getattr(plan, k).chunk_seg.numel()),
+                "chunk_rec": getattr(plan, k).chunk_rec}
+                for k in ("hess", "grad")}
+        row["ms"] = time_ms(run, 10)
+        row["twin_ms"] = time_ms(functools.partial(
+            kernels.grad_hess_twin, W, h0, g0, plan), 1, warmup=1)
+        kernels.reset_counts()
+        run()
+        torch.cuda.synchronize()
+        grids = kernels.COUNTS["grad_hess"].grid_launches
+        reps = int(min(20, max(3, 5.0 / max(row["ms"], 1e-3))))
+        row["device_ms"], tr, row["trace_tries"] = complete_trace(
+            run, GRIDS["grad_hess"] + EARLIER_GRIDS["grad_hess"], grids,
+            reps, f"grad_hess on BAL 871 family {fam}")
+        row["grids"] = grids
+        row["device_busy_ms"] = tr["device_busy_ms_per_call"]
+        if classes:
+            row["bound_ms"], row["bound_by"] = {}, {}
+            for part, c in k6_costs(W, plan).items():
+                row["bound_ms"][part], row["bound_by"][part] = bound(*c)
+            row["bound_ms_whole"], _ = bound(*cost("grad_hess",
+                                                   (W, h0, g0, plan)))
+        rows.append(row)
+        del h0, g0
+    log("k6_levels", card=name_limit, dtype="float64",
+        limits={"float64": 1e-10, "float32": 1e-4}, max_rel=rel,
+        bitwise_rerun=True, ms=sum(r["ms"] for r in rows),
+        device_ms={g: sum(r["device_ms"].get(g, 0.0) for r in rows)
+                   for g in GRIDS["grad_hess"] + EARLIER_GRIDS["grad_hess"]
+                   if any(g in r["device_ms"] for r in rows)},
+        families=rows)
+    return rows
+
+
 def bal_pcg_trace(s, damped, grad, t: int, name_limit: str,
                   iters: int = 10) -> None:
     """The pcg stage of mixed_solve on BAL's first damped system, with
@@ -1071,13 +1339,13 @@ def cost(name: str, args) -> tuple:
                 batch * ops.sum())
     if name == "grad_hess":
         # W read once, the touched Hessian and gradient elements read and
-        # written once, the plan's index arrays; a multiply-add per row
-        # of W per element of every record's block
+        # written once, the plan's index arrays the grids read; a
+        # multiply-add per row of W per element of every record's block
         W, _, _, plan = args
         idx = plan.tab_a.numel() + plan.tab_b.numel() + sum(
             getattr(sg, k).numel() for sg in (plan.hess, plan.grad)
-            for k in ("off", "stride", "rows", "cols", "ptr", "rec", "short",
-                      "long"))
+            for k in ("off", "stride", "ptr", "rec", "chunk_seg",
+                      "chunk_p0", "chunk_ptr"))
         return (item * (W.numel() + 2 * (plan.hess.elements +
                                          plan.grad.elements)) + 8 * idx,
                 2 * (plan.hess.macs + plan.grad.macs))
@@ -1917,17 +2185,74 @@ def k1w_only(dev, name_limit: str) -> int:
         s = make(T, device=dev)
         cases.append((pname, s, torch.from_numpy(spd_data(s, 1)).to(dev)))
     opt, values0, _ = bal_setup(dev)
-    direct = ba_settings(T.BackendType.PLANNED, 3, **BAL_DAMP)
-    costs = opt.optimize(direct)["costs"]
+    bal_direct_costs(opt, name_limit)
+    damped, _, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 3, **BAL_DAMP))
+    cases.append(("bal871", opt.solver, damped))
+    k1w_levels(cases, name_limit)
+    log("k1w_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
+def bal_direct_costs(opt, name_limit: str) -> list:
+    """BAL 871's direct LM (3 iterations) from the set-up's values, its
+    costs held to BAL_COSTS."""
+    costs = opt.optimize(ba_settings(T.BackendType.PLANNED, 3,
+                                     **BAL_DAMP))["costs"]
     check(len(costs) == len(BAL_COSTS["direct"]) and
           all(abs(a / b - 1) <= 1e-9 for a, b in zip(costs,
                                                       BAL_COSTS["direct"])),
           f"BAL 871 direct LM costs {costs}, expected {BAL_COSTS['direct']}")
     log("bal871_lm_direct", card=name_limit, costs=costs)
-    damped, _, _ = bal_damped(opt, values0, direct)
-    cases.append(("bal871", opt.solver, damped))
-    k1w_levels(cases, name_limit)
-    log("k1w_only", seconds=time.perf_counter() - t0)
+    return costs
+
+
+def k3_cases(probs, d64, bal_solver, bal_damped_data) -> list:
+    """k3_levels' cases: the factor of each problem's data (MERI, GRID,
+    FLAT, FLAT+Schur 50k) and of BAL 871's first damped system."""
+    cases = [(p, probs[p], probs[p].factor(torch.from_numpy(d64[p]).to(
+        bal_damped_data.device))) for p in ("meri7", "grid100", "flat1000",
+                                            "flat_schur50k")]
+    cases.append(("bal871", bal_solver, bal_solver.factor(bal_damped_data)))
+    return cases
+
+
+def k3_only(dev, name_limit: str) -> int:
+    """`--only k3`: the build, then K3's phase alone (k3_levels on MERI,
+    GRID, FLAT, FLAT+Schur 50k and BAL 871's first damped system) and
+    BAL 871's direct LM held to BAL_COSTS, for iterating on
+    csrc/bucket_solve.cu without the whole run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    probs = {p: make(T, device=dev) for p, make in (
+        ("meri7", meri7), ("grid100", grid100), ("flat1000", flat1000),
+        ("flat_schur50k", flat_schur50k))}
+    d64 = {k: spd_data(s, 1) for k, s in probs.items()}
+    opt, values0, _ = bal_setup(dev)
+    damped, _, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
+    k3_levels(k3_cases(probs, d64, opt.solver, damped), name_limit)
+    reset_values(opt, values0)
+    bal_direct_costs(opt, name_limit)
+    log("k3_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
+def k6_only(dev, name_limit: str) -> int:
+    """`--only k6`: the build, then K6's phase alone (k6_levels on BAL
+    871's first assembly) and BAL 871's direct LM held to BAL_COSTS, for
+    iterating on csrc/grad_hess.cu without the whole run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    opt, values0, _ = bal_setup(dev)
+    k6_levels(opt, opt.jacobians([f.values for f in opt.families]),
+              name_limit)
+    bal_direct_costs(opt, name_limit)
+    log("k6_only", seconds=time.perf_counter() - t0)
     print(card(), flush=True)
     return 0
 
@@ -1947,13 +2272,12 @@ def main(argv=()) -> int:
         capability=list(torch.cuda.get_device_capability(0)),
         torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
-    if list(argv) == ["--only", "k5"]:
-        return k5_only(dev, name_limit)
-    if list(argv) == ["--only", "k1w"]:
-        return k1w_only(dev, name_limit)
+    only = {"k5": k5_only, "k1w": k1w_only, "k3": k3_only, "k6": k6_only}
+    if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
+        return only[argv[1]](dev, name_limit)
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {list(argv)} (none, "
-                         "--only k5 or --only k1w)")
+                         f"or --only with one of {sorted(only)})")
 
     # 2. build
     t0 = time.perf_counter()
@@ -2517,7 +2841,12 @@ def main(argv=()) -> int:
         [("bal871", bal["opt"].solver, bal["damped"])], name_limit)
     # 14. K5 per bucket on BAL 871's and FLAT+Schur 50k's mat-vecs
     k5 = k5_phase(schur50, torch.from_numpy(d64["flat_schur50k"]).to(dev),
-                  opt, bal.pop("damped"), name_limit)
+                  opt, bal["damped"], name_limit)
+    # 15. K3 per bucket and pass of MERI's, GRID's, FLAT's, Schur 50k's
+    # and BAL 871's solves; K6 per family and grid of BAL's assembly
+    k3 = k3_levels(k3_cases(probs, d64, opt.solver, bal.pop("damped")),
+                   name_limit)
+    k6 = k6_levels(opt, bal["terms"], name_limit)
     by_case["wide_factor"] = {
         f"{r['case']} {r['bucket'][:2]} (k1w_levels)": r["ms"] for r in k1w}
     by_case["bucket_factor"] = {
@@ -2543,6 +2872,12 @@ def main(argv=()) -> int:
         per_case[k] = ("bal871 f64 nrhs 1 add_mv_from(t), the PCG operator: "
                        "its buckets' calls summed (k5_levels)")
 
+    by_case["bucket_solve"] = {
+        f"{c} {p} (k3_levels)": sum(r["ms"] for r in k3
+                                    if (r["case"], r["pass"]) == (c, p))
+        for c, p in sorted({(r["case"], r["pass"]) for r in k3})}
+    by_case["grad_hess"] = {
+        f"bal871 family {r['family']} (k6_levels)": r["ms"] for r in k6}
     paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur,
              **c_pcg, "refined_schur50k": c_ref, "bal_lm_direct": c_direct,
              "bal_lm_pcg": c_balpcg}
