@@ -26,20 +26,19 @@
 // of a launch race.
 //
 // Bound by reading the panels and by the gathers' latency: BAL 871's
-// point bucket is 527,478 cp-4 panels of ~45 real below rows. The
-// earlier design ran one CTA per panel with a thread per (column, RHS)
-// walking every below row in turn, a dependent bidx -> vv gather a row:
-// 3 of 64 threads busy there, 10.3 ms a solve on an H100 (PERF.md). Here
-// the rows are on the lanes, as in K5 (add_mv.cu): G = min(cp, 32) lanes
-// a row, each lane on columns m + 32 t (t < CT = max(1, cp / 32)), RG =
-// 32 / G rows a warp step; a row's dot by a butterfly within its group,
-// column sums per lane in row order, joined across the groups by a
-// butterfly and across warps in warp order. Every sum's order depends on
-// the bucket's shape (cp, rp) only (ops/kernels.py solve_layout), so
+// point bucket is 527,478 cp-4 panels of ~45 real below rows, where a
+// thread per (column, RHS) walking every below row would keep 3 threads
+// of a panel busy on a chain of dependent bidx -> vv gathers. So the rows
+// are on the lanes, as in K5 (add_mv.cu): G = min(cp, 32) lanes a row,
+// each lane on columns m + 32 t (t < CT = max(1, cp / 32)), RG = 32 / G
+// rows a warp step; a row's dot by a butterfly within its group, column
+// sums per lane in row order, joined across the groups by a butterfly
+// and across warps in warp order. Every sum's order depends on the
+// bucket's shape (cp, rp, panels) only (ops/kernels.py solve_layout), so
 // batch items equal their single runs and reruns each other, bitwise:
 //   solve_l_warp_kernel / solve_lt_warp_kernel (4 <= cp <= 32, rp cp <=
-//     1024, at least 64 panels: BAL's and Schur's points, MERI's and
-//     GRID's many small panels):
+//     1024, at least 256 panels: BAL's and Schur's points, MERI's and
+//     GRID's largest small-panel buckets):
 //     one warp per panel, eight a CTA, no block barrier. The panel's
 //     real below elements are copied into shared memory by cp.async
 //     first; meanwhile Lt loads all its rows' bidx, then all their
@@ -48,7 +47,10 @@
 //   solve_l_diag_kernel / solve_lt_diag_kernel (every other bucket): one
 //     CTA of eight warps per panel for the own rows' phase (Lt: a thread
 //     a row of the strict upper); when the below rows are one chunk of at
-//     most crc rows, their phase too.
+//     most crc rows, their phase too. The loads that need no result of
+//     the panel come first, so that a small panel waits on about one
+//     round of loads: below ~256 panels this is quicker than the warp
+//     grid.
 //   solve_l_rows_kernel / solve_lt_rows_kernel (more below rows than one
 //     chunk: FLAT's 15-wide lump, BAL's pair levels, GRID's long panels):
 //     a CTA per (panel, chunk of crc rows). L, after the diag grid: each
@@ -281,10 +283,20 @@ __device__ __forceinline__ void below_row(const Sv& a, const Item<T>& it,
   }
 }
 
+// whether a CTA grid's lanes load a step's rows ahead of the step that
+// needs them: for up to 4 columns a lane (cp <= 128); wider lanes keep
+// their registers for the columns (ahead, cp 256 and 512 ran ~1.5x
+// slower in f64)
+template <int CT>
+__host__ __device__ constexpr bool ahead() {
+  return CT <= 4;
+}
+
 // y rows [r0, r1) of the L pass: row dots with x (x[col] in xs[t] for
-// col = m + 32 t), 0 past nrows; e holds the elements of this thread's
-// first row, loaded by the caller ahead of x, and each step loads the
-// next step's row before its dot
+// col = m + 32 t), 0 past nrows. With ahead<CT>(), e holds the elements
+// of this thread's first row, loaded by the caller ahead of x, and each
+// step loads the next step's row before its dot; else each step loads
+// its own row into e
 template <typename T, int CT>
 __device__ __forceinline__ void l_below_dots(const Sv& a, const Item<T>& it,
                                              int r0, int r1, const T* xs,
@@ -296,13 +308,16 @@ __device__ __forceinline__ void l_below_dots(const Sv& a, const Item<T>& it,
   for (int rb = r0 + warp * RG; rb < r1; rb += step) {
     const int r = rb + gi;
     T nx[CT];
-    below_row<T, CT>(a, it, r + step < r1 ? r + step : it.nrows, m, nx);
+    if (ahead<CT>())
+      below_row<T, CT>(a, it, r + step < r1 ? r + step : it.nrows, m, nx);
+    else
+      below_row<T, CT>(a, it, r, m, e);
     T d = T(0);
 #pragma unroll
     for (int t = 0; t < CT; ++t) {
       const int col = m + 32 * t;
       if (r < it.nrows && col < it.n) d += e[t] * xs[t];
-      e[t] = nx[t];
+      if (ahead<CT>()) e[t] = nx[t];
     }
     d = group_sum(d, G);
     if (m == 0 && r < r1) it.y[(int64_t)r * a.nrhs] = d;
@@ -311,9 +326,10 @@ __device__ __forceinline__ void l_below_dots(const Sv& a, const Item<T>& it,
 
 // L pass, the own rows of panel blockIdx.x: x = Linv b (column sums of
 // the strict upper over the warps), into vv; with one chunk of below
-// rows, their dots into y too. Every load that does not need x (b, the
-// strict upper, the diagonal, the first below rows) is issued before the
-// first barrier
+// rows, their dots into y too. b and the diagonal are loaded first and,
+// with ahead<CT>(), the first step's rows of the strict upper and of the
+// below rows too, before the first barrier, so that a small panel waits
+// on about one round of loads
 template <typename T, int CT>
 __global__ void __launch_bounds__(kThreads) solve_l_diag_kernel(Sv a) {
   __shared__ T red[kWarps][CT * 32];
@@ -322,24 +338,37 @@ __global__ void __launch_bounds__(kThreads) solve_l_diag_kernel(Sv a) {
   const Item<T> it(a, p);
   const int cp = a.cp, nrhs = a.nrhs, n = it.n, G = cp < 32 ? cp : 32;
   const int RG = 32 / G, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gi = lane / G, m = lane % G;
+  const int gi = lane / G, m = lane % G, step = kWarps * RG;
   T bj[2], dj[2];  // b and the diagonal of columns tid, tid + kThreads
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int j = threadIdx.x + u * kThreads;
     bj[u] = j < n ? it.v[(it.v0 + j) * nrhs] : T(0);
     dj[u] = j < n ? it.P[(int64_t)j * cp + j] : T(1);
+    if (j < n) sx[j] = bj[u];
   }
-  T e[CT];
-  below_row<T, CT>(a, it, a.nchunk == 1 ? warp * RG + gi : it.nrows, m, e);
-  T acc[CT];
+  T e[CT], acc[CT];
 #pragma unroll
-  for (int t = 0; t < CT; ++t) acc[t] = T(0);
+  for (int t = 0; t < CT; ++t) acc[t] = e[t] = T(0);
+  int ib0 = warp * RG;  // the first step that reads b from shared memory
+  if (ahead<CT>()) {
+    below_row<T, CT>(a, it, a.nchunk == 1 ? ib0 + gi : it.nrows, m, e);
+    const int i = ib0 + gi;
+    const T bi = i < n ? it.v[(it.v0 + i) * nrhs] : T(0);
+#pragma unroll
+    for (int t = 0; t < CT; ++t) {
+      const int col = m + 32 * t;
+      if (i < n && col > i && col < n)
+        acc[t] += it.P[(int64_t)i * cp + col] * bi;
+    }
+    ib0 += step;
+  }
+  __syncthreads();
 #pragma unroll 4
-  for (int ib = warp * RG; ib < n; ib += kWarps * RG) {
+  for (int ib = ib0; ib < n; ib += step) {
     const int i = ib + gi;
     if (i < n) {
-      const T bi = it.v[(it.v0 + i) * nrhs];
+      const T bi = sx[i];
 #pragma unroll
       for (int t = 0; t < CT; ++t) {
         const int col = m + 32 * t;
@@ -386,7 +415,8 @@ __global__ void __launch_bounds__(kThreads) solve_l_rows_kernel(Sv a) {
   const int r0 = c * a.crc, r1 = min(r0 + a.crc, a.rp);
   const int RG = 32 / G, gi = (threadIdx.x & 31) / G;
   T e[CT], xs[CT];
-  below_row<T, CT>(a, it, r0 + (threadIdx.x >> 5) * RG + gi, m, e);
+  if (ahead<CT>())
+    below_row<T, CT>(a, it, r0 + (threadIdx.x >> 5) * RG + gi, m, e);
 #pragma unroll
   for (int t = 0; t < CT; ++t) {
     const int col = m + 32 * t;

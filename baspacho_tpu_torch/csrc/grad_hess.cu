@@ -30,15 +30,13 @@
 //
 // Bound by device memory: W, the touched output elements read and
 // written once (BAL 871: 71M elements of 2.64M camera-point blocks), the
-// plan's index arrays. The earlier design ran a warp per short segment
-// with lanes over its elements (27, 9 or 3 of 32 busy on BAL) after a
-// chain of dependent loads (segment list -> segment -> record -> W), and
-// a CTA per long segment walking its ~3,000 records in chunks behind two
-// barriers each, 870 CTAs in ~7 waves: 4.6 ms an assembly on an H100
-// (PERF.md). The host now orders each output's segments in classes
-// (short ones of equal rows, cols and record count; long ones of equal
-// rows and cols), and one call runs both outputs of a family in three
-// grids:
+// plan's index arrays. A warp per short segment would leave most lanes
+// idle (BAL's blocks are 9 x 3, 3 x 3 and 3 x 1) behind a chain of
+// dependent loads, and a CTA per long segment (870 cameras of ~3,000
+// records) would not fill the card. So the host orders each output's
+// segments in classes (short ones of equal rows, cols and record count;
+// long ones of equal rows and cols), and one call runs both outputs of a
+// family in three grids:
 //   gh_short_kernel: one thread per row of every short segment (at most
 //     LONG_SEG records: point blocks, camera-point blocks, point
 //     gradients), its elements in registers. Each class entry covers
@@ -51,12 +49,14 @@
 //     of one piece read the same few MB of W (a point's 3 x 3 block, its
 //     camera-point blocks, its gradient), which L2 keeps between them.
 //   gh_chunk_kernel: one CTA per chunk of at most chunk_rec records of a
-//     long segment (camera blocks and gradients: ~24 chunks each on BAL,
-//     ~74,000 CTAs): the records' W offsets, then their W columns staged
-//     in shared memory by cp.async (all in flight), G = 256 / rows thread
-//     groups summing interleaved records, a thread a row of the block in
-//     registers, joined in group order into the chunk's partial block in
-//     a scratch.
+//     long segment of either output (camera blocks and gradients: 12
+//     chunks each on BAL, ~21,000 CTAs, the two outputs' chunks in
+//     turn): the records' W offsets, then G = 256 / rows thread groups
+//     summing interleaved records, a thread a row of the block in
+//     registers, reading W directly, joined in group order into the
+//     chunk's partial block in a scratch (staging the records' W columns
+//     in shared memory instead bounds a chunk's records and the CTAs an
+//     SM by the shared memory, and was slower on BAL).
 //   gh_post_kernel: one thread per element of every long segment, adding
 //     its chunks' partials in chunk order to the value it read.
 
@@ -196,76 +196,66 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kChunkCols = 12;  // columns a chunk-grid thread sums at once
 
-// the chunks of output o's long segments, a CTA each: the records' W
-// columns staged, then thread (g, r) sums row r of the block over the
-// records g, g + G, ... (G = kThreads / rows groups), kChunkCols columns
-// at a time in registers, and the groups' sums are joined in group order
+// the chunks of both outputs' long segments, a CTA each, the two lists
+// interleaved (Hessian chunk i, gradient chunk i, ..., then the rest of
+// the longer list): where both outputs' long segments hold the same
+// records in the same order (BAL: a camera's block and its gradient),
+// the second reads its W rows from L2. The records' W offsets first,
+// then thread (g, r) sums row r of the block over the records g, g + G,
+// ... (G = kThreads / rows groups), kChunkCols columns at a time in
+// registers, reading W directly (a record's columns are shared by its
+// group's threads through L1); the groups' sums are joined in group order
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    gh_chunk_kernel(const __grid_constant__ Gh a, int o) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+    gh_chunk_kernel(const __grid_constant__ Gh a) {
   __shared__ int64_t wa[kMaxChunkRec], wb[kMaxChunkRec];
+  __shared__ T red[kThreads * kChunkCols];
+  const int64_t n0 = a.o[0].nchunks, n1 = a.o[1].nchunks;
+  const int64_t both = n0 < n1 ? n0 : n1;
+  int o;
+  int64_t j;
+  if ((int64_t)blockIdx.x < 2 * both) {
+    o = blockIdx.x & 1;
+    j = blockIdx.x >> 1;
+  } else {
+    o = n0 > n1 ? 0 : 1;
+    j = both + (int64_t)blockIdx.x - 2 * both;
+  }
   const Out& d = a.o[o];
   const int tid = threadIdx.x;
-  const int64_t j = blockIdx.x;
   const int64_t s = d.chunk_seg[j];
   const int R = (int)d.rows[s], C = (int)d.cols[s];
-  const int rdim = a.rdim, RC = R + C, per = rdim * RC;
+  const int rdim = a.rdim;
+  const int64_t tdw = a.tdw;
   const int64_t p0 = d.chunk_p0[j];
   const int64_t pe = d.ptr[s + 1];
   const int nrec = (int)(pe - p0 < d.chunk_rec ? pe - p0 : d.chunk_rec);
-  T* red = reinterpret_cast<T*>(smem_raw);   // [kThreads][kChunkCols]
-  T* stA = red + kThreads * kChunkCols;      // [nrec][rdim][R]
-  T* stB = stA + (int64_t)nrec * rdim * R;   // [nrec][rdim][C]
-  // the records' W offsets of their two column runs first, then every
-  // staged value's copy at once, value tid + kThreads i at (record jj,
-  // W row k, column col), advanced by carries
   if (tid < nrec) {
     int64_t f, q;
     split_rec(d.rec[p0 + tid], a.Q, f, q);
-    wa[tid] = f * rdim * a.tdw + a.tab_a[q];
-    wb[tid] = f * rdim * a.tdw + a.tab_b[q];
+    wa[tid] = f * rdim * tdw + a.tab_a[q];
+    wb[tid] = f * rdim * tdw + a.tab_b[q];
   }
   __syncthreads();
   const T* W = static_cast<const T*>(a.W);
-  {
-    int jj = tid / per, k = (tid - jj * per) / RC;
-    int col = tid - jj * per - k * RC;
-    const int djj = kThreads / per, dk = (kThreads - djj * per) / RC;
-    const int dcol = kThreads - djj * per - dk * RC;
-    for (int i = tid; i < nrec * per; i += kThreads) {
-      if (col < R)
-        cp_async_el(stA + (jj * rdim + k) * R + col,
-                    W + wa[jj] + k * a.tdw + col);
-      else
-        cp_async_el(stB + (jj * rdim + k) * C + (col - R),
-                    W + wb[jj] + k * a.tdw + (col - R));
-      col += dcol;
-      if (col >= RC) col -= RC, ++k;
-      k += dk;
-      if (k >= rdim) k -= rdim, ++jj;
-      jj += djj;
-    }
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
   const int G = kThreads / R, g = tid / R, r = tid - g * R;
   T* part = static_cast<T*>(d.part) + j * d.max_e;
   for (int c0 = 0; c0 < C; c0 += kChunkCols) {
     T acc[kChunkCols];
 #pragma unroll
     for (int c = 0; c < kChunkCols; ++c) acc[c] = T(0);
+#pragma unroll 2
     for (int jj = g; g < G && jj < nrec; jj += G) {
+      const T* pa = W + wa[jj] + r;
+      const T* pb = W + wb[jj] + c0;
       T sum[kChunkCols];
 #pragma unroll
       for (int c = 0; c < kChunkCols; ++c) sum[c] = T(0);
       for (int k = 0; k < rdim; ++k) {
-        const T av = stA[(jj * rdim + k) * R + r];
-        const T* b = stB + (jj * rdim + k) * C + c0;
+        const T av = pa[k * tdw];
 #pragma unroll
         for (int c = 0; c < kChunkCols; ++c)
-          if (c0 + c < C) sum[c] += av * b[c];
+          if (c0 + c < C) sum[c] += av * pb[k * tdw + c];
       }
 #pragma unroll
       for (int c = 0; c < kChunkCols; ++c) acc[c] += sum[c];
@@ -336,18 +326,15 @@ template <typename T>
 int launch(const Gh& a, const int64_t* short_ent, int n_short,
            const int64_t* long_ent, int n_long, cudaStream_t st) {
   cudaError_t e;
-  bool chunks = false;
-  for (int o = 0; o < 2; ++o) {
-    const Out& d = a.o[o];
-    if (d.nchunks <= 0) continue;
-    const size_t smem = ((size_t)d.chunk_rec * a.rdim * d.max_rc +
-                         kThreads * kChunkCols) * sizeof(T);
-    if (smem + 2 * kMaxChunkRec * sizeof(int64_t) > 48 * 1024 ||
-        d.chunk_rec > kMaxChunkRec || d.max_rc > kThreads)
+  for (const Out& d : a.o)
+    if (d.nchunks > 0 &&
+        (d.chunk_rec > kMaxChunkRec || d.max_rc > kThreads))
       return (int)cudaErrorInvalidValue;
-    gh_chunk_kernel<T><<<(unsigned)d.nchunks, kThreads, smem, st>>>(a, o);
+  const int64_t nchunks = a.o[0].nchunks + a.o[1].nchunks;
+  const bool chunks = nchunks > 0;
+  if (chunks) {
+    gh_chunk_kernel<T><<<(unsigned)nchunks, kThreads, 0, st>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    chunks = true;
   }
   for (int i = 0; i < n_short; i += kMaxCls) {
     const Cls cl = classes(
@@ -373,7 +360,7 @@ int launch(const Gh& a, const int64_t* short_ent, int n_short,
 // Segments; part: nchunks x max_e elements). short_ent / long_ent: host
 // arrays of (output, first segment, segments, rows, cols, records a
 // segment, first record) per class entry (FamilyAssembly.short_entries /
-// long_entries). Launches the chunk grid of each output, the short grid
+// long_entries). Launches the chunk grid of both outputs, the short grid
 // and the post grid, up to 32 class entries a launch. Returns the
 // cudaError_t of the launches.
 extern "C" int bs_grad_hess(int dtype, const void* W, int64_t tdw, int rdim,

@@ -21,8 +21,8 @@ to element (i, j) of its segment's block.
 The segments of one output are ordered in classes: the short ones (at
 most LONG_SEG records) first, in classes of equal (rows, cols, records),
 each a run of segments that the kernel's short grid covers with one
-thread per element, its segment, element and records found from the
-class's first segment and first record by division; then the long ones,
+thread per row, its segment, row and records found from the class's
+first segment and first record by division; then the long ones,
 in classes of equal (rows, cols), whose records are cut into chunks of
 `chunk_rec` records, a CTA each, summed into partial blocks that a post
 grid adds in chunk order.
@@ -37,11 +37,8 @@ import numpy as np
 import torch
 
 LONG_SEG = 32  # segments with more records than this are cut into chunks
-GH_CHUNK_REC = 128  # records of a long segment's chunk at most
-GH_STAGE_ELEMS = (48 * 1024 - 2 * 256 * 8) // 8 - 256 * 12  # staged
-#   values of a chunk at most: the 48 KB of shared memory of
-#   csrc/grad_hess.cu gh_chunk_kernel in f64, less its records' W offsets
-#   and its 256 threads' 12 column sums
+GH_CHUNK_REC = 256  # records of a long segment's chunk (csrc/grad_hess.cu
+#                     kMaxChunkRec: a thread loads one record's offsets)
 GH_LONG_RC = 256  # rows + cols of a long segment's block at most (the
 #                    chunk grid's 256 threads hold a row each)
 GH_CLASS_ELEMS = 1 << 30  # elements of one class entry at most (the short
@@ -153,15 +150,10 @@ def _segments(off, stride, rows, cols, rec, rdim: int, device) -> Segments:
     n_short = int((~is_long).sum())
     rc_long = (s_rows + s_cols)[is_long]
     max_rc = int(rc_long.max(initial=0))
-    chunk_rec = 0
     if max_rc > GH_LONG_RC:
         raise ValueError(f"K6 plan: a long block of {max_rc} rows + columns, "
                          f"past {GH_LONG_RC}")
-    if max_rc:
-        chunk_rec = min(GH_CHUNK_REC, GH_STAGE_ELEMS // (rdim * max_rc))
-        if chunk_rec < 1:
-            raise ValueError(f"K6 plan: a block of {max_rc} rows + columns "
-                             f"at rdim {rdim} does not fit in shared memory")
+    chunk_rec = GH_CHUNK_REC if max_rc else 0
     # the long segments' chunks, in segment order, then record order
     lcnt = cnt[n_short:]
     nch = -(-lcnt // max(chunk_rec, 1))

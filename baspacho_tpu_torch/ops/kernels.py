@@ -484,8 +484,8 @@ def _check_solve(name, data, vv, y, rp, transpose):
 SOLVE_WARP_ELEMS = 1024   # below elements (rp x cp) of a panel one warp
 #                           takes at most, 4 <= cp <= 32 (csrc/bucket_solve.cu
 #                           solve_l_warp_kernel / solve_lt_warp_kernel)
-SOLVE_WARP_PANELS = 64    # panels of a bucket one warp each at least: fewer
-#                           get a CTA each
+SOLVE_WARP_PANELS = 256   # panels of a bucket one warp each at least:
+#                           fewer get a CTA each (quicker there on an H100)
 SOLVE_CHUNK_ELEMS = 8192  # below elements of one CTA's chunk of rows
 SOLVE_MAX_CHUNK = 256     # below rows per chunk at most: 32 a warp
 
@@ -1009,11 +1009,11 @@ def grad_hess(W, hdata, grad, plan) -> None:
     live slots into hdata (transposed where the block is stored so) and
     J_k^T r into grad. W is the family's (F, rdim, tdw) buffer of
     weighted Jacobians and residual, `plan` its ops.assembly
-    FamilyAssembly. On the card (csrc/grad_hess.cu), one C call: per
-    output a CTA per chunk of a long segment's records into a cached
-    scratch of partial blocks, then a thread per element of both
-    outputs' short segments, piece by piece, then a thread per element
-    of the long ones adding its chunks' partials. Every destination
+    FamilyAssembly. On the card (csrc/grad_hess.cu), one C call: a CTA
+    per chunk of a long segment's records, both outputs' chunks in turn,
+    into a cached scratch of partial blocks, then a thread per row of
+    both outputs' short segments, piece by piece, then a thread per
+    element of the long ones adding its chunks' partials. Every destination
     element is summed in a fixed order: no atomics, the same bits from
     run to run."""
     if W.shape[1:] != (plan.rdim, plan.tdw):
@@ -1054,12 +1054,12 @@ GH_MAX_CLASSES = 32  # class entries of one launch (csrc/grad_hess.cu
 
 
 def gh_grids(plan) -> int:
-    """The grids K6 launches for one family: a chunk grid per output with
-    long segments, the short grid and the post grid, each in launches of
-    up to GH_MAX_CLASSES class entries."""
-    chunks = [s.chunk_seg.shape[0] > 0 for s in (plan.hess, plan.grad)]
-    return sum(chunks) + -(-len(plan.short_entries) // GH_MAX_CLASSES) + \
-        (-(-len(plan.long_entries) // GH_MAX_CLASSES) if any(chunks) else 0)
+    """The grids K6 launches for one family: the chunk grid of both
+    outputs' long segments, the short grid and the post grid, each of
+    the last two in launches of up to GH_MAX_CLASSES class entries."""
+    chunks = any(s.chunk_seg.shape[0] > 0 for s in (plan.hess, plan.grad))
+    return int(chunks) + -(-len(plan.short_entries) // GH_MAX_CLASSES) + \
+        (-(-len(plan.long_entries) // GH_MAX_CLASSES) if chunks else 0)
 
 
 def grad_hess_twin(W, hdata, grad, plan) -> None:

@@ -7,18 +7,18 @@ cannot run here: chip_smoke.py holds them against the twin on the card
 The model follows the launches of bs_grad_hess per output: the chunk
 grid (a CTA per chunk of a long segment's records, G = 256 / rows thread
 groups over interleaved records, joined in group order into a partial
-block), the short grid (a thread per row of a segment, found
-from its class entry's first segment by division over whole CTAs,
-adding its segment's records in order to each element), the post grid (a thread per element of a
-long segment, adding its chunks' partials in chunk order). Partial
-blocks start as NaN, so a partial the post reads but no chunk wrote
-shows up in the result.
+block), the short grid (a thread per row of a segment, found from its
+class entry's first segment by division over whole CTAs, adding its
+segment's records in order to each element), the post grid (a thread
+per element of a long segment, adding its chunks' partials in chunk
+order). Partial blocks start as NaN, so a partial the post reads but no
+chunk wrote shows up in the result.
 
 Scenes: a small BAL scene (camera-point blocks stored transposed, the
 rdim-9 prior family, cameras of ~100 observations: long segments, cut
-into chunks of 128 records or, to split them unevenly, of 7), and the
-SE3 bundle adjustment of tests/test_optimizer.py (no long segment: an
-empty class list). Tolerance 1e-12 relative."""
+into chunks of the plan's 256 records or, to split them unevenly, of 7),
+and the SE3 bundle adjustment of tests/test_optimizer.py (no long
+segment: an empty class list). Tolerance 1e-12 relative."""
 
 import numpy as np
 import pytest
@@ -160,8 +160,8 @@ def _chunks(W, seg, plan):
 
 def k6_model(W, outs, plan):
     """bs_grad_hess on one family in numpy, in place in outs (the Hessian
-    data, the gradient): the chunk grid of each output, the short grid,
-    the post grid."""
+    data, the gradient): the chunk grid (both outputs' chunks, each on
+    its own), the short grid, the post grid."""
     ta, tb, Q, rdim = _np(plan.tab_a), _np(plan.tab_b), plan.Q, plan.rdim
     segs = (plan.hess, plan.grad)
     parts = [_chunks(W, seg, plan) for seg in segs]
@@ -208,8 +208,8 @@ def model_grad_hess(to, terms):
 
 
 @pytest.mark.parametrize("name,chunk_rec,pieces", [
-    ("bal", 128, False), ("bal", 7, False), ("bal", 7, True),
-    ("se3_ba", 128, False)])
+    ("bal", 256, False), ("bal", 7, False), ("bal", 7, True),
+    ("se3_ba", 256, False)])
 def test_k6_model_matches_twin_and_jax(name, chunk_rec, pieces):
     """The model's gradient and Hessian data against the plain twin and
     JAX's compute_grad_hess, over every family."""
@@ -270,7 +270,7 @@ def _contributions(plan, name):
 
 
 @pytest.mark.parametrize("name,chunk_rec,pieces", [
-    ("bal", 7, False), ("bal", 7, True), ("se3_ba", 128, False)])
+    ("bal", 7, False), ("bal", 7, True), ("se3_ba", 256, False)])
 def test_k6_plan_covers_each_element_once_in_order(name, chunk_rec, pieces):
     """Every destination element is one short-grid thread's or one
     post-grid thread's, once; each segment's records are its block's
@@ -335,7 +335,7 @@ def test_k6_short_entries_interleave_the_classes():
     """The short grid's entries, both outputs' classes cut into pieces
     laid out piece by piece: each class's pieces in order and covering
     it, and pieces of different classes and outputs alternating."""
-    _, to, _ = scene("bal", 128, pieces=True)
+    _, to, _ = scene("bal", 256, pieces=True)
     plan = next(p for _, p in to._plans if p.rdim == 2)
     se = plan.short_entries
     keys = [(o, R, C, cnt) for o, _, _, R, C, cnt, _ in se.tolist()]

@@ -5,7 +5,7 @@ kernels cannot run here: chip_smoke.py holds them against the twin on
 the card (k3_levels).
 
 The model follows `kernels.solve_layout`: one warp per small panel (4 <=
-cp <= 32, rp cp <= 1024, 64 panels or more: lanes over (row group,
+cp <= 32, rp cp <= 1024, 256 panels or more: lanes over (row group,
 column), column sums per lane joined across the groups by a butterfly,
 row dots by a butterfly within a group, x in the lanes), else a CTA of
 eight warps per panel for its own rows (Lt: a thread a row of the strict
@@ -45,11 +45,11 @@ WARPS = 8  # warps per CTA (csrc/bucket_solve.cu kWarps)
 # (panel, row); a warp grid's bucket holds at least SOLVE_WARP_PANELS
 # panels (the widths and rows tiled)
 CASES = {
-    "cp4_rp64_warp": (4, 64, (3, 4, 3) * 22, (45, 64, 0) * 22,
+    "cp4_rp64_warp": (4, 64, (3, 4, 3) * 86, (45, 64, 0) * 86,
                       ((0, 5), (1, 40), (63, 44))),
-    "cp8_rp16_warp": (8, 16, (5, 8) * 32, (16, 9) * 32, ((1, 2),)),
-    "cp32_rp32_warp": (32, 32, (32, 21) * 32, (32, 17) * 32, ((0, 31),)),
-    "cp32_rp0_warp": (32, 0, (30, 7) * 32, (0, 0) * 32, ()),
+    "cp8_rp16_warp": (8, 16, (5, 8) * 128, (16, 9) * 128, ((1, 2),)),
+    "cp32_rp32_warp": (32, 32, (32, 21) * 128, (32, 17) * 128, ((0, 31),)),
+    "cp32_rp0_warp": (32, 0, (30, 7) * 128, (0, 0) * 128, ()),
     "cp4_rp64_one_chunk": (4, 64, (3, 4), (45, 64), ((0, 5),)),
     "cp32_rp0_one_cta": (32, 0, (30, 7), (0, 0), ()),
     "cp4_rp512_chunks": (4, 512, (3, 2), (300, 512), ((0, 299),)),
@@ -348,17 +348,18 @@ def test_solve_layout_follows_the_shape():
     only: chunks hold whole CTA steps and cover every below row."""
     L = kernels.solve_layout
     assert L(4, 64, 527478) == (0, 1)  # BAL's and Schur's points
-    assert L(4, 256, 64) == (0, 1)
-    assert L(32, 32, 100) == (0, 1)
+    assert L(4, 256, 256) == (0, 1)
+    assert L(32, 32, 1000) == (0, 1)
     assert L(4, 64, 2) == (256, 1)     # few panels: a CTA each
-    assert L(32, 64, 100) == (256, 1)  # too big for one warp: one chunk
+    assert L(4, 32, 255) == (256, 1)
+    assert L(32, 64, 1000) == (256, 1)  # too big for one warp: one chunk
     assert L(16, 1536, 1) == (256, 6)  # FLAT's 15-wide lump
     assert L(128, 3072, 1) == (64, 48)  # BAL's pair levels
     assert L(256, 7680, 1) == (32, 240)
     assert L(512, 0, 1) == (16, 0)
     for cp in (4, 8, 16, 32, 64, 128, 256, 512):
         for rp in (0, 8, 64, 256, 1024, 7680):
-            for B in (1, 63, 64, 10000):
+            for B in (1, 255, 256, 10000):
                 crc, nchunk = L(cp, rp, B)
                 if crc == 0:
                     assert 4 <= cp <= 32 and B >= kernels.SOLVE_WARP_PANELS
@@ -441,9 +442,12 @@ def meri():
 
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("nrhs", [1, 3])
-def test_k3_model_on_a_planned_factor(nrhs, transpose):
+def test_k3_model_on_a_planned_factor(nrhs, transpose, monkeypatch):
     """Every bucket of a factor from the JAX PLANNED backend: the model
-    (with K2's twin in the L pass) against _diag_solve(use_inv=True)."""
+    (with K2's twin in the L pass) against _diag_solve(use_inv=True).
+    The warp grid's panel threshold is lowered to 64, so that this small
+    factor's largest buckets (up to 122 panels) take it."""
+    monkeypatch.setattr(kernels, "SOLVE_WARP_PANELS", 64)
     js, ts, fj = meri()
     order = js.order
     rng = np.random.RandomState(nrhs + 10 * transpose)
