@@ -59,7 +59,10 @@
 //     loaded a warp's rows at once; the diag grid adds them in chunk
 //     order.
 // Grids run over (work item, batch item x RHS column): each RHS column
-// of each batch item is an independent pass over the same panels.
+// of each batch item is an independent pass over the same panels; but
+// the L warp grid at more than one column runs over (work item, batch
+// item), a warp taking the columns in turn from one staged copy of its
+// panel's below rows and writing each y row's columns side by side.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,8 +101,7 @@ struct Sv {
   int nchunk;  // ceil(rp / crc)
 };
 
-// the operands of work item (panel p, blockIdx.y = batch item z x RHS
-// column k)
+// the operands of work item (panel p, zk = batch item z x RHS column k)
 template <typename T>
 struct Item {
   const T* P;  // the panel, (cp + rp) x cp
@@ -108,8 +110,8 @@ struct Item {
   const int64_t* bidx;
   int64_t v0;
   int n, nrows;
-  __device__ __forceinline__ Item(const Sv& a, int64_t p) {
-    const int z = blockIdx.y / a.nrhs, k = blockIdx.y % a.nrhs;
+  __device__ __forceinline__ Item(const Sv& a, int64_t p, int zk) {
+    const int z = zk / a.nrhs, k = zk % a.nrhs;
     P = static_cast<const T*>(a.data) + z * a.data_bs + a.off[p];
     v = static_cast<T*>(a.vv) + z * a.vv_bs + k;
     y = a.rp > 0 && a.y != nullptr
@@ -142,35 +144,83 @@ __device__ __forceinline__ void stage_below(T* sp, const T* below, int n,
 
 // L pass: the below rows staged; x = Linv b by column sums of the strict
 // upper (lane column m, rows over the groups); then y = below . x by row
-// dots from shared memory
-template <typename T, int CP>
+// dots from shared memory. KB = 1: one RHS column (blockIdx.y = batch
+// item x column); else the warp takes a batch item's columns KB at a
+// time from one staged copy, each row's KB dots written side by side
+// (for cp <= 8 by a lane a row, its columns in order)
+template <typename T, int CP, int KB>
 __global__ void __launch_bounds__(kThreads) solve_l_warp_kernel(Sv a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int RG = 32 / CP;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t p = (int64_t)blockIdx.x * kWarps + warp;
   if (p >= a.B) return;
-  const Item<T> it(a, p);
-  const int nrhs = a.nrhs, n = it.n, gi = lane / CP, m = lane % CP;
+  const int nrhs = a.nrhs;
+  const Item<T> it(a, p, KB == 1 ? blockIdx.y : blockIdx.y * nrhs);
+  const int n = it.n, gi = lane / CP, m = lane % CP;
   T* sp = reinterpret_cast<T*>(smem) + warp * a.rp * CP;
   stage_below<T, CP>(sp, it.P + CP * CP, n, it.nrows, lane);
-  const T b = m < n ? it.v[(it.v0 + m) * nrhs] : T(0);
-  T acc = T(0);
-  for (int i0 = 0; i0 < n; i0 += RG) {
-    const int i = i0 + gi;  // < 32: i0 < n <= CP and CP + RG <= 32
-    const T bi = __shfl_sync(kFull, b, i & 31);
-    if (i < n && m > i && m < n) acc += it.P[i * CP + m] * bi;
-  }
-  acc = across_groups(acc, CP);
-  const T x = m < n ? b / it.P[m * CP + m] + acc : T(0);
-  if (gi == 0 && m < n) it.v[(it.v0 + m) * nrhs] = x;
-  cp_async_wait<0>();
-  __syncwarp();
-  for (int r0 = 0; r0 < a.rp; r0 += RG) {
-    const int r = r0 + gi;
-    const T e = r < it.nrows && m < n ? sp[r * CP + m] : T(0);
-    const T d = group_sum(e * x, CP);
-    if (m == 0 && r < a.rp) it.y[(int64_t)r * nrhs] = d;
+  for (int k0 = 0; k0 < (KB == 1 ? 1 : nrhs); k0 += KB) {
+    T x[KB];
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      x[kk] = T(0);
+      if (KB > 1 && k0 + kk >= nrhs) continue;
+      T* v = it.v + k0 + kk;
+      const T b = m < n ? v[(it.v0 + m) * nrhs] : T(0);
+      T acc = T(0);
+      for (int i0 = 0; i0 < n; i0 += RG) {
+        const int i = i0 + gi;  // < 32: i0 < n <= CP and CP + RG <= 32
+        const T bi = __shfl_sync(kFull, b, i & 31);
+        if (i < n && m > i && m < n) acc += it.P[i * CP + m] * bi;
+      }
+      acc = across_groups(acc, CP);
+      x[kk] = m < n ? b / it.P[m * CP + m] + acc : T(0);
+      if (gi == 0 && m < n) v[(it.v0 + m) * nrhs] = x[kk];
+    }
+    if (k0 == 0) {
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+    if constexpr (KB > 1 && CP <= 8) {
+      // a lane a row, its KB columns' x broadcast to every lane: no
+      // butterfly per column, and the warp writes its rows' y whole
+      T xc[KB][CP];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+        for (int c = 0; c < CP; ++c) xc[kk][c] = __shfl_sync(kFull, x[kk], c);
+      for (int r = lane; r < a.rp; r += 32) {
+        T d[KB];
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) d[kk] = T(0);
+        if (r < it.nrows) {
+#pragma unroll
+          for (int c = 0; c < CP; ++c) {
+            const T e = sp[r * CP + c];  // 0 past the real columns
+#pragma unroll
+            for (int kk = 0; kk < KB; ++kk) d[kk] += e * xc[kk][c];
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk)
+          if (k0 + kk < nrhs) it.y[(int64_t)r * nrhs + k0 + kk] = d[kk];
+      }
+      continue;
+    }
+    for (int r0 = 0; r0 < a.rp; r0 += RG) {
+      const int r = r0 + gi;
+      const T e = r < it.nrows && m < n ? sp[r * CP + m] : T(0);
+      T d[KB];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) d[kk] = group_sum(e * x[kk], CP);
+      if (m == 0 && r < a.rp) {
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk)
+          if (KB == 1 || k0 + kk < nrhs)
+            it.y[(int64_t)r * nrhs + k0 + kk] = d[kk];
+      }
+    }
   }
 }
 
@@ -184,7 +234,7 @@ __global__ void __launch_bounds__(kThreads) solve_lt_warp_kernel(Sv a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t p = (int64_t)blockIdx.x * kWarps + warp;
   if (p >= a.B) return;
-  const Item<T> it(a, p);
+  const Item<T> it(a, p, blockIdx.y);
   const int nrhs = a.nrhs, n = it.n, nrows = it.nrows;
   const int gi = lane / CP, m = lane % CP;
   T* sp = reinterpret_cast<T*>(smem) + warp * a.rp * (CP + 1);
@@ -335,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) solve_l_diag_kernel(Sv a) {
   __shared__ T red[kWarps][CT * 32];
   __shared__ T sx[CT * 32];
   const int64_t p = blockIdx.x;
-  const Item<T> it(a, p);
+  const Item<T> it(a, p, blockIdx.y);
   const int cp = a.cp, nrhs = a.nrhs, n = it.n, G = cp < 32 ? cp : 32;
   const int RG = 32 / G, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gi = lane / G, m = lane % G, step = kWarps * RG;
@@ -410,7 +460,7 @@ template <typename T, int CT>
 __global__ void __launch_bounds__(kThreads) solve_l_rows_kernel(Sv a) {
   const int64_t p = blockIdx.x / a.nchunk;
   const int c = (int)(blockIdx.x % a.nchunk);
-  const Item<T> it(a, p);
+  const Item<T> it(a, p, blockIdx.y);
   const int G = a.cp < 32 ? a.cp : 32, m = (threadIdx.x & 31) % G;
   const int r0 = c * a.crc, r1 = min(r0 + a.crc, a.rp);
   const int RG = 32 / G, gi = (threadIdx.x & 31) / G;
@@ -433,7 +483,7 @@ __global__ void __launch_bounds__(kThreads) solve_lt_rows_kernel(Sv a) {
   __shared__ T red[kWarps][CT * 32];
   const int64_t p = blockIdx.x / a.nchunk;
   const int c = (int)(blockIdx.x % a.nchunk);
-  const Item<T> it(a, p);
+  const Item<T> it(a, p, blockIdx.y);
   const int r0 = c * a.crc;
   if (r0 >= it.nrows) return;
   lt_below_sums<T, CT>(a, it, r0, min(r0 + a.crc, it.nrows), red);
@@ -458,7 +508,7 @@ __global__ void __launch_bounds__(kThreads) solve_lt_diag_kernel(Sv a) {
   __shared__ T red[kWarps][CT * 32];
   __shared__ T sx[CT * 32];
   const int64_t p = blockIdx.x;
-  const Item<T> it(a, p);
+  const Item<T> it(a, p, blockIdx.y);
   const int cp = a.cp, nrhs = a.nrhs, n = it.n, nrows = it.nrows;
   T bj[2], dj[2];  // b and the diagonal of columns tid, tid + kThreads
 #pragma unroll
@@ -498,24 +548,34 @@ __global__ void __launch_bounds__(kThreads) solve_lt_diag_kernel(Sv a) {
 }
 
 // shared memory of a warp grid's CTA: each warp's staged below rows
-// (and, Lt, their gathers), up to 80 KB, past the default 48
+// (and, Lt, their gathers), up to 80 KB, past the default 48. The Lt
+// grid and the L grid at one RHS column run over (panels, batch item x
+// column); the L grid at more columns over (panels, batch item), a warp
+// taking 4 columns at a time
 template <typename T, int CP>
-int launch_warp(const Sv& a, bool lt, unsigned zk, cudaStream_t st) {
+int launch_warp(const Sv& a, bool lt, int batch, cudaStream_t st) {
+  constexpr int KB = 4;
   static bool sized = false;
   if (!sized) {
     const int most = kWarps * (kWarpElems + kWarpElems / CP) * sizeof(T);
-    cudaFuncSetAttribute(solve_l_warp_kernel<T, CP>,
+    cudaFuncSetAttribute(solve_l_warp_kernel<T, CP, 1>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    cudaFuncSetAttribute(solve_l_warp_kernel<T, CP, KB>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     cudaFuncSetAttribute(solve_lt_warp_kernel<T, CP>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     sized = true;
   }
-  const dim3 grid((unsigned)((a.B + kWarps - 1) / kWarps), zk);
+  const unsigned bx = (unsigned)((a.B + kWarps - 1) / kWarps);
   const size_t smem = kWarps * a.rp * (CP + (lt ? 1 : 0)) * sizeof(T);
   if (lt)
-    solve_lt_warp_kernel<T, CP><<<grid, kThreads, smem, st>>>(a);
+    solve_lt_warp_kernel<T, CP><<<dim3(bx, batch * a.nrhs), kThreads, smem,
+                                  st>>>(a);
+  else if (a.nrhs == 1)
+    solve_l_warp_kernel<T, CP, 1><<<dim3(bx, batch), kThreads, smem, st>>>(a);
   else
-    solve_l_warp_kernel<T, CP><<<grid, kThreads, smem, st>>>(a);
+    solve_l_warp_kernel<T, CP, KB><<<dim3(bx, batch), kThreads, smem, st>>>(
+        a);
   return (int)cudaGetLastError();
 }
 
@@ -548,10 +608,10 @@ int launch(const Sv& a, bool lt, int batch, cudaStream_t st) {
     if (cp < 4 || cp > 32 || a.rp * cp > kWarpElems)
       return (int)cudaErrorInvalidValue;
     switch (cp) {
-      case 4: return launch_warp<T, 4>(a, lt, zk, st);
-      case 8: return launch_warp<T, 8>(a, lt, zk, st);
-      case 16: return launch_warp<T, 16>(a, lt, zk, st);
-      default: return launch_warp<T, 32>(a, lt, zk, st);
+      case 4: return launch_warp<T, 4>(a, lt, batch, st);
+      case 8: return launch_warp<T, 8>(a, lt, batch, st);
+      case 16: return launch_warp<T, 16>(a, lt, batch, st);
+      default: return launch_warp<T, 32>(a, lt, batch, st);
     }
   }
   const int RG = 32 / (cp < 32 ? cp : 32);

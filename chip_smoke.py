@@ -1008,7 +1008,8 @@ def k3_levels(cases, name_limit: str) -> list:
     and a rerun, bitwise, at nrhs 3; the wrapper's ms by CUDA events
     (nrhs 1, solving its own output again in place: no grid's work
     depends on the values), its twin's; device ms per grid from a
-    complete trace; the bound (cost()); and torch.sparse.mm of the
+    complete trace, at nrhs 1 and at nrhs 3; the bound (cost(), nrhs
+    1); and torch.sparse.mm of the
     bucket's below block as CSR (below_sparse) with the RHS, a yardstick
     the port never calls. Returns one row per call."""
     out = []
@@ -1071,6 +1072,13 @@ def k3_levels(cases, name_limit: str) -> list:
                 run, GRIDS["bucket_solve"] + EARLIER_GRIDS["bucket_solve"],
                 grids, reps, what)
             row["grids"] = grids
+            v3 = V[3][:1].clone()
+            row["device_ms_nrhs3"], _, _ = complete_trace(
+                functools.partial(kernels.bucket_solve, D[torch.float64], v3,
+                                  y_of(1, 3), 0, *bucket),
+                GRIDS["bucket_solve"] + EARLIER_GRIDS["bucket_solve"], grids,
+                reps, what + " nrhs 3")
+            del v3
             row["bound_ms"], row["bound_by"] = bound(*cost("bucket_solve",
                                                            args))
             row["library_ms"] = None
@@ -1095,6 +1103,7 @@ def k3_levels(cases, name_limit: str) -> list:
                      "sparse_csr (Lt: below^T, the gather product; L: "
                      "below, y); the n x n product is left out",
         ms_by_case=by("ms"), device_ms_by_case=by("device_ms"),
+        device_ms_nrhs3_by_case=by("device_ms_nrhs3"),
         bound_ms_by_case=by("bound_ms"), library_ms_by_case=by("library_ms"),
         buckets=out)
     return out

@@ -139,10 +139,12 @@ def _at(A, i, c):
     return A[np.clip(i, 0, A.shape[0] - 1), np.clip(c, 0, A.shape[1] - 1)]
 
 
-def _warp(P, cp, rp, n, nrows, b, g, transpose):
+def _warp(P, cp, rp, n, nrows, b, g, transpose, row_lanes=False):
     """solve_l_warp_kernel / solve_lt_warp_kernel on one panel and RHS
     column: b its own rows' values (n), g its below rows' gathers
-    (nrows; 0 for a sentinel). Returns (the own rows' new values, y)."""
+    (nrows; 0 for a sentinel); row_lanes: the L pass's y by a lane a row,
+    its columns in order (cp <= 8 at nrhs > 1). Returns (the own rows'
+    new values, y)."""
     G, RG = cp, 32 // cp
     lane = np.arange(32)
     gi, m = lane // G, lane % G
@@ -160,6 +162,13 @@ def _warp(P, cp, rp, n, nrows, b, g, transpose):
         acc = _bfly(acc, _across(G))
         d = np.where(m < n, _at(P, m, m), 1.0)  # padding: no division
         x = np.where(m < n, bl / d + acc, 0.0)
+        if row_lanes:
+            for r in range(rp):
+                y[r] = 0.0
+                if r < nrows:
+                    for c in range(cp):  # zeros past the real columns
+                        y[r] += (below[r, c] if c < n else 0.0) * x[c]
+            return x[:n], y
         for r0 in range(0, rp, RG):
             r = r0 + gi
             e = np.where((r < nrows) & (m < n), _at(below, r, m), 0.0)
@@ -292,7 +301,8 @@ def solve_model(data, vv, y, y_base, off, rows, cols, vec_off, below_idx, cp,
                              v[np.minimum(q, order - 1).astype(int)], 0.0)
                 b = v[v0:v0 + n].copy()
                 if crc == 0:
-                    x, yp = _warp(P, cp, rp, n, nrows, b, g, transpose)
+                    x, yp = _warp(P, cp, rp, n, nrows, b, g, transpose,
+                                  nrhs > 1 and cp <= 8)
                 else:
                     x, yp = _cta(P, cp, rp, n, nrows, b, g, transpose, crc,
                                  nchunk)
