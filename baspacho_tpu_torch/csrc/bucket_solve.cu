@@ -162,12 +162,8 @@ __global__ void __launch_bounds__(kThreads) solve_l_warp_kernel(Sv a) {
   stage_below<T, CP>(sp, it.P + CP * CP, n, it.nrows, lane);
   for (int k0 = 0; k0 < (KB == 1 ? 1 : nrhs); k0 += KB) {
     T x[KB];
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-      x[kk] = T(0);
-      if (KB > 1 && k0 + kk >= nrhs) continue;
-      T* v = it.v + k0 + kk;
-      const T b = m < n ? v[(it.v0 + m) * nrhs] : T(0);
+    if constexpr (KB == 1) {
+      const T b = m < n ? it.v[(it.v0 + m) * nrhs] : T(0);
       T acc = T(0);
       for (int i0 = 0; i0 < n; i0 += RG) {
         const int i = i0 + gi;  // < 32: i0 < n <= CP and CP + RG <= 32
@@ -175,8 +171,36 @@ __global__ void __launch_bounds__(kThreads) solve_l_warp_kernel(Sv a) {
         if (i < n && m > i && m < n) acc += it.P[i * CP + m] * bi;
       }
       acc = across_groups(acc, CP);
-      x[kk] = m < n ? b / it.P[m * CP + m] + acc : T(0);
-      if (gi == 0 && m < n) v[(it.v0 + m) * nrhs] = x[kk];
+      x[0] = m < n ? b / it.P[m * CP + m] + acc : T(0);
+      if (gi == 0 && m < n) it.v[(it.v0 + m) * nrhs] = x[0];
+    } else {
+      // the KB columns' b first, then their column sums side by side (at
+      // one column this order ran slower on BAL's point bucket)
+      T b[KB], acc[KB];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        const bool live = k0 + kk < nrhs && m < n;
+        b[kk] = live ? it.v[(it.v0 + m) * nrhs + k0 + kk] : T(0);
+        acc[kk] = T(0);
+      }
+      for (int i0 = 0; i0 < n; i0 += RG) {
+        const int i = i0 + gi;  // < 32: i0 < n <= CP and CP + RG <= 32
+        const bool up = i < n && m > i && m < n;
+        const T u = up ? it.P[i * CP + m] : T(0);
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) {
+          const T bi = __shfl_sync(kFull, b[kk], i & 31);
+          if (up) acc[kk] += u * bi;
+        }
+      }
+      const T dm = m < n ? it.P[m * CP + m] : T(1);
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        acc[kk] = across_groups(acc[kk], CP);
+        x[kk] = m < n ? b[kk] / dm + acc[kk] : T(0);
+        if (gi == 0 && m < n && k0 + kk < nrhs)
+          it.v[(it.v0 + m) * nrhs + k0 + kk] = x[kk];
+      }
     }
     if (k0 == 0) {
       cp_async_wait<0>();

@@ -37,7 +37,10 @@ torch.set_num_threads(1)
 
 RTOL = 1e-12
 THREADS = 256      # csrc/grad_hess.cu kThreads
-MAX_CLASSES = 8    # class entries of one launch (kMaxCls)
+MAX_CLASSES = 8    # class entries of one modelled launch: fewer than the
+#                    kernel's kMaxCls (kernels.GH_MAX_CLASSES), so that
+#                    the small scenes span several launches (a launch's
+#                    split changes no sum)
 
 
 def _bal(O, **kw):
