@@ -19,7 +19,8 @@
 //     rows[i]), unless prod is null: a dense level's update
 //     (dense_level.cu) reads x from the data instead.
 //
-// Three grids, launched back to back on the current stream:
+// Three grids, launched back to back on the current stream (chol, then,
+// with below rows, below and prod):
 //   chol_warp   (cp <= 32) one warp per panel, four panels per CTA: the
 //               panel's Cholesky and inverse in registers (warp_chol_inv,
 //               warp_tiles.cuh);
@@ -36,9 +37,18 @@
 //               was no faster). About n / 16 steps of a few barriers each:
 //               the old design took 2n dependent steps, each up to three
 //               barriers and a pass over the panel.
-//   below       one CTA per (panel, chunk of below rows, batch item): the
-//               chunk is staged in shared memory so the product can
-//               overwrite it in place (bound by reads of the stored Linv);
+//   below_warp  (cp <= 16) one warp per (panel, chunk of up to 128 below
+//               rows), four a CTA: lanes over the rows' elements, a row's
+//               others by shuffles;
+//   below_tile  (cp >= 32) one CTA per (panel, block of 8, 16 or 32 below
+//               rows, batch item): the rows staged in shared memory by
+//               cp.async, x = below . Linv^T by 32-column blocks on the
+//               f64 tensor cores (mma.m8n8k4), or FMAs in f32, in 8, 4
+//               or 2 independent sums, the zero lower part of Linv^T
+//               skipped, in place. The earlier design ran a
+//               thread per (row, column) entry over a dependent loop on
+//               the stored Linv^T in L2 (1.22 ms of GRID's factor on an
+//               H100, PERF.md);
 //   prod_entry  (cp <= 8, rp <= 32) one thread per product entry, the
 //               panels packed over the CTAs;
 //   prod_tile   (else) one CTA per (panel, 64 x 64 tile (I, J), I >= J,
@@ -49,8 +59,9 @@
 //               (J, I). Half the products of the full square; a tile past
 //               rows[i] is written as zeros without being computed.
 //
-// Bounds (H100, f64): chol and below are latency chains on one SM per
-// panel (a few panels per level); prod on BAL 871's pair levels (rp 3,072
+// Bounds (H100, f64): chol is a latency chain on one SM per panel (a few
+// panels per level), below the tensor cores' chains of up to cp / 32
+// steps; prod on BAL 871's pair levels (rp 3,072
 // to 7,680) is bound about equally by its operations (r (r + 1) n) and
 // by writing the rp x rp products (0.8 GB per factor).
 //
@@ -277,32 +288,357 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-template <typename T>
-__global__ void below_kernel(T* data, int64_t data_bstride,
-                             const int64_t* off, const int64_t* rows,
-                             const int64_t* cols, int cp, int rb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sb = reinterpret_cast<T*>(smem_raw);
-  T* P = data + (int64_t)blockIdx.z * data_bstride + off[blockIdx.x];
+// x = below . Linv^T, x[r][j] = sum_{k <= j} below[r][k] Linv[j][k], with
+// Linv[j][k] = P[k][j] (k < j, the stored Linv^T) and 1 / P[j][j] (k = j),
+// in place on the real rows and columns; two grids by width.
+//
+// below_warp (cp <= 16: MERI's and GRID's thousands of small panels): one
+// warp per (panel, chunk of up to kBelowChunk below rows), kPanelsPerCta
+// warps a CTA, no block barrier. The panel's Linv (kW x kW, zero outside
+// the real lower triangle) in the warp's shared slab; lane l takes column
+// l % kW of rows l / kW, l / kW + 32 / kW, ...: it loads its own element
+// (a warp step reads 32 / kW whole rows, coalesced), takes the row's
+// others by shuffles and sums over k in order; four steps' loads are
+// issued before their sums.
+constexpr int kBelowChunk = 128;  // below_warp: below rows of a warp item
+constexpr int kBelowMaxWarps = 8;
+
+template <typename T, int kW>
+__global__ void __launch_bounds__(32 * kPanelsPerCta)
+    below_warp_kernel(T* data, int64_t bstride, const int64_t* off,
+                      const int64_t* rows, const int64_t* cols, int64_t B,
+                      int cp, int nch) {
+  constexpr int ls = kW + 1, RG = 32 / kW, kAhead = 4;
+  __shared__ T slab[kPanelsPerCta][kW * ls];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t item = (int64_t)blockIdx.x * kPanelsPerCta + warp;
+  if (item >= B * nch) return;  // uniform over the warp
+  const int64_t i = item / nch;
+  const int n = (int)cols[i];
+  const int r0 = (int)(item % nch) * kBelowChunk;
+  const int r1 = min(r0 + kBelowChunk, (int)rows[i]);
+  if (r0 >= r1) return;
+  T* P = data + (int64_t)blockIdx.y * bstride + off[i];
   T* below = P + (int64_t)cp * cp;
-  const int n = (int)cols[blockIdx.x];
-  const int r0 = blockIdx.y * rb;
-  const int nr = min(rb, (int)rows[blockIdx.x] - r0);
-  if (nr <= 0) return;  // uniform over the CTA
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int64_t ld = cp;
-  for (int t = tid; t < nr * n; t += nt) {
-    const int r = t / n, k = t % n;
-    sb[t] = below[(r0 + r) * ld + k];
+  const int gi = lane / kW, j = lane % kW, base = lane - j;
+  T e[kAhead];
+  const auto load = [&](int rb) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int r = rb + u * RG + gi;
+      e[u] = (r < r1 && j < n) ? below[(int64_t)r * cp + j] : T(0);
+    }
+  };
+  load(r0);  // the first rows' loads go out before Linv's
+  T* X = slab[warp];
+  for (int t = lane; t < kW * kW; t += 32) {
+    const int jj = t / kW, k = t % kW;
+    X[jj * ls + k] = (jj < n && k <= jj)
+                         ? (k < jj ? P[k * cp + jj] : T(1) / P[jj * cp + jj])
+                         : T(0);
   }
-  __syncthreads();
-  // x[r][j] = sum_{k <= j} below[r][k] * Linv[j][k]
-  for (int t = tid; t < nr * n; t += nt) {
-    const int r = t / n, j = t % n;
-    const T* br = sb + r * n;
-    T acc = br[j] / P[j * ld + j];
-    for (int k = 0; k < j; ++k) acc += br[k] * P[k * ld + j];
-    below[(r0 + r) * ld + j] = acc;
+  __syncwarp();
+  for (int rb = r0; rb < r1; rb += kAhead * RG) {
+    T x[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      x[u] = T(0);
+#pragma unroll
+      for (int k = 0; k < kW; ++k)
+        x[u] += __shfl_sync(0xffffffffu, e[u], base + k) * X[j * ls + k];
+    }
+    if (rb + kAhead * RG < r1) load(rb + kAhead * RG);
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int r = rb + u * RG + gi;
+      if (r < r1 && j < n) below[(int64_t)r * cp + j] = x[u];
+    }
+  }
+}
+
+// below_tile (cp >= 32, a multiple of 32): one CTA per (panel, block of
+// 8 NG below rows (below_groups), batch item), below_warps(cp) warps.
+// The block's real rows are staged in shared memory by cp.async (zero
+// past the real rows and columns), so x can overwrite them in device
+// memory; then the 32-column blocks J of x, the longest first, go to the
+// warps in a snake order (warp w takes J = nj - 1 - w, then J = nj - 1 -
+// (2 NW - 1 - w), ...), each as x[R, J]^T = sum_{K <= J} Linv^T[K, J]^T
+// below[R, K]^T on the f64 tensor cores (mma.m8n8k4; FMAs in f32) in 8 /
+// NG independent sums (mma_sets), K in order in each, joined in set
+// order; the zero lower part of Linv^T is skipped. Each warp streams its
+// 32 x 32 tiles of the stored block through two shared buffers by
+// cp.async (the fragments keep the strict upper part; the diagonal 1 /
+// P[j][j] from dinv), the next tile in flight while the current one is
+// multiplied. Templated on cp, staging only the column blocks the
+// products read, by 16-byte copies where the panel is 16-byte aligned.
+constexpr int kBelowTld = kSub + 4;  // a staged tile's row (kTld's padding)
+
+__host__ __device__ constexpr int below_warps(int cp) {
+  // cp 512: four warps, so that the rows and the tiles fit in 227 KB
+  return cp >= 512 ? 4 : (cp / kSub < kBelowMaxWarps ? cp / kSub
+                                                     : kBelowMaxWarps);
+}
+
+// 16 bytes global -> shared, zero-filled past src_bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+// count elements from src to dst (shared) by a warp, of which the first
+// `real` are read and the rest zero-filled; V = 16 / sizeof(T) elements
+// a copy when `vec` (both 16-byte aligned), else one; count <= kMax
+// (compile time)
+template <typename T, int kMax>
+__device__ __forceinline__ void stage_row(T* dst, const T* src, int count,
+                                          int real, bool vec, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < (kMax + 32 * V - 1) / (32 * V); ++u) {
+      const int c = (u * 32 + lane) * V;
+      if (c < count) {
+        const int b = max(0, min(V, real - c)) * (int)sizeof(T);
+        cp_async16(dst + c, b ? src + c : src, b);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < (kMax + 31) / 32; ++u) {
+      const int c = u * 32 + lane;
+      if (c < count)
+        cp_async_el(dst + c, c < real ? src + c : src,
+                    c < real ? (int)sizeof(T) : 0);
+    }
+  }
+}
+
+// below_tile's products: a warp's 32 x 8 NG block of x^T (32 columns of
+// x by NG 8-row groups) from one 32-column stage, summed into NS = 8 / NG
+// independent accumulators, set s taking the stage's columns 32 s / NS ..
+// 32 (s + 1) / NS - 1 in order (8 / NS mma.m8n8k4 steps, or FMAs in f32),
+// the sets' steps interleaved, so that a K step's products wait on few
+// others: on an H100 the dependent chain of mma steps, not their number,
+// bounds these small products. acc[s][mi][nj][h] is the element (mi * 8 +
+// lane / 4, nj * 8 + (lane % 4) * 2 + h) of set s (mma32's layout); the
+// registers are the same for every NG.
+template <int NG>
+struct BelowSets {
+  static constexpr int NS = 8 / NG, W = kSub / NS;  // sets, their columns
+};
+
+template <int NG, typename FA, typename FB>
+__device__ __forceinline__ void mma_sets(double (&acc)[8 / NG][4][NG][2],
+                                         const FA& fa, const FB& fb,
+                                         int lane) {
+  constexpr int NS = BelowSets<NG>::NS, W = BelowSets<NG>::W;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < W; h += 4)
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      const int k0 = W * st + h;
+      double a[4], b[NG];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m] = fa(m * 8 + g, k0 + t);
+#pragma unroll
+      for (int m = 0; m < NG; ++m) b[m] = fb(m * 8 + g, k0 + t);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NG; ++nj)
+          asm volatile(
+              "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
+              "{%2}, {%3}, {%0, %1};\n"
+              : "+d"(acc[st][mi][nj][0]), "+d"(acc[st][mi][nj][1])
+              : "d"(a[mi]), "d"(b[nj]));
+    }
+}
+
+template <int NG, typename FA, typename FB>
+__device__ __forceinline__ void mma_sets(float (&acc)[8 / NG][4][NG][2],
+                                         const FA& fa, const FB& fb,
+                                         int lane) {
+  constexpr int NS = BelowSets<NG>::NS, W = BelowSets<NG>::W;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int kk = 0; kk < W; ++kk)
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      const int k = W * st + kk;
+      float a[4], b[NG][2];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) a[m] = fa(m * 8 + g, k);
+#pragma unroll
+      for (int m = 0; m < NG; ++m) {
+        b[m][0] = fb(m * 8 + t2, k);
+        b[m][1] = fb(m * 8 + t2 + 1, k);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NG; ++nj) {
+          acc[st][mi][nj][0] += a[mi] * b[nj][0];
+          acc[st][mi][nj][1] += a[mi] * b[nj][1];
+        }
+    }
+}
+
+template <typename T, int CP, int NG>
+__global__ void __launch_bounds__(32 * kBelowMaxWarps)
+    below_tile_kernel(T* data, int64_t bstride, const int64_t* off,
+                      const int64_t* rows, const int64_t* cols, int nrb) {
+  constexpr int rb = 8 * NG, NS = BelowSets<NG>::NS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int ld = CP + 4;  // conflict-free fragment reads (kTld's)
+  const int tid = threadIdx.x, NW = blockDim.x >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  T* const sb = reinterpret_cast<T*>(smem_raw);
+  T* const dinv = sb + rb * ld;
+  T* const tiles = dinv + CP + warp * 2 * kSub * kBelowTld;
+  const int64_t i = blockIdx.x / nrb;
+  const int r0 = (int)(blockIdx.x % nrb) * rb;
+  const int nrows = (int)rows[i];
+  if (r0 >= nrows) return;  // uniform over the CTA
+  const int n = (int)cols[i];
+  T* P = data + (int64_t)blockIdx.y * bstride + off[i];
+  T* below = P + (int64_t)CP * CP;
+  // 16-byte copies where the panel is 16-byte aligned (its rows then are)
+  const bool vec = (reinterpret_cast<uintptr_t>(P) & 15) == 0;
+  const int nj = (n + kSub - 1) / kSub, ncol = nj * kSub;
+  // the warp's column blocks in snake order; J < 0: none left
+  const auto block_of = [&](int q) {
+    const int idx = q * NW + ((q & 1) ? NW - 1 - warp : warp);
+    return idx < nj ? nj - 1 - idx : -1;
+  };
+  // tile (K, J) of the stored block into buffer b, one group (the
+  // fragments keep its strict upper part)
+  const auto stage = [&](int K, int J, int b) {
+    constexpr int V = 16 / sizeof(T), TV = kSub / V, RS = 32 / TV;
+    T* t = tiles + b * kSub * kBelowTld;
+    const T* src = P + (int64_t)K * kSub * CP + J * kSub;
+    const int real = n - J * kSub;
+    if (vec) {  // RS rows a step, TV copies a row
+      const int c = (lane % TV) * V;
+      const int bytes = max(0, min(V, real - c)) * (int)sizeof(T);
+#pragma unroll
+      for (int k = lane / TV; k < kSub; k += RS)
+        cp_async16(t + k * kBelowTld + c, bytes ? src + k * CP + c : src,
+                   bytes);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kSub; ++k)
+        cp_async_el(t + k * kBelowTld + lane,
+                    lane < real ? src + k * CP + lane : src,
+                    lane < real ? (int)sizeof(T) : 0);
+    }
+    cp_async_commit();
+  };
+  // the block's rows over the columns the fragments read
+  for (int r = warp; r < rb; r += NW)
+    stage_row<T, CP>(sb + r * ld, below + (int64_t)(r0 + r) * CP, ncol,
+                     r0 + r < nrows ? n : 0, vec, lane);
+  cp_async_commit();
+  int J = block_of(0), q = 0, K = 0, buf = 0;
+  if (J >= 0) stage(0, J, 0);
+  for (int t = tid; t < ncol; t += blockDim.x)
+    dinv[t] = t < n ? T(1) / P[(int64_t)t * CP + t] : T(0);
+  cp_async_wait<0>();
+  __syncthreads();  // the rows and dinv; each warp's first tile
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  T acc[NS][4][NG][2] = {};
+  while (J >= 0) {
+    // the next tile: (K + 1, J), or the first of the next column block
+    int nK = K + 1, nJ = J, nq = q;
+    if (nK > J) {
+      nq = q + 1;
+      nJ = block_of(nq);
+      nK = 0;
+    }
+    if (nJ >= 0) {
+      stage(nK, nJ, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const T* tl = tiles + buf * kSub * kBelowTld;
+    const int k0 = K * kSub, j0 = J * kSub;
+    mma_sets<NG>(
+        acc,
+        [&](int j, int k) {  // Linv^T[k0 + k][j0 + j]
+          return k0 + k < j0 + j ? tl[k * kBelowTld + j]
+                                 : (k0 + k == j0 + j ? dinv[j0 + j] : T(0));
+        },
+        [&](int r, int k) { return sb[r * ld + k0 + k]; }, lane);
+    __syncwarp();  // the buffer may be refilled
+    if (nK == 0) {  // the column block is done: its sets joined in order
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NG; ++nj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = j0 + mi * 8 + g, r = r0 + nj * 8 + t2 + h;
+            T v = acc[0][mi][nj][h];
+#pragma unroll
+            for (int st = 1; st < NS; ++st) v += acc[st][mi][nj][h];
+            if (r < nrows && j < n) below[(int64_t)r * CP + j] = v;
+#pragma unroll
+            for (int st = 0; st < NS; ++st) acc[st][mi][nj][h] = T(0);
+          }
+    }
+    J = nJ;
+    K = nK;
+    q = nq;
+    buf ^= 1;
+  }
+}
+
+// below_tile's 8-row groups a CTA, from the bucket's shape: the most of
+// 4, 2 and 1 that still gives kBelowFill CTAs a batch item (GRID's
+// buckets of 1-11 panels take 1; BAL's pair levels 2 or 4: a block of
+// more rows stages each tile of Linv^T for more of them)
+constexpr int kBelowFill = 132;  // the H100's SMs
+
+int below_groups(int64_t B, int rp) {
+  for (int ng = 4; ng > 1; ng /= 2)
+    if (B * ((rp + 8 * ng - 1) / (8 * ng)) >= kBelowFill) return ng;
+  return 1;
+}
+
+template <typename T, int CP, int NG>
+int below_tile_launch(T* d, int64_t bstride, const int64_t* off,
+                      const int64_t* rows, const int64_t* cols, int64_t B,
+                      int rp, int batch, cudaStream_t stream) {
+  const int nrb = (rp + 8 * NG - 1) / (8 * NG);
+  const int nw = below_warps(CP);
+  // the rows, dinv, two tiles a warp
+  const int smem = (int)((8 * NG * (CP + 4) + CP +
+                          nw * 2 * kSub * kBelowTld) * sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      below_tile_kernel<T, CP, NG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  below_tile_kernel<T, CP, NG><<<dim3((unsigned)(B * nrb), batch), 32 * nw,
+                                 smem, stream>>>(d, bstride, off, rows, cols,
+                                                 nrb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int CP>
+int below_tile_launch(T* d, int64_t bstride, const int64_t* off,
+                      const int64_t* rows, const int64_t* cols, int64_t B,
+                      int rp, int batch, cudaStream_t stream) {
+  switch (below_groups(B, rp)) {
+    case 4: return below_tile_launch<T, CP, 4>(d, bstride, off, rows, cols,
+                                               B, rp, batch, stream);
+    case 2: return below_tile_launch<T, CP, 2>(d, bstride, off, rows, cols,
+                                               B, rp, batch, stream);
+    default: return below_tile_launch<T, CP, 1>(d, bstride, off, rows, cols,
+                                                B, rp, batch, stream);
   }
 }
 
@@ -420,11 +756,46 @@ int launch(void* data, int64_t data_bstride, void* prod,
                            stream>>>(d, data_bstride, off, cols, cp);
   }
   if (rp > 0) {
-    int rb = 32768 / (cp * (int)sizeof(T));
-    rb = rb < 1 ? 1 : (rb > rp ? rp : rb);
-    below_kernel<T><<<dim3((unsigned)B, (rp + rb - 1) / rb, batch), 256,
-                      rb * cp * sizeof(T), stream>>>(d, data_bstride, off,
-                                                     rows, cols, cp, rb);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    if (cp <= 16) {
+      const int nch = (rp + kBelowChunk - 1) / kBelowChunk;
+      const dim3 grid(
+          (unsigned)((B * nch + kPanelsPerCta - 1) / kPanelsPerCta), batch);
+      const int nt = 32 * kPanelsPerCta;
+      if (cp <= 4)
+        below_warp_kernel<T, 4><<<grid, nt, 0, stream>>>(
+            d, data_bstride, off, rows, cols, B, cp, nch);
+      else if (cp <= 8)
+        below_warp_kernel<T, 8><<<grid, nt, 0, stream>>>(
+            d, data_bstride, off, rows, cols, B, cp, nch);
+      else
+        below_warp_kernel<T, 16><<<grid, nt, 0, stream>>>(
+            d, data_bstride, off, rows, cols, B, cp, nch);
+    } else {
+      int err;
+      switch (cp) {
+        case 32: err = below_tile_launch<T, 32>(d, data_bstride, off, rows,
+                                                cols, B, rp, batch, stream);
+          break;
+        case 64: err = below_tile_launch<T, 64>(d, data_bstride, off, rows,
+                                                cols, B, rp, batch, stream);
+          break;
+        case 128: err = below_tile_launch<T, 128>(d, data_bstride, off, rows,
+                                                  cols, B, rp, batch, stream);
+          break;
+        case 256: err = below_tile_launch<T, 256>(d, data_bstride, off, rows,
+                                                  cols, B, rp, batch, stream);
+          break;
+        case 512: err = below_tile_launch<T, 512>(d, data_bstride, off, rows,
+                                                  cols, B, rp, batch, stream);
+          break;
+        default: return (int)cudaErrorInvalidValue;
+      }
+      if (err != 0) return err;
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
     if (prod != nullptr) {
       T* pr = static_cast<T*>(prod);
       if (cp <= kEntryCp && rp <= kSub) {
@@ -436,7 +807,7 @@ int launch(void* data, int64_t data_bstride, void* prod,
       } else {
         const int nt = (rp + kTile - 1) / kTile, pairs = nt * (nt + 1) / 2;
         const int smem = 2 * 2 * kTile * kTld * sizeof(T);
-        cudaError_t e = cudaFuncSetAttribute(
+        e = cudaFuncSetAttribute(
             prod_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             smem);
         if (e != cudaSuccess) return (int)e;

@@ -159,8 +159,8 @@ def _lib() -> ctypes.CDLL:
             "bs_wide_factor": [i32, vp, i64, vp, vp, vp, vp, i64, i32, i32,
                                i32, vp],
             "bs_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
-                              vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
-                              i32, vp],
+                              vp, vp, vp, vp, vp, vp, i64, i64, i32, i32,
+                              i32, i32, i32, i32, vp],
             "bs_dense_update": [i32, vp, i64, vp, i64, i32, vp, vp, vp, vp,
                                 vp, vp, vp, i32, vp],
             "bs_dense_wide": [i32, vp, i64, i64, i64, i32, i64, vp, i64, vp,
@@ -545,12 +545,31 @@ def bucket_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
     _raise_on("bucket_solve", err)
 
 
+WIDE_SOLVE_STRIP = 256  # K3-wide's Lt rows grid: columns of a CTA's strip
+#                         (csrc/wide_solve.cu kStrip)
+WIDE_SOLVE_CHUNK = 64   # its below rows per chunk (kChunk)
+
+
+def wide_solve_layout(cp: int, rp: int) -> tuple:
+    """K3-wide's grids for a bucket of (cp, rp) panels, from the shape
+    alone (so that batch items equal their single runs): (the L pass's
+    tile edge, the Lt pass's chunks of below rows per panel, at least
+    one). BAL 871's buckets: cp 1024 -> 136 tiles a panel, 112 chunks x 4
+    strips; cp 3072 -> 300 tiles, 64 chunks x 12 strips; cp 4096 -> 528
+    tiles."""
+    edge = 64 if cp <= 2048 else 128
+    return edge, max(1, -(-rp // WIDE_SOLVE_CHUNK))
+
+
 def wide_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
                below_idx, cp: int, rp: int, transpose: bool) -> None:
     """bucket_solve for wide panels (cp > 512): the same arguments and
-    result, run on many CTAs per panel (row blocks of Linv) through a
-    (batch, B, cp, nrhs) scratch, since the single panel of a wide level
-    would otherwise run on one SM."""
+    result, each pass's column sums spread over the card by blocks of
+    rows, their partials added in block order by a post grid
+    (csrc/wide_solve.cu; layout `wide_solve_layout`), through a cached
+    scratch: the L pass by tiles of the stored triangle (then the below
+    products, rp > 0), the Lt pass by chunks of below rows (a post past
+    one chunk) and then a warp per row of the stored triangle."""
     use_y = _check_solve("wide_solve", data, vv, y, rp, transpose)
     if data.device.type == "cpu":
         return wide_solve_twin(data, vv, y, y_base, off, rows, cols,
@@ -558,16 +577,28 @@ def wide_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
     _check_cuda("wide_solve", [data, vv, y] if use_y else [data, vv],
                 [off, rows, cols, vec_off, below_idx])
     batch, order, nrhs = vv.shape
-    tmp = vv.new_empty((batch, off.shape[0], cp, nrhs))
+    B = off.shape[0]
+    if batch > 65535:
+        raise ValueError(f"wide_solve: batch {batch} exceeds the grid's "
+                         "65535")
+    edge, nchunk = wide_solve_layout(cp, rp)
+    nt = batch * B * cp * nrhs
+    blocks = -(-cp // edge) if not transpose else \
+        (nchunk if nchunk > 1 else 0)
+    buf = _scratch(vv, nt * (1 + blocks))
     err = _lib().bs_wide_solve(
         _DTYPE_CODE[data.dtype], int(transpose), data.data_ptr(),
         data.shape[1], vv.data_ptr(), order * nrhs,
         y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,
-        y_base * nrhs, tmp.data_ptr(), off.data_ptr(), rows.data_ptr(),
-        cols.data_ptr(), vec_off.data_ptr(), below_idx.data_ptr(), order,
-        off.shape[0], cp, rp, nrhs, batch, _stream(data))
+        y_base * nrhs, buf.data_ptr(), buf[nt:].data_ptr() if blocks else
+        None, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+        vec_off.data_ptr(), below_idx.data_ptr(), order, B, cp, rp, nrhs,
+        batch, edge, nchunk, _stream(data))
     COUNTS["wide_solve"].launches += 1
-    COUNTS["wide_solve"].grid_launches += 2
+    # L: tiles, post and, with below rows, their products; Lt: rows, the
+    # post past one chunk, the triangle's rows
+    COUNTS["wide_solve"].grid_launches += \
+        2 + (rp > 0 if not transpose else nchunk > 1)
     _raise_on("wide_solve", err)
 
 
@@ -790,7 +821,8 @@ def _scratch(like, n: int, dtype=None) -> torch.Tensor:
     grown as needed, so that a call allocates nothing: calls on one
     stream run in order, and no call reads what an earlier one left
     (K3-rest wide's pre kernel zeroes its flags; K5 writes every partial
-    it reads; K1-wide's tiles write every Linv^T tile it reads)."""
+    it reads; K1-wide's tiles write every Linv^T tile it reads; K3 and
+    K3-wide write every partial and every t value they read)."""
     dtype = dtype or like.dtype
     key = (like.device, dtype, _stream(like))
     buf = _SCRATCH.get(key)

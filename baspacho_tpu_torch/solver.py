@@ -68,8 +68,8 @@ class Settings:
 
 
 # slices of the port (ROADMAP.md, queue 1) that bring what is refused here
-_SLICE_STATS = "the stats slice (ROADMAP queue 1, item 9)"
-_SLICE_MULTI = "the multi-GPU slice (ROADMAP queue 1, item 11)"
+_SLICE_STATS = "the stats slice (ROADMAP queue 1, item 2)"
+_SLICE_MULTI = "the multi-GPU slice (ROADMAP queue 1, item 3)"
 
 
 def _not_ported(what: str, slice_: str):
@@ -383,8 +383,15 @@ class Solver:
         _not_ported("solve_chained (time with CUDA events instead)",
                     _SLICE_STATS)
 
+    @property
+    def stats(self):
+        _not_ported("stats", _SLICE_STATS)
+
     def enable_stats(self, enabled: bool = True):
         _not_ported("enable_stats", _SLICE_STATS)
+
+    def reset_stats(self):
+        _not_ported("reset_stats", _SLICE_STATS)
 
     def print_stats(self):
         _not_ported("print_stats", _SLICE_STATS)

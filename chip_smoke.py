@@ -57,7 +57,7 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                bitwise, each grid's device ms from a complete trace
                beside its bound and a library yardstick the port never
                calls; on a panel that is not positive definite
-               (k1_not_pd), NaN from the failing column on
+               (k1_not_pd), NaN in L and x from the failing column on
   K5 per bucket (k5_levels, last) of BAL 871's PCG operator
                add_mv_from(t) and of add_mv_from(0), and of FLAT+Schur
                50k's two: against its twin (f64 at nrhs 1 and 3, f32),
@@ -83,6 +83,11 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                from complete traces, bounds, torch.sparse.mm with the
                bucket's below block as CSR (a yardstick the port never
                calls; the n x n product left out)
+  K3-wide per bucket and pass (k3w_levels, after k3_levels) of one solve
+               of FLAT, FLAT+Schur 50k, WIDE_BELOW and BAL 871's first
+               damped system: as k3_levels, with per panel
+               torch.linalg.solve_triangular (and, with below rows,
+               torch.matmul with the below block) as the yardstick
   K6 per family (k6_levels, last) of BAL 871's first assembly: against
                its twin (f64, f32) and a rerun, bitwise, ms by events,
                device ms per grid from a complete trace, the bounds of its
@@ -93,7 +98,9 @@ With `--only k5` it builds the kernels and runs K5's phases alone (BAL
 last line; with `--only k1w`, K1-wide's (k1_not_pd, BAL 871's direct LM
 costs, k1w_levels); with `--only k3`, K3's (k3_levels, BAL 871's direct
 LM costs); with `--only k6`, K6's (k6_levels, BAL 871's direct LM
-costs).
+costs); with `--only k3w`, K3-wide's (k3w_levels, BAL 871's direct LM
+costs); with `--only k1`, K1's (k1_not_pd, k1_levels on MERI, GRID and
+BAL 871, BAL 871's direct LM costs).
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -160,16 +167,17 @@ KERNELS = [
 NAMES = [k for k, _, _ in KERNELS]
 # the __global__ functions each wrapper launches (csrc/*.cu)
 GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
-                           "below_kernel", "prod_entry_kernel",
-                           "prod_tile_kernel"),
+                           "below_warp_kernel", "below_tile_kernel",
+                           "prod_entry_kernel", "prod_tile_kernel"),
          "wide_factor": ("wide_tile_kernel", "wide_rows_kernel",
                          "wide_update_kernel"),
          "segmented_subtract": ("seg_sub_kernel",),
          "bucket_solve": ("solve_l_warp_kernel", "solve_lt_warp_kernel",
                           "solve_l_diag_kernel", "solve_lt_diag_kernel",
                           "solve_l_rows_kernel", "solve_lt_rows_kernel"),
-         "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
-                        "wide_ltpre_kernel", "wide_ltmv_kernel"),
+         "wide_solve": ("wide_l_tile_kernel", "wide_l_post_kernel",
+                        "wide_l_y_kernel", "wide_lt_rows_kernel",
+                        "wide_lt_post_kernel", "wide_ltmv_kernel"),
          "dense_update": ("dense_wide_kernel", "dense_warp_kernel",
                           "dense_block_kernel"),
          "tri_solve": ("tri_l_kernel", "tri_lt_kernel"),
@@ -179,9 +187,13 @@ GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
          "wide_add_mv": ("wide_mv_chunk_kernel", "wide_mv_post_kernel"),
          "grad_hess": ("gh_chunk_kernel", "gh_short_kernel",
                        "gh_post_kernel")}
-# the grids of K3's and K6's earlier design (PERF.md), so that k3_levels
-# and k6_levels also time a checkout of it, beside these
-EARLIER_GRIDS = {"bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
+# the grids of the earlier designs of K1's below, K3, K3-wide and K6
+# (PERF.md), so that k1_levels, k3_levels, k3w_levels and k6_levels also
+# time a checkout of them, beside these
+EARLIER_GRIDS = {"bucket_factor": ("below_kernel",),
+                 "bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
+                 "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
+                                "wide_ltpre_kernel"),
                  "grad_hess": ("gh_warp_kernel", "gh_block_kernel")}
 PRECONDS = ("IdentityPrecond", "BlockJacobiPrecond",
             "BlockGaussSeidelPrecond", "LowerPrecSolvePrecond")
@@ -226,10 +238,14 @@ BAL_COSTS = {"direct": (2637106.9562431723, 1842769.3256449024,
              "pcg": (2637106.9562431723, 1842769.3998866011,
                      1842660.9490706287)}
 BAL_PCG_ITERS = [80, 80]
+# the problems k3_levels and k3w_levels solve, beside BAL 871
+K3_PROBLEMS = ("meri7", "grid100", "flat1000", "flat_schur50k")
+K3W_PROBLEMS = ("flat1000", "flat_schur50k", "wide_below")
 # K1's grids (csrc/bucket_factor.cu) by the part of the factor they do
 K1_PARTS = {"chol_warp_kernel": "chol", "chol_block_kernel": "chol",
-            "below_kernel": "below", "prod_entry_kernel": "prod",
-            "prod_tile_kernel": "prod"}
+            "below_warp_kernel": "below", "below_tile_kernel": "below",
+            "prod_entry_kernel": "prod", "prod_tile_kernel": "prod",
+            **{k: "below" for k in EARLIER_GRIDS["bucket_factor"]}}
 # k1_levels' and k5_levels' traces of a call: at most this many, until
 # one shows every grid of every run
 K1_TRACE_TRIES = 5
@@ -480,16 +496,18 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
     """K1 on every level of one factor of `data` (single, f64) that is not
     dense, each call's panels packed as a bucket of their own: against
     its twin in f64 and f32 (CheckedOps), a batch of two (the second
-    item scaled) against single runs and a rerun, bitwise; per level, the
-    device ms of each K1 grid from a trace of the level's calls that
-    shows every grid of every run (retaken up to K1_TRACE_TRIES times),
-    the buckets as [cp, rp, panels, widest real width, most real below
-    rows], each grid's bound (k1_costs), and three yardsticks the port
-    never calls, timed with CUDA events on the same inputs (padding as
-    the identity): torch.linalg.cholesky_ex then solve_triangular(L, I)
-    on the (B, cp, cp) diagonals for chol, solve_triangular(L^T, below,
-    left=False) on the kernel's L for below, torch.matmul(x, x.mT) on
-    the solved below rows for prod. Returns one row per level."""
+    item scaled) against single runs and a rerun, and the bucket moved
+    one value on (off 16-byte alignment) against itself, bitwise; per
+    level, the device ms of each K1 grid from a trace of the level's
+    calls that shows every grid of every run (retaken up to
+    K1_TRACE_TRIES times), the buckets as [cp, rp, panels, widest real
+    width, most real below rows], each grid's bound (k1_costs), and
+    three yardsticks the port never calls, timed with CUDA events on the
+    same inputs (padding as the identity): torch.linalg.cholesky_ex then
+    solve_triangular(L, I) on the (B, cp, cp) diagonals for chol,
+    solve_triangular(L^T, below, left=False) on the kernel's L for below,
+    torch.matmul(x, x.mT) on the solved below rows for prod. Returns one
+    row per level."""
     dev = data.device
     sched = s.backend._factor_schedule(0, s.skel.num_lumps)
     seq = [i for i, lv in enumerate(sched) for lb in lv[0]
@@ -532,6 +550,19 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
                           (p1 is None or torch.equal(p1[0], p2[b])),
                           f"bucket_factor on {label} level {lvl} ({cp}, "
                           f"{rp}, {B}): batch item {b} differs")
+            # the bucket one value further on, off the 16-byte alignment
+            # the below grid stages by: the same bits, value by value
+            ref, p_ref = snap.clone(), P(1)
+            kernels.bucket_factor(ref, p_ref, off, rows, cols, cp, rp, 0)
+            moved, p_mv = snap.new_zeros((1, snap.shape[1] + 1)), P(1)
+            moved[:, 1:] = snap
+            kernels.bucket_factor(moved, p_mv, off + 1, rows, cols, cp, rp,
+                                  0)
+            check(torch.equal(moved[:, 1:], ref) and
+                  (p_ref is None or torch.equal(p_mv, p_ref)),
+                  f"bucket_factor on {label} level {lvl} ({cp}, {rp}, {B}): "
+                  "one value further on, the result differs")
+            del ref, moved, p_ref, p_mv
             w, p = snap.clone(), P(1)
             work.append((snap, w, p, off, rows, cols, cp, rp))
             for g in ("chol", "below" if rp > 0 else None,
@@ -568,7 +599,7 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
         reps = int(min(50, max(3, 20.0 / max(time_ms(calls, 1), 1e-3))))
         by_grid, tr, tries = complete_trace(
             calls, tuple(K1_PARTS), sum(want.values()), reps,
-            f"{label} level {lvl}")
+            f"{label} level {lvl} {row['buckets']}")
         ms = {}
         for k, v in by_grid.items():
             ms[K1_PARTS[k]] = ms.get(K1_PARTS[k], 0.0) + v
@@ -594,22 +625,25 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
     return out
 
 
-def spd_panels(cp: int, n: int, B: int, seed: int, dev, bad=None):
-    """A bucket of B panels with no below rows, for K1: each the lower
-    triangle of a random A A^T + n I (n x n), zero-padded to cp x cp.
-    bad = (panel, column): that panel's diagonal made negative at the
-    column, so its Cholesky fails there. Returns data (1, B cp cp), off,
-    rows, cols."""
+def spd_panels(cp: int, n: int, B: int, seed: int, dev, bad=None, rp=0,
+               nr=0):
+    """A bucket of B panels for K1: each the lower triangle of a random
+    A A^T + n I (n x n), zero-padded to cp x cp, then rp below rows, the
+    first nr of them random over the n real columns. bad = (panel,
+    column): that panel's diagonal made negative at the column, so its
+    Cholesky fails there. Returns data (1, B (cp + rp) cp), off, rows,
+    cols."""
     rng = np.random.RandomState(seed)
-    data = np.zeros((B, cp, cp))
+    data = np.zeros((B, cp + rp, cp))
     for j in range(B):
         a = rng.rand(n, n) - 0.5
         data[j, :n, :n] = np.tril(a @ a.T + n * np.eye(n))
+        data[j, cp:cp + nr, :n] = rng.rand(nr, n) - 0.5
     if bad is not None:
         data[bad[0], bad[1], bad[1]] = -1.0
     ix = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
     return (torch.from_numpy(data.reshape(1, -1)).to(dev),
-            ix(np.arange(B) * cp * cp), ix([0] * B), ix([n] * B))
+            ix(np.arange(B) * (cp + rp) * cp), ix([nr] * B), ix([n] * B))
 
 
 def k1_not_pd(dev, name_limit: str) -> list:
@@ -618,32 +652,40 @@ def k1_not_pd(dev, name_limit: str) -> list:
     one column, for chol_warp (cp 4, 32), chol_block (cp 64, 256, 512)
     and K1-wide (cp 1024 at a column inside a tile and at a tile's first,
     cp 3072); L must be finite before that column and NaN in it from the
-    diagonal down, and the first panel finite."""
+    diagonal down, and the first panel finite. K1's panels carry 37 real
+    below rows (padded 40), through below_warp (cp 4) and below_tile: x
+    must be finite before the column and NaN from it on."""
     out = []
     for dt in (torch.float64, torch.float32):
         for cp, n, col in ((4, 3, 1), (32, 30, 7), (64, 60, 40),
                            (256, 200, 150), (512, 282, 100),
                            (1024, 1000, 600), (1024, 1000, 384),
                            (3072, 2985, 2000)):
+            wide = cp > NARROW_MAX
+            rp, nr = (0, 0) if wide else (40, 37)
             data, off, rows, cols = spd_panels(cp, n, 2, 99, dev,
-                                               bad=(1, col))
+                                               bad=(1, col), rp=rp, nr=nr)
             data = data.to(dt)
-            if cp > NARROW_MAX:
+            if wide:
                 kernels.wide_factor(data, off, rows, cols, cp, 0,
                                     (0, cp * cp), (n, n))
             else:
-                kernels.bucket_factor(data, None, off, rows, cols, cp, 0, 0)
-            P = data.view(2, cp, cp)
+                kernels.bucket_factor(data, None, off, rows, cols, cp, rp, 0)
+            P = data.view(2, cp + rp, cp)
             L = torch.tril(P[1, :n, :n])
+            x = P[1, cp:cp + nr, :n]
             check(bool(torch.isfinite(P[0]).all()) and
                   bool(torch.isfinite(L[:col, :col]).all()) and
-                  bool(torch.isnan(L[col:, col]).all()),
-                  f"{'wide' if cp > NARROW_MAX else 'bucket'}_factor on a "
-                  f"panel not positive definite (cp {cp}, n {n}, column "
-                  f"{col}, {dt}): not NaN from the failing column on, or "
-                  "NaN elsewhere")
-            out.append([str(dt)[6:], cp, n, col])
-    log("k1_not_pd", card=name_limit, cases=out)
+                  bool(torch.isnan(L[col:, col]).all()) and
+                  bool(torch.isfinite(x[:, :col]).all()) and
+                  bool(torch.isnan(x[:, col:]).all()),
+                  f"{'wide' if wide else 'bucket'}_factor on a panel not "
+                  f"positive definite (cp {cp}, n {n}, column {col}, "
+                  f"{dt}): not NaN from the failing column on, or NaN "
+                  "elsewhere")
+            out.append([str(dt)[6:], cp, n, col, nr])
+    log("k1_not_pd", card=name_limit, cases=out,
+        fields=["dtype", "cp", "n", "column", "below rows"])
     return out
 
 
@@ -818,10 +860,11 @@ def complete_trace(fn, names, want: int, reps: int, what: str) -> tuple:
     """Device ms per call of each of `names` (__global__ functions) from a
     trace of fn() that shows all `want` of their launches per call in
     every run (retaken up to K1_TRACE_TRIES times, the runs halved at
-    each retake; the profiler can lose whole runs' device records late
-    in a long run, and in some traces the first launches' records: a
-    retake waits longer first and launches a small kernel of another
-    name ahead of the runs); fails without one, naming `what`. Returns
+    each retake, down to one; the profiler can lose whole runs' device
+    records late in a long run, and in some traces the first launches'
+    records: a retake waits longer first and runs a small kernel of
+    another name and one call of fn ahead of the counted runs, whose
+    records trace() leaves out); fails without one, naming `what`. Returns
     ({name: ms}, trace, tries)."""
     buf = torch.zeros(1024, device="cuda")
     tr, seen = {"launches_per_call_by_kernel": {}}, 0
@@ -829,10 +872,11 @@ def complete_trace(fn, names, want: int, reps: int, what: str) -> tuple:
         try:
             tr = trace(fn, reps, lead_in_s=min(1.0, TRACE_LEAD_IN_S * 4 **
                                                (tries - 1)),
-                       prime=None if tries == 1 else buf.zero_)
+                       prime=None if tries == 1 else
+                       lambda: (buf.zero_(), fn()))
         except AssertionError:  # a trace with no device record at all
             if tries < K1_TRACE_TRIES:
-                reps = max(3, reps // 2)
+                reps = max(1, reps // 2)
             continue
         seen = sum(round(tr["launches_per_call_by_kernel"].get(k, 0) * reps)
                    for k in names)
@@ -842,7 +886,7 @@ def complete_trace(fn, names, want: int, reps: int, what: str) -> tuple:
                   if tr["launches_per_call_by_kernel"].get(k)}
             return ms, tr, tries
         if tries < K1_TRACE_TRIES:
-            reps = max(3, reps // 2)
+            reps = max(1, reps // 2)
     shown = {k: v for k, v in tr["launches_per_call_by_kernel"].items()
              if k in names}
     raise AssertionError(f"{what}: no complete trace in {K1_TRACE_TRIES} "
@@ -957,21 +1001,25 @@ def k5_levels(s, cases, label: str, name_limit: str, alpha=0.7) -> list:
 
 
 class SolveCapture:
-    """The kernels, for a solve program, keeping each K3 call's pass and
-    bucket: (transpose, off, rows, cols, vec_off, below_idx, cp, rp)."""
+    """The kernels, for a solve program, keeping each call of one solve
+    wrapper (bucket_solve or wide_solve): its pass and bucket,
+    (transpose, off, rows, cols, vec_off, below_idx, cp, rp)."""
 
-    def __init__(self):
-        self.calls = []
+    def __init__(self, wrapper: str = "bucket_solve"):
+        self.wrapper, self.calls = wrapper, []
 
     def __getattr__(self, name):
-        return getattr(kernels, name)
+        fn = getattr(kernels, name)
+        if name != self.wrapper:
+            return fn
 
-    def bucket_solve(self, data, vv, y, y_base, off, rows, cols, vec_off,
-                     below_idx, cp, rp, transpose):
-        self.calls.append((transpose, off, rows, cols, vec_off, below_idx,
-                           cp, rp))
-        kernels.bucket_solve(data, vv, y, y_base, off, rows, cols, vec_off,
-                             below_idx, cp, rp, transpose)
+        def keep(data, vv, y, y_base, off, rows, cols, vec_off, below_idx,
+                 cp, rp, transpose):
+            self.calls.append((transpose, off, rows, cols, vec_off,
+                               below_idx, cp, rp))
+            fn(data, vv, y, y_base, off, rows, cols, vec_off, below_idx, cp,
+               rp, transpose)
+        return keep
 
 
 def below_sparse(data, order: int, off, rows, cols, vec_off, below_idx,
@@ -999,28 +1047,37 @@ def below_sparse(data, order: int, off, rows, cols, vec_off, below_idx,
     return A.coalesce().to_sparse_csr()
 
 
-def k3_levels(cases, name_limit: str) -> list:
-    """K3 on every bucket and pass of one solve of each case ((label,
-    solver, factor single f64)), as [cp, rp, panels, widest real width,
-    most real below rows] with its layout (kernels.solve_layout):
-    against its twin (f64 at nrhs 1 and 3, f32 at nrhs 1; CheckedOps); a
-    batch of two (the second item's factor scaled) against single runs
-    and a rerun, bitwise, at nrhs 3; the wrapper's ms by CUDA events
-    (nrhs 1, solving its own output again in place: no grid's work
-    depends on the values), its twin's; device ms per grid from a
-    complete trace, at nrhs 1 and at nrhs 3; the bound (cost(), nrhs
-    1); and torch.sparse.mm of the
-    bucket's below block as CSR (below_sparse) with the RHS, a yardstick
-    the port never calls. Returns one row per call."""
+def solve_levels(cases, wrapper: str, name_limit: str) -> list:
+    """The phases k3_levels (wrapper bucket_solve: K3, its layout
+    kernels.solve_layout) and k3w_levels (wide_solve: K3-wide,
+    kernels.wide_solve_layout): the wrapper on every bucket and pass of
+    one solve of each case ((label, solver, factor single f64)), as [cp,
+    rp, panels, widest real width, most real below rows] with its
+    layout: against its twin (f64 at nrhs 1 and 3, f32 at
+    nrhs 1; CheckedOps); a batch of two (the second item's factor
+    scaled) against single runs and a rerun, bitwise, at nrhs 3; the
+    wrapper's ms by CUDA events (nrhs 1, solving its own output again in
+    place: no grid's work depends on the values), its twin's; device ms
+    per grid from a complete trace, at nrhs 1 and at nrhs 3; the bound
+    (cost(), nrhs 1); and a yardstick the port never calls (K3:
+    torch.sparse.mm of the bucket's below block as CSR with the RHS, the
+    n x n product left out; K3-wide: wide_solve_library_call on one
+    panel). Returns one row per call."""
     out = []
     rng = np.random.RandomState(7)
+    fn, twin = getattr(kernels, wrapper), getattr(kernels, f"{wrapper}_twin")
+    names = GRIDS[wrapper] + EARLIER_GRIDS[wrapper]
+    layout = {"bucket_solve": lambda cp, rp, B: getattr(
+        kernels, "solve_layout", lambda *_: ())(cp, rp, B),
+        "wide_solve": lambda cp, rp, B: getattr(
+            kernels, "wide_solve_layout", lambda *_: ())(cp, rp)}[wrapper]
     for label, s, f in cases:
         order, dev = s.order, f.device
         V = {n: torch.from_numpy(rng.rand(2, order, n) - 0.5).to(dev)
              for n in (1, 3)}
-        cap = SolveCapture()
+        cap = SolveCapture(wrapper)
         s.solve_program()(f[None], V[3][:1], ops=cap)
-        check(len(cap.calls) > 0, f"{label}: no bucket_solve call")
+        check(len(cap.calls) > 0, f"{label}: no {wrapper} call")
         D = {torch.float64: f[None], torch.float32: f[None].float()}
         D2 = torch.stack([f, f * 1.01])
         for transpose, *bucket in cap.calls:
@@ -1034,24 +1091,22 @@ def k3_levels(cases, name_limit: str) -> list:
             row = {"case": label, "pass": "Lt" if transpose else "L",
                    "bucket": [cp, rp, B, int(cols.max()),
                               int(rows.max()) if rp else 0],
-                   "layout": getattr(kernels, "solve_layout",
-                                     lambda *_: ())(cp, rp, B),
-                   "max_rel": {}}
-            what = f"bucket_solve on {label} {row['pass']} {row['bucket']}"
+                   "layout": layout(cp, rp, B), "max_rel": {}}
+            what = f"{wrapper} on {label} {row['pass']} {row['bucket']}"
             for dt, n in ((torch.float64, 1), (torch.float64, 3),
                           (torch.float32, 1)):
                 chk = CheckedOps()
-                chk.bucket_solve(D[dt], V[n][:1].to(dt), y_of(1, n, dt), 0,
-                                 *bucket)
-                r, key = chk.rel["bucket_solve"], f"{str(dt)[6:]}_nrhs{n}"
+                chk._solve(wrapper, D[dt], V[n][:1].to(dt), y_of(1, n, dt),
+                           0, *bucket)
+                r, key = chk.rel[wrapper], f"{str(dt)[6:]}_nrhs{n}"
                 check(r <= KERNEL_RTOL[dt], f"{what} vs twin {key}: rel {r}")
                 row["max_rel"][key] = r
             v2, y2 = V[3].clone(), y_of(2, 3)
-            kernels.bucket_solve(D2, v2, y2, 0, *bucket)
+            fn(D2, v2, y2, 0, *bucket)
             for b in range(2):
                 for _ in range(2):  # the single run, then its rerun
                     v1, y1 = V[3][b:b + 1].clone(), y_of(1, 3)
-                    kernels.bucket_solve(D2[b:b + 1], v1, y1, 0, *bucket)
+                    fn(D2[b:b + 1], v1, y1, 0, *bucket)
                     check(torch.equal(v1[0], v2[b]) and
                           (y1 is None or torch.equal(y1[0], y2[b])),
                           f"{what}: batch item {b} differs from its single "
@@ -1059,30 +1114,30 @@ def k3_levels(cases, name_limit: str) -> list:
             del v2, y2
             v, y = V[1][:1].clone(), y_of(1, 1)
             args = (D[torch.float64], v, y, 0, *bucket)
-            run = functools.partial(kernels.bucket_solve, *args)
+            run = functools.partial(fn, *args)
             row["ms"] = time_ms(run, 20)
-            row["twin_ms"] = time_ms(functools.partial(
-                kernels.bucket_solve_twin, *args), 1, warmup=1)
+            row["twin_ms"] = time_ms(functools.partial(twin, *args), 1,
+                                     warmup=1)
             kernels.reset_counts()
             run()
             torch.cuda.synchronize()
-            grids = kernels.COUNTS["bucket_solve"].grid_launches
+            grids = kernels.COUNTS[wrapper].grid_launches
             reps = int(min(50, max(5, 5.0 / max(row["ms"], 1e-3))))
             row["device_ms"], _, row["trace_tries"] = complete_trace(
-                run, GRIDS["bucket_solve"] + EARLIER_GRIDS["bucket_solve"],
-                grids, reps, what)
+                run, names, grids, reps, what)
             row["grids"] = grids
             v3 = V[3][:1].clone()
             row["device_ms_nrhs3"], _, _ = complete_trace(
-                functools.partial(kernels.bucket_solve, D[torch.float64], v3,
-                                  y_of(1, 3), 0, *bucket),
-                GRIDS["bucket_solve"] + EARLIER_GRIDS["bucket_solve"], grids,
-                reps, what + " nrhs 3")
+                functools.partial(fn, D[torch.float64], v3, y_of(1, 3), 0,
+                                  *bucket), names, grids, reps,
+                what + " nrhs 3")
             del v3
-            row["bound_ms"], row["bound_by"] = bound(*cost("bucket_solve",
-                                                           args))
+            row["bound_ms"], row["bound_by"] = bound(*cost(wrapper, args))
             row["library_ms"] = None
-            if rp:
+            if wrapper == "wide_solve":
+                row["library_ms"] = time_ms(
+                    wide_solve_library_call(args), 5) if B == 1 else None
+            elif rp:
                 A = below_sparse(D[torch.float64], order, *bucket)
                 row["library_ms"] = time_ms(lambda: torch.sparse.mm(A, v[0]),
                                             5)
@@ -1097,12 +1152,19 @@ def k3_levels(cases, name_limit: str) -> list:
             (sum(r[field].values()) if isinstance(r[field], dict)
              else r[field] or 0.0) for r in out
             if (r["case"], r["pass"]) == (c, p)) for c, p in keys}
-    log("k3_levels", card=name_limit, dtype="float64", nrhs=1,
+    lib = {"bucket_solve": "torch.sparse.mm(A, vv), A the bucket's below "
+                           "block as sparse_csr (Lt: below^T, the gather "
+                           "product; L: below, y); the n x n product is "
+                           "left out",
+           "wide_solve": "per panel torch.linalg.solve_triangular on its "
+                         "lower triangle, with below rows also "
+                         "torch.matmul with the below block (L: y = below "
+                         "x; Lt: below^T g, g the gathered rows)"}[wrapper]
+    log({"bucket_solve": "k3_levels", "wide_solve": "k3w_levels"}[wrapper],
+        card=name_limit, dtype="float64", nrhs=1,
         limits={"float64": 1e-10, "float32": 1e-4}, bitwise=True,
-        library_call="torch.sparse.mm(A, vv), A the bucket's below block as "
-                     "sparse_csr (Lt: below^T, the gather product; L: "
-                     "below, y); the n x n product is left out",
-        ms_by_case=by("ms"), device_ms_by_case=by("device_ms"),
+        library_call=lib, ms_by_case=by("ms"),
+        device_ms_by_case=by("device_ms"),
         device_ms_nrhs3_by_case=by("device_ms_nrhs3"),
         bound_ms_by_case=by("bound_ms"), library_ms_by_case=by("library_ms"),
         buckets=out)
@@ -1462,10 +1524,8 @@ def bound(bytes_: float, ops: float):
 def library_call(name: str, args):
     """One PyTorch call (or a pair) that computes what this wrapper call
     computes on the same inputs, where there is one; else None. K2: an
-    index_add_ of the gathered sources; K3-wide and K3-rest wide on a
-    panel without below rows: torch.linalg.solve_triangular on the
-    panel's lower triangle, read from the same buffer (it reads only the
-    lower triangle, so the stored inverse above is ignored); K1-wide:
+    index_add_ of the gathered sources; K3-wide and K3-rest wide on one
+    panel: wide_solve_library_call; K1-wide:
     cholesky_ex and two triangular solves per panel; K6: einsum and
     index_add_ per block pair."""
     if name == "segmented_subtract":
@@ -1475,21 +1535,49 @@ def library_call(name: str, args):
         o, sv = out.clone().view(b, -1, width), src.view(b, -1, width)
         return lambda: o.index_add_(1, e_tgt, sv[:, src_idx], alpha=-1)
     if name in ("wide_solve", "wide_tri_solve"):
-        data, vv, _, _, off, _, cols, vec_off, _, cp, rp, transpose = \
-            args[:12]
-        if rp or off.shape[0] != 1 or data.shape[0] != 1:
+        if args[4].shape[0] != 1 or args[0].shape[0] != 1:
             return None
-        n, o, v0 = int(cols[0]), int(off[0]), int(vec_off[0])
-        L = kernels._panel_view(data, o, cp, 0, 0, n, n)[0]
-        x = vv[0, v0:v0 + n].clone()
-        if transpose:
-            return lambda: torch.linalg.solve_triangular(L.mT, x, upper=True)
-        return lambda: torch.linalg.solve_triangular(L, x, upper=False)
+        return wide_solve_library_call(args)
     if name == "wide_factor":
         return wide_factor_library_call(*args)
     if name == "grad_hess":
         return k6_library_call(*args)
     return None
+
+
+def wide_solve_library_call(args):
+    """K3-wide's function in PyTorch calls, per panel, on its real rows
+    and columns read from the same buffer: the L pass
+    torch.linalg.solve_triangular(L, b) (it reads only the lower
+    triangle, so the stored inverse above is ignored), then, with below
+    rows, torch.matmul(below, x) for y; the Lt pass b - torch.matmul(
+    below^T, g), g the gathered rows (gathered here, outside the timed
+    call; a sentinel gives a zero row), then solve_triangular(L^T, .).
+    For a yardstick the port never calls."""
+    data, vv, _, _, off, rows, cols, vec_off, below_idx, cp, rp, \
+        transpose = args[:12]
+    order, jobs = vv.shape[1], []
+    ext = torch.cat([vv[0], vv.new_zeros((1, vv.shape[2]))])
+    for p in range(off.shape[0]):
+        n, o, v0 = int(cols[p]), int(off[p]), int(vec_off[p])
+        r = int(rows[p]) if rp else 0
+        L = kernels._panel_view(data, o, cp, 0, 0, n, n)[0]
+        below = kernels._panel_view(data, o, cp, cp, 0, r, n)[0] \
+            if r else None
+        g = ext[below_idx.view(-1, rp)[p, :r].clamp(max=order)] \
+            if r and transpose else None
+        jobs.append((L, vv[0, v0:v0 + n].clone(), below, g))
+
+    def run():
+        for L, b, below, g in jobs:
+            if transpose:
+                t = b - torch.matmul(below.mT, g) if g is not None else b
+                torch.linalg.solve_triangular(L.mT, t, upper=True)
+            else:
+                x = torch.linalg.solve_triangular(L, b, upper=False)
+                if below is not None:
+                    torch.matmul(below, x)
+    return run
 
 
 def wide_factor_library_call(data, off, rows, cols, cp, rp, off_h, cols_h):
@@ -1633,13 +1721,14 @@ TRACE_LEAD_IN_S = 0.05
 def trace(fn, reps: int, lead_in_s: float = TRACE_LEAD_IN_S, prime=None):
     """Runs fn() `reps` times under torch.profiler (after one warm-up
     call, a lead-in of `lead_in_s` and, when given, prime() inside the
-    profiler) and reads the device activity off the trace:
+    profiler) and reads the device activity of those runs (the work
+    that starts after the counted range opens) off the trace:
     device time and launches per kernel name, the number of device
     activities, and the busy time as the union of their intervals on the
     trace timeline. The idle share is
     1 - busy / (last end - first start) over the run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1650,12 +1739,19 @@ def trace(fn, reps: int, lead_in_s: float = TRACE_LEAD_IN_S, prime=None):
         time.sleep(lead_in_s)
         if prime is not None:
             prime()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            torch.cuda.synchronize()
+        with record_function("counted_runs"):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    # only the device work of the counted runs (after the primer's); the
+    # range itself also shows on the device's timeline
+    start = min(e.time_range.start for e in prof.events()
+                if e.name == "counted_runs")
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and
+          e.time_range.start >= start and e.name != "counted_runs"]
     check(len(ev) > 0, "the profiler saw no device activity")
     by_name, n_name = {}, {}
     for e in ev:
@@ -2217,35 +2313,63 @@ def bal_direct_costs(opt, name_limit: str) -> list:
     return costs
 
 
-def k3_cases(probs, d64, bal_solver, bal_damped_data) -> list:
-    """k3_levels' cases: the factor of each problem's data (MERI, GRID,
-    FLAT, FLAT+Schur 50k) and of BAL 871's first damped system."""
-    cases = [(p, probs[p], probs[p].factor(torch.from_numpy(d64[p]).to(
-        bal_damped_data.device))) for p in ("meri7", "grid100", "flat1000",
-                                            "flat_schur50k")]
+def solve_cases(probs, d64, names, bal_solver, bal_damped_data) -> list:
+    """solve_levels' cases: the factor of each named problem's data and
+    of BAL 871's first damped system."""
+    dev = bal_damped_data.device
+    cases = [(p, probs[p], probs[p].factor(torch.from_numpy(d64[p]).to(dev)))
+             for p in names]
     cases.append(("bal871", bal_solver, bal_solver.factor(bal_damped_data)))
     return cases
 
 
-def k3_only(dev, name_limit: str) -> int:
-    """`--only k3`: the build, then K3's phase alone (k3_levels on MERI,
-    GRID, FLAT, FLAT+Schur 50k and BAL 871's first damped system) and
+def solve_only(wrapper: str, dev, name_limit: str) -> int:
+    """`--only k3` (wrapper bucket_solve) and `--only k3w` (wide_solve):
+    the build, then the wrapper's phase alone (solve_levels on
+    K3_PROBLEMS or K3W_PROBLEMS and BAL 871's first damped system) and
     BAL 871's direct LM held to BAL_COSTS, for iterating on
-    csrc/bucket_solve.cu without the whole run."""
+    csrc/bucket_solve.cu or csrc/wide_solve.cu without the whole run."""
     t0 = time.perf_counter()
     log("build", library=kernels.build())
     kernels._lib()
-    probs = {p: make(T, device=dev) for p, make in (
-        ("meri7", meri7), ("grid100", grid100), ("flat1000", flat1000),
-        ("flat_schur50k", flat_schur50k))}
+    names = K3_PROBLEMS if wrapper == "bucket_solve" else K3W_PROBLEMS
+    makers = {"meri7": meri7, "grid100": grid100, "flat1000": flat1000,
+              "flat_schur50k": flat_schur50k, "wide_below": wide_below}
+    probs = {p: makers[p](T, device=dev) for p in names}
     d64 = {k: spd_data(s, 1) for k, s in probs.items()}
     opt, values0, _ = bal_setup(dev)
     damped, _, _ = bal_damped(
         opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
-    k3_levels(k3_cases(probs, d64, opt.solver, damped), name_limit)
+    solve_levels(solve_cases(probs, d64, names, opt.solver, damped), wrapper,
+                 name_limit)
     reset_values(opt, values0)
     bal_direct_costs(opt, name_limit)
-    log("k3_only", seconds=time.perf_counter() - t0)
+    log({"bucket_solve": "k3_only", "wide_solve": "k3w_only"}[wrapper],
+        seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
+def k1_only(dev, name_limit: str) -> int:
+    """`--only k1`: the build, then K1's phases alone (k1_not_pd, and
+    k1_levels on MERI, GRID and BAL 871's pair levels) and BAL 871's
+    direct LM held to BAL_COSTS, for iterating on csrc/bucket_factor.cu
+    without the whole run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    k1_not_pd(dev, name_limit)
+    for p, make in (("meri7", meri7), ("grid100", grid100)):
+        s = make(T, device=dev)
+        k1_levels(s, torch.from_numpy(spd_data(s, 1)).to(dev), p, name_limit)
+    opt, values0, _ = bal_setup(dev)
+    damped, _, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
+    k1_levels(opt.solver, damped, "bal871", name_limit)
+    del damped
+    reset_values(opt, values0)
+    bal_direct_costs(opt, name_limit)
+    log("k1_only", seconds=time.perf_counter() - t0)
     print(card(), flush=True)
     return 0
 
@@ -2281,7 +2405,9 @@ def main(argv=()) -> int:
         capability=list(torch.cuda.get_device_capability(0)),
         torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
-    only = {"k5": k5_only, "k1w": k1w_only, "k3": k3_only, "k6": k6_only}
+    only = {"k5": k5_only, "k1w": k1w_only, "k6": k6_only, "k1": k1_only,
+            "k3": functools.partial(solve_only, "bucket_solve"),
+            "k3w": functools.partial(solve_only, "wide_solve")}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         return only[argv[1]](dev, name_limit)
     if argv:
@@ -2852,9 +2978,14 @@ def main(argv=()) -> int:
     k5 = k5_phase(schur50, torch.from_numpy(d64["flat_schur50k"]).to(dev),
                   opt, bal["damped"], name_limit)
     # 15. K3 per bucket and pass of MERI's, GRID's, FLAT's, Schur 50k's
-    # and BAL 871's solves; K6 per family and grid of BAL's assembly
-    k3 = k3_levels(k3_cases(probs, d64, opt.solver, bal.pop("damped")),
-                   name_limit)
+    # and BAL 871's solves, K3-wide per bucket and pass of FLAT's, Schur
+    # 50k's, WIDE_BELOW's and BAL 871's; K6 per family and grid of BAL's
+    # assembly
+    k3 = solve_levels(solve_cases(probs, d64, K3_PROBLEMS, opt.solver,
+                                  bal["damped"]), "bucket_solve", name_limit)
+    k3w = solve_levels(solve_cases(probs, d64, K3W_PROBLEMS, opt.solver,
+                                   bal.pop("damped")), "wide_solve",
+                       name_limit)
     k6 = k6_levels(opt, bal["terms"], name_limit)
     by_case["wide_factor"] = {
         f"{r['case']} {r['bucket'][:2]} (k1w_levels)": r["ms"] for r in k1w}
@@ -2885,6 +3016,9 @@ def main(argv=()) -> int:
         f"{c} {p} (k3_levels)": sum(r["ms"] for r in k3
                                     if (r["case"], r["pass"]) == (c, p))
         for c, p in sorted({(r["case"], r["pass"]) for r in k3})}
+    by_case["wide_solve"] = {
+        f"{r['case']} {r['pass']} {r['bucket'][:2]} (k3w_levels)": r["ms"]
+        for r in k3w}
     by_case["grad_hess"] = {
         f"bal871 family {r['family']} (k6_levels)": r["ms"] for r in k6}
     paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur,

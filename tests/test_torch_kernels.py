@@ -7,9 +7,11 @@ themselves are held against these twins on the card by chip_smoke.py.
   K3 bucket_solve        vs PlannedBackend._diag_solve(use_inv=True)
 
 K1's grids are also evaluated in numpy in the kernels' order (the
-blocked Cholesky and inverse by 32-column sub-blocks, the product's
-lower tiles and their mirror) and held against the twin and the JAX
-routine on synthetic buckets.
+blocked Cholesky and inverse by 32-column sub-blocks; x = below Linv^T
+by k in order for cp <= 16, by 32 x 32 blocks of the stored Linv^T in
+block order, in 2-8 interleaved sums by the bucket's shape, for wider
+panels; the product's lower tiles and their mirror) and held against
+the twin and the JAX routine on synthetic buckets.
 """
 
 import os
@@ -197,17 +199,71 @@ def prod_model(x, nrow, cp):
     return out
 
 
+BELOW_FILL = 132  # bucket_factor.cu kBelowFill
+
+
+def below_groups(B, rp):
+    """bucket_factor.cu below_groups: below_tile's 8-row groups a CTA, the
+    most of 4, 2, 1 that gives BELOW_FILL CTAs."""
+    for ng in (4, 2):
+        if B * -(-rp // (8 * ng)) >= BELOW_FILL:
+            return ng
+    return 1
+
+
+def below_model(below, A, n, nrow, cp, B, rp):
+    """x = below Linv^T over the real rows and columns as the below grids
+    form it, Linv from the stored block A (Linv^T above the diagonal, 1 /
+    diag L on it, zero elsewhere): below_warp (cp <= 16) sums over k in
+    order; below_tile (cp >= 32) takes 32-column blocks J of x, a CTA per
+    8 NG rows (below_groups of the bucket's B panels of rp rows), each in
+    8 / NG sums, set s over its share of the columns of every 32-column
+    block K <= J in order (the zero lower part skipped), the sets joined
+    in set order. Rows at or past nrow and columns at or past n keep
+    their input."""
+    X = np.zeros((cp, cp))  # Linv^T, zero outside the real upper triangle
+    X[:n, :n] = np.triu(A[:n, :n], 1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        X[np.arange(n), np.arange(n)] = 1.0 / np.diag(A)[:n]
+    out = below.copy()
+    src = np.where(np.arange(cp) < n, below[:nrow], 0.0)
+    with np.errstate(invalid="ignore"):
+        if cp <= 16:
+            x = np.zeros((nrow, cp))
+            for k in range(cp):
+                x += src[:, k:k + 1] * X[k]
+            out[:nrow, :n] = x[:, :n]
+            return out
+        ng = below_groups(B, rp)
+        nsets = 8 // ng
+        w = SUB // nsets
+        for r0 in range(0, nrow, 8 * ng):
+            rb = src[r0:min(r0 + 8 * ng, nrow)]
+            for J in range(-(-n // SUB) - 1, -1, -1):
+                js = slice(J * SUB, (J + 1) * SUB)
+                sets = np.zeros((nsets, rb.shape[0], SUB))
+                for K in range(J + 1):
+                    for st in range(nsets):
+                        ks = slice(K * SUB + st * w, K * SUB + (st + 1) * w)
+                        sets[st] += rb[:, ks] @ X[ks, js]
+                acc = sets[0]
+                for st in range(1, nsets):
+                    acc = acc + sets[st]
+                live = min((J + 1) * SUB, n) - J * SUB
+                out[r0:r0 + rb.shape[0], J * SUB:J * SUB + live] = \
+                    acc[:, :live]
+    return out
+
+
 def factor_model(panels, cols, rows, cp, rp):
     """One batch item's bucket (B, cp + rp, cp) through the three grids:
     the stored panels and the products."""
     out, prods = np.zeros_like(panels), []
     for j, (n, r) in enumerate(zip(cols, rows)):
         A = chol_model(panels[j, :cp], n)
-        xinv = np.triu(A, 1).T  # Linv from the stored X^T and 1 / diag L
-        xinv[np.arange(n), np.arange(n)] = 1.0 / np.diag(A)[:n]
         out[j, :cp] = A
         if rp:
-            x = panels[j, cp:] @ xinv.T  # below_kernel
+            x = below_model(panels[j, cp:], A, n, r, cp, len(cols), rp)
             out[j, cp:] = x
             prods.append(prod_model(x, r, cp))
     return out, (np.stack(prods) if prods else None)
@@ -224,6 +280,17 @@ K1_CASES = {
     "cp256_zero_tiles": (256, 256, 1, [150], [135]),
     "cp512_rp0": (512, 0, 1, [282], [0]),
     "cp512_n_eq_cp": (512, 16, 1, [512], [11]),
+    # the below grids: below_warp past one 128-row chunk, below_tile with
+    # row counts not a multiple of its 32-row blocks and widths not a
+    # multiple of its 32-column blocks
+    "cp4_rp200_below_chunks": (4, 200, 3, [3, 4, 2], [150, 200, 7]),
+    "cp16_rp48": (16, 48, 2, [13, 16], [47, 1]),
+    "cp32_rp100_below": (32, 100, 2, [21, 32], [99, 33]),
+    "cp256_rp96_below": (256, 96, 2, [219, 256], [70, 96]),
+    "cp512_rp96_below": (512, 96, 1, [300], [65]),
+    # below_tile's longer row blocks: 2 and 4 row groups a CTA
+    "cp32_rp2112_two_groups": (32, 2112, 1, [27], [2099]),
+    "cp64_rp4224_four_groups": (64, 4224, 1, [50], [4200]),
 }
 
 
@@ -315,6 +382,38 @@ def test_k1_model_nan_from_failing_column(cp, n, col):
         o = other.reshape(2, cp, cp)[1]
         assert np.isnan(o[col:n, col]).all()
         assert np.isfinite(other.reshape(2, cp, cp)[0]).all()
+
+
+@pytest.mark.parametrize("cp,n,col", [(4, 3, 1), (32, 30, 7), (64, 60, 40),
+                                      (256, 200, 150), (512, 282, 100)])
+def test_k1_below_nan_from_failing_column(cp, n, col):
+    """A panel with below rows that is not positive definite: in the
+    below grids' order x is NaN from the failing column on and finite
+    before it, and the other panel finite; the twin and J's routine give
+    NaN in x from that column on too."""
+    rp, nr = 40, 37
+    data, cols, nrow = _k1_bucket(cp, rp, 2, [n], [nr], seed=cp + 1,
+                                  batch=1)
+    h = cp + rp
+    panels = data.reshape(2, h, cp)
+    panels[1, col, col] = -1.0
+    for j in range(2):
+        A = chol_model(panels[j, :cp], n)
+        x = below_model(panels[j, cp:], A, n, nr, cp, 2, rp)[:nr, :n]
+        if j == 0:
+            assert np.isfinite(A).all() and np.isfinite(x).all()
+        else:
+            assert np.isfinite(x[:, :col]).all()
+            assert np.isnan(x[:, col:]).all()
+    got = torch.from_numpy(panels.reshape(1, -1).copy())
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64))
+    kernels.bucket_factor_twin(got, None, t([0, h * cp]), t(nrow), t(cols),
+                               cp, rp, 0)
+    want_j, _ = _jax_bucket(panels.reshape(1, -1), cols, nrow, cp, rp)
+    for other in (got[0].numpy(), want_j[0]):
+        o = other[:2 * h * cp].reshape(2, h, cp)
+        assert np.isnan(o[1, cp:cp + nr, col:n]).all()
+        assert np.isfinite(o[0]).all()
 
 
 def test_k1_tri_tile_enumerates_each_lower_tile_once():
