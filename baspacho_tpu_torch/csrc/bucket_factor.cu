@@ -379,14 +379,6 @@ __host__ __device__ constexpr int below_warps(int cp) {
                                                      : kBelowMaxWarps);
 }
 
-// 16 bytes global -> shared, zero-filled past src_bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
 // count elements from src to dst (shared) by a warp, of which the first
 // `real` are read and the rest zero-filled; V = 16 / sizeof(T) elements
 // a copy when `vec` (both 16-byte aligned), else one; count <= kMax
@@ -418,10 +410,11 @@ __device__ __forceinline__ void stage_row(T* dst, const T* src, int count,
 // below_tile's products: a warp's 32 x 8 NG block of x^T (32 columns of
 // x by NG 8-row groups) from one 32-column stage, summed into NS = 8 / NG
 // independent accumulators, set s taking the stage's columns 32 s / NS ..
-// 32 (s + 1) / NS - 1 in order (8 / NS mma.m8n8k4 steps, or FMAs in f32),
-// the sets' steps interleaved, so that a K step's products wait on few
-// others: on an H100 the dependent chain of mma steps, not their number,
-// bounds these small products. acc[s][mi][nj][h] is the element (mi * 8 +
+// 32 (s + 1) / NS - 1 in order (8 / NS mma_step's of four columns, or of
+// one column each in f32; warp_tiles.cuh), the sets' steps interleaved,
+// so that a K step's products wait on few others: on an H100 the
+// dependent chain of mma steps, not their number, bounds these small
+// products. acc[s][mi][nj][h] is the element (mi * 8 +
 // lane / 4, nj * 8 + (lane % 4) * 2 + h) of set s (mma32's layout); the
 // registers are the same for every NG.
 template <int NG>
@@ -445,15 +438,7 @@ __device__ __forceinline__ void mma_sets(double (&acc)[8 / NG][4][NG][2],
       for (int m = 0; m < 4; ++m) a[m] = fa(m * 8 + g, k0 + t);
 #pragma unroll
       for (int m = 0; m < NG; ++m) b[m] = fb(m * 8 + g, k0 + t);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < NG; ++nj)
-          asm volatile(
-              "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
-              "{%2}, {%3}, {%0, %1};\n"
-              : "+d"(acc[st][mi][nj][0]), "+d"(acc[st][mi][nj][1])
-              : "d"(a[mi]), "d"(b[nj]));
+      mma_step(acc[st], a, b);
     }
 }
 
@@ -476,13 +461,7 @@ __device__ __forceinline__ void mma_sets(float (&acc)[8 / NG][4][NG][2],
         b[m][0] = fb(m * 8 + t2, k);
         b[m][1] = fb(m * 8 + t2 + 1, k);
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < NG; ++nj) {
-          acc[st][mi][nj][0] += a[mi] * b[nj][0];
-          acc[st][mi][nj][1] += a[mi] * b[nj][1];
-        }
+      mma_step(acc[st], a, b);
     }
 }
 

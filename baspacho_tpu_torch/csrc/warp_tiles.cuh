@@ -2,8 +2,8 @@
 // (wide_factor.cu), K3 (bucket_solve.cu), K4 (dense_level.cu) and K5
 // (add_mv.cu): the register-resident 32 x 32 Cholesky and inverse of a
 // diagonal block; a warp's 32 x 32 block of a product A . B^T over 32
-// columns on the f64 tensor cores (mma.m8n8k4), or by FMAs in f32; a
-// CTA's 64 x 64 tile of x x^T from cp.async stages; butterfly sums over
+// columns on the f64 tensor cores (mma.m8n8k4), or by FMAs in f32, and
+// its step; cp.async copies; a CTA's 64 x 64 tile of x x^T from cp.async stages; butterfly sums over
 // groups of lanes.
 
 #pragma once
@@ -87,6 +87,40 @@ __device__ void warp_chol_inv(T* A, T* dx, int ls, int p0, int pw) {
   }
 }
 
+// One step of a warp's 8 NM x 8 NN block acc += A B^T in mma32's layout
+// (below). f64: four columns on the tensor cores, an mma.m8n8k4 per 8 x 8
+// part, a[mi] A's fragment (row mi * 8 + lane / 4, column lane % 4), b[nj]
+// B's (column nj * 8 + lane / 4, row lane % 4).
+template <int NM, int NN>
+__device__ __forceinline__ void mma_step(double (&acc)[NM][NN][2],
+                                         const double (&a)[NM],
+                                         const double (&b)[NN]) {
+#pragma unroll
+  for (int mi = 0; mi < NM; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NN; ++nj)
+      asm volatile(
+          "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
+          "{%2}, {%3}, {%0, %1};\n"
+          : "+d"(acc[mi][nj][0]), "+d"(acc[mi][nj][1])
+          : "d"(a[mi]), "d"(b[nj]));
+}
+
+// f32: one column by FMAs, a[mi] A's element in row mi * 8 + lane / 4,
+// b[nj][h] B's in column nj * 8 + (lane % 4) * 2 + h.
+template <int NM, int NN>
+__device__ __forceinline__ void mma_step(float (&acc)[NM][NN][2],
+                                         const float (&a)[NM],
+                                         const float (&b)[NN][2]) {
+#pragma unroll
+  for (int mi = 0; mi < NM; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NN; ++nj) {
+      acc[mi][nj][0] += a[mi] * b[nj][0];
+      acc[mi][nj][1] += a[mi] * b[nj][1];
+    }
+}
+
 // A warp's 32 x 32 block acc += A B^T over 32 columns: acc[mi][nj][h] is
 // the element (mi * 8 + lane / 4, nj * 8 + (lane % 4) * 2 + h); fa(r, k)
 // and fb(c, k) give A's and B's elements (r, c, k < 32), so any layout,
@@ -117,15 +151,7 @@ __device__ __forceinline__ void mma32(double (&acc)[4][4][2], const FA& fa,
         a[m] = kPreA ? pa[s][m] : fa(m * 8 + g, k0 + t);
         b[m] = fb(m * 8 + g, k0 + t);
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj)
-          asm volatile(
-              "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, "
-              "{%2}, {%3}, {%0, %1};\n"
-              : "+d"(acc[mi][nj][0]), "+d"(acc[mi][nj][1])
-              : "d"(a[mi]), "d"(b[nj]));
+      mma_step(acc, a, b);
     }
   }
 }
@@ -146,13 +172,7 @@ __device__ __forceinline__ void mma32(float (&acc)[4][4][2], const FA& fa,
       b[m][0] = fb(m * 8 + t2, k);
       b[m][1] = fb(m * 8 + t2 + 1, k);
     }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        acc[mi][nj][0] += a[mi] * b[nj][0];
-        acc[mi][nj][1] += a[mi] * b[nj][1];
-      }
+    mma_step(acc, a, b);
   }
 }
 
@@ -167,6 +187,14 @@ __device__ __forceinline__ void cp_async_el(T* dst, const T* src,
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                  "l"(src), "r"(src_bytes));
+}
+
+// 16 bytes, global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -84,14 +84,6 @@ __device__ __forceinline__ int tile_width(int64_t n, int k0) {
   return w < 0 ? 0 : (w > kNb ? kNb : (int)w);
 }
 
-// 16 bytes, global -> shared; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
 // Columns q0 .. q0 + width of `rows` rows into dst (row stride ld) by
 // cp.async: row r from src(r) (null: zeros), by 16-byte groups when vec
 // (every source row and dst 16-byte aligned), else value by value; any

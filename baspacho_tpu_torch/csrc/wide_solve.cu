@@ -235,8 +235,38 @@ __global__ void __launch_bounds__(kThreads) wide_lt_post_kernel(Ws a) {
   post<T, false>(a, red);
 }
 
-// L pass, rp > 0: a warp per below row, lanes over columns; each row is
-// read once for kGroup RHS columns at a time
+// A warp's dot products of one row with nk <= kGroup RHS columns:
+// s[kk] = sum_{m0 <= m < m1} row[m] x[m nrhs + kk], lane l taking m = m0 +
+// l, m0 + l + 32, ... in order, then a butterfly; every lane gets the
+// sums. The row is read once for the nk columns. At nrhs 1 (the LM path)
+// a plain loop, the same sums: the general one takes twice as long there
+// in wide_ltmv on an H100 (PERF.md).
+template <typename T>
+__device__ __forceinline__ void row_dot(const T* row, const T* x, int nrhs,
+                                        int nk, int m0, int m1,
+                                        T (&s)[kGroup]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < kGroup; ++kk) s[kk] = T(0);
+  if (nrhs == 1) {
+    for (int m = m0 + lane; m < m1; m += 32) s[0] += row[m] * x[m];
+    s[0] = group_sum(s[0], 32);
+    return;
+  }
+#pragma unroll 4
+  for (int m = m0 + lane; m < m1; m += 32) {
+    const T e = row[m];
+    const T* xm = x + (int64_t)m * nrhs;
+#pragma unroll
+    for (int kk = 0; kk < kGroup; ++kk)
+      if (kk < nk) s[kk] += e * xm[kk];
+  }
+#pragma unroll
+  for (int kk = 0; kk < kGroup; ++kk)
+    if (kk < nk) s[kk] = group_sum(s[kk], 32);  // nk: uniform over the warp
+}
+
+// L pass, rp > 0: a warp per below row, y[r] = below[r] . t (row_dot)
 template <typename T>
 __global__ void __launch_bounds__(kThreads) wide_l_y_kernel(Ws a) {
   const int nrb = (a.rp + kWarps - 1) / kWarps;
@@ -255,23 +285,10 @@ __global__ void __launch_bounds__(kThreads) wide_l_y_kernel(Ws a) {
   for (int k0 = 0; k0 < nrhs; k0 += kGroup) {
     const int nk = min(kGroup, nrhs - k0);
     T acc[kGroup];
+    row_dot(br, x + k0, nrhs, nk, 0, real ? n : 0, acc);
 #pragma unroll
-    for (int kk = 0; kk < kGroup; ++kk) acc[kk] = T(0);
-    if (real) {
-#pragma unroll 4
-      for (int j = lane; j < n; j += 32) {
-        const T e = br[j];
-        const T* xj = x + (int64_t)j * nrhs + k0;
-#pragma unroll
-        for (int kk = 0; kk < kGroup; ++kk)
-          if (kk < nk) acc[kk] += e * xj[kk];
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kGroup; ++kk) {
-      const T v = group_sum(acc[kk], 32);
-      if (lane == 0 && kk < nk) yo[k0 + kk] = v;
-    }
+    for (int kk = 0; kk < kGroup; ++kk)
+      if (lane == 0 && kk < nk) yo[k0 + kk] = acc[kk];
   }
 }
 
@@ -326,8 +343,7 @@ __global__ void __launch_bounds__(kThreads) wide_lt_rows_kernel(Ws a) {
 }
 
 // Lt pass: vv[own][j] = t[j] / P[j][j] + sum_{m > j} U[j][m] t[m], a warp
-// per row j of the stored upper triangle (contiguous), read once for
-// kGroup RHS columns at a time, a butterfly per column
+// per row j of the stored upper triangle (contiguous; row_dot)
 template <typename T>
 __global__ void __launch_bounds__(kThreads) wide_ltmv_kernel(Ws a) {
   const int nrb = (a.cp + kWarps - 1) / kWarps;
@@ -341,32 +357,14 @@ __global__ void __launch_bounds__(kThreads) wide_ltmv_kernel(Ws a) {
   const T* t = static_cast<const T*>(a.tmp) +
                ((int64_t)z * a.B + i) * a.cp * nrhs;
   T* v = static_cast<T*>(a.vv) + z * a.vv_bs + (a.vec_off[i] + j) * nrhs;
-  if (nrhs == 1) {  // the LM path: one load of t a row element
-    T acc = T(0);
-    for (int m = j + 1 + lane; m < n; m += 32) acc += row[m] * t[m];
-    acc = group_sum(acc, 32);
-    if (lane == 0) v[0] = acc + t[j] / row[j];
-    return;
-  }
   for (int k0 = 0; k0 < nrhs; k0 += kGroup) {
     const int nk = min(kGroup, nrhs - k0);
     T acc[kGroup];
+    row_dot(row, t + k0, nrhs, nk, j + 1, n, acc);
 #pragma unroll
-    for (int kk = 0; kk < kGroup; ++kk) acc[kk] = T(0);
-#pragma unroll 4
-    for (int m = j + 1 + lane; m < n; m += 32) {
-      const T e = row[m];
-      const T* tm = t + (int64_t)m * nrhs + k0;
-#pragma unroll
-      for (int kk = 0; kk < kGroup; ++kk)
-        if (kk < nk) acc[kk] += e * tm[kk];
-    }
-#pragma unroll
-    for (int kk = 0; kk < kGroup; ++kk) {
-      const T s = group_sum(acc[kk], 32);
+    for (int kk = 0; kk < kGroup; ++kk)
       if (lane == 0 && kk < nk)
-        v[k0 + kk] = s + t[(int64_t)j * nrhs + k0 + kk] / row[j];
-    }
+        v[k0 + kk] = acc[kk] + t[(int64_t)j * nrhs + k0 + kk] / row[j];
   }
 }
 

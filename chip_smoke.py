@@ -249,6 +249,8 @@ K1_PARTS = {"chol_warp_kernel": "chol", "chol_block_kernel": "chol",
 # k1_levels' and k5_levels' traces of a call: at most this many, until
 # one shows every grid of every run
 K1_TRACE_TRIES = 5
+# the fewest counted runs a retake halves them to
+TRACE_MIN_REPS = 3
 # the least time of a call: the larger of its bytes over the memory rate
 # and its operations over the peak rate (NVIDIA H100 SXM data sheet: HBM3
 # 3.35 TB/s; 67 TFLOP/s in f64 on the tensor cores and in f32 off them)
@@ -597,14 +599,13 @@ def k1_levels(s, data, label: str, name_limit: str) -> list:
                                       rp, 0)
         # only a trace that shows every grid of every run is read
         reps = int(min(50, max(3, 20.0 / max(time_ms(calls, 1), 1e-3))))
-        by_grid, tr, tries = complete_trace(
+        by_grid, tr, row["trace"] = complete_trace(
             calls, tuple(K1_PARTS), sum(want.values()), reps,
             f"{label} level {lvl} {row['buckets']}")
         ms = {}
         for k, v in by_grid.items():
             ms[K1_PARTS[k]] = ms.get(K1_PARTS[k], 0.0) + v
         row["grids"] = want
-        row["trace"] = {"reps": tr["reps"], "tries": tries}
         row["device_ms"] = ms
         row["bound_ms"] = {g: bound(*c)[0] for g, c in costs.items()}
         row["bound_by"] = {g: bound(*c)[1] for g, c in costs.items()}
@@ -777,7 +778,7 @@ def k1w_levels(cases, name_limit: str) -> list:
             torch.cuda.synchronize()
             grids = kernels.COUNTS["wide_factor"].grid_launches
             reps = int(min(20, max(3, 20.0 / max(row["ms"], 1e-3))))
-            row["device_ms"], tr, row["trace_tries"] = complete_trace(
+            row["device_ms"], tr, row["trace"] = complete_trace(
                 run, GRIDS["wide_factor"], grids, reps, what)
             row["grids"] = grids
             row["device_busy_ms"] = tr["device_busy_ms_per_call"]
@@ -860,12 +861,13 @@ def complete_trace(fn, names, want: int, reps: int, what: str) -> tuple:
     """Device ms per call of each of `names` (__global__ functions) from a
     trace of fn() that shows all `want` of their launches per call in
     every run (retaken up to K1_TRACE_TRIES times, the runs halved at
-    each retake, down to one; the profiler can lose whole runs' device
-    records late in a long run, and in some traces the first launches'
-    records: a retake waits longer first and runs a small kernel of
-    another name and one call of fn ahead of the counted runs, whose
-    records trace() leaves out); fails without one, naming `what`. Returns
-    ({name: ms}, trace, tries)."""
+    each retake, down to TRACE_MIN_REPS; the profiler can lose whole
+    runs' device records late in a long run, and in some traces the
+    first launches' records: a retake waits longer first and runs a small
+    kernel of another name and one call of fn ahead of the counted runs,
+    whose records trace() leaves out); fails without one, naming `what`.
+    Returns ({name: ms}, trace, {"reps": counted runs, "tries": traces
+    taken})."""
     buf = torch.zeros(1024, device="cuda")
     tr, seen = {"launches_per_call_by_kernel": {}}, 0
     for tries in range(1, K1_TRACE_TRIES + 1):
@@ -876,7 +878,7 @@ def complete_trace(fn, names, want: int, reps: int, what: str) -> tuple:
                        lambda: (buf.zero_(), fn()))
         except AssertionError:  # a trace with no device record at all
             if tries < K1_TRACE_TRIES:
-                reps = max(1, reps // 2)
+                reps = max(TRACE_MIN_REPS, reps // 2)
             continue
         seen = sum(round(tr["launches_per_call_by_kernel"].get(k, 0) * reps)
                    for k in names)
@@ -884,9 +886,9 @@ def complete_trace(fn, names, want: int, reps: int, what: str) -> tuple:
             ms = {k: tr["device_ms_per_call_by_kernel"].get(k, 0.0)
                   for k in names
                   if tr["launches_per_call_by_kernel"].get(k)}
-            return ms, tr, tries
+            return ms, tr, {"reps": reps, "tries": tries}
         if tries < K1_TRACE_TRIES:
-            reps = max(1, reps // 2)
+            reps = max(TRACE_MIN_REPS, reps // 2)
     shown = {k: v for k, v in tr["launches_per_call_by_kernel"].items()
              if k in names}
     raise AssertionError(f"{what}: no complete trace in {K1_TRACE_TRIES} "
@@ -962,7 +964,7 @@ def k5_levels(s, cases, label: str, name_limit: str, alpha=0.7) -> list:
             torch.cuda.synchronize()
             grids = kernels.COUNTS[name].grid_launches
             reps = int(min(50, max(5, 5.0 / max(row["ms"], 1e-3))))
-            row["device_ms"], tr, row["trace_tries"] = complete_trace(
+            row["device_ms"], tr, row["trace"] = complete_trace(
                 run, GRIDS[name], grids, reps,
                 f"{name} on {label} {case} {row['bucket']}")
             row["grids"] = grids
@@ -1123,11 +1125,11 @@ def solve_levels(cases, wrapper: str, name_limit: str) -> list:
             torch.cuda.synchronize()
             grids = kernels.COUNTS[wrapper].grid_launches
             reps = int(min(50, max(5, 5.0 / max(row["ms"], 1e-3))))
-            row["device_ms"], _, row["trace_tries"] = complete_trace(
+            row["device_ms"], _, row["trace"] = complete_trace(
                 run, names, grids, reps, what)
             row["grids"] = grids
             v3 = V[3][:1].clone()
-            row["device_ms_nrhs3"], _, _ = complete_trace(
+            row["device_ms_nrhs3"], _, row["trace_nrhs3"] = complete_trace(
                 functools.partial(fn, D[torch.float64], v3, y_of(1, 3), 0,
                                   *bucket), names, grids, reps,
                 what + " nrhs 3")
@@ -1251,7 +1253,7 @@ def k6_levels(opt, terms, name_limit: str) -> list:
         torch.cuda.synchronize()
         grids = kernels.COUNTS["grad_hess"].grid_launches
         reps = int(min(20, max(3, 5.0 / max(row["ms"], 1e-3))))
-        row["device_ms"], tr, row["trace_tries"] = complete_trace(
+        row["device_ms"], tr, row["trace"] = complete_trace(
             run, GRIDS["grad_hess"] + EARLIER_GRIDS["grad_hess"], grids,
             reps, f"grad_hess on BAL 871 family {fam}")
         row["grids"] = grids
@@ -1718,6 +1720,16 @@ def _short(name: str) -> str:
 TRACE_LEAD_IN_S = 0.05
 
 
+def counted_device_events(events, device, mark: str = "counted_runs"):
+    """The device records (device_type `device`) of the work that starts
+    once the range `mark` opens (its first record, on the host or the
+    device): the records before it (a warm-up's, a primer's) and the
+    range's own record on the device's timeline are left out."""
+    start = min(e.time_range.start for e in events if e.name == mark)
+    return [e for e in events if e.device_type == device and
+            e.time_range.start >= start and e.name != mark]
+
+
 def trace(fn, reps: int, lead_in_s: float = TRACE_LEAD_IN_S, prime=None):
     """Runs fn() `reps` times under torch.profiler (after one warm-up
     call, a lead-in of `lead_in_s` and, when given, prime() inside the
@@ -1746,12 +1758,7 @@ def trace(fn, reps: int, lead_in_s: float = TRACE_LEAD_IN_S, prime=None):
                 fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    # only the device work of the counted runs (after the primer's); the
-    # range itself also shows on the device's timeline
-    start = min(e.time_range.start for e in prof.events()
-                if e.name == "counted_runs")
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and
-          e.time_range.start >= start and e.name != "counted_runs"]
+    ev = counted_device_events(prof.events(), DeviceType.CUDA)
     check(len(ev) > 0, "the profiler saw no device activity")
     by_name, n_name = {}, {}
     for e in ev:
@@ -2352,16 +2359,21 @@ def solve_only(wrapper: str, dev, name_limit: str) -> int:
 
 def k1_only(dev, name_limit: str) -> int:
     """`--only k1`: the build, then K1's phases alone (k1_not_pd, and
-    k1_levels on MERI, GRID and BAL 871's pair levels) and BAL 871's
-    direct LM held to BAL_COSTS, for iterating on csrc/bucket_factor.cu
-    without the whole run."""
+    k1_levels and a trace of the whole factor on MERI and GRID,
+    k1_levels on BAL 871's pair levels) and BAL 871's direct LM held to
+    BAL_COSTS, for iterating on csrc/bucket_factor.cu without the whole
+    run."""
     t0 = time.perf_counter()
     log("build", library=kernels.build())
     kernels._lib()
     k1_not_pd(dev, name_limit)
     for p, make in (("meri7", meri7), ("grid100", grid100)):
         s = make(T, device=dev)
-        k1_levels(s, torch.from_numpy(spd_data(s, 1)).to(dev), p, name_limit)
+        d = torch.from_numpy(spd_data(s, 1)).to(dev)
+        k1_levels(s, d, p, name_limit)
+        # the whole factor, so that K1's grids read beside the rest
+        log("k1_factor_trace", case=p, card=name_limit, dtype="float64",
+            **trace(functools.partial(s.factor_program(), d[None]), 5))
     opt, values0, _ = bal_setup(dev)
     damped, _, _ = bal_damped(
         opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
