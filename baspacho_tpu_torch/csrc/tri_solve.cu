@@ -17,14 +17,43 @@
 //   Lt pass: x = vv[rows] - below^T vv[bidx] (sentinel rows skipped);
 //            vv[rows] = L^-T x
 //
-// Narrow (cp <= 512), tri_l_kernel / tri_lt_kernel: one CTA per (panel,
-// batch item), the RHS columns staged in shared memory in chunks of kc,
-// column-oriented substitution (step j: divide row j, then every thread
-// updates its (row, column) pairs below / above it), two barriers per
-// column; in the Lt pass, the threads share the below^T term's rows when
-// the panel has few columns. The JAX split at cp 8 (an explicit inverse,
-// for XLA) is not carried over. Bound by latency: a cp-4 panel is 3 short
-// steps, and the 50,000 panels of a Schur level run as 50,000 CTAs.
+// Narrow (cp <= 512): the grids of K3 (bucket_solve.cu), with the own
+// n x n block substituted instead of multiplied by a stored inverse; the
+// below phases, the lane layout, the layout (ops/kernels.py
+// solve_layout: a bucket's shape alone) and the partial scratch are K3's
+// (level_solve.cuh). Substitution is a chain of n steps, x_j = x[j] / d[j]
+// (a multiply by 1 / d[j]) then x[m] -= L[m][j] x_j for m > j (Lt: from
+// the last column, x[m] -= L[j][m] x_j for m < j); each x[m] takes its
+// terms in column order (Lt: from the last), whoever adds them, so every
+// path sums in that column-by-column order, fixed by the shape, and
+// batch items and reruns are bitwise equal:
+//   tri_l_warp_kernel / tri_lt_warp_kernel (4 <= cp <= 32, rp cp <=
+//     1024, at least 256 panels: BAL 871's point bucket, FLAT+Schur 50k's
+//     width-3 origins): a warp per panel, eight a CTA, no block barrier.
+//     Lane m of each group holds x[m]; step j broadcasts lane j's x_j by a
+//     shuffle, so the chain runs in registers. The below rows are staged
+//     by cp.async meanwhile (L) or ahead of their gathers (Lt), as in K3;
+//     one warp takes a batch item's RHS columns from that one staged copy
+//     (the L pass always, the Lt pass from 256 panels on). cp-4 buckets
+//     of at most 64 below rows take this grid at any panel count
+//     (kernels.tri_layout).
+//   tri_l_diag_kernel / tri_lt_diag_kernel (every other bucket, up to cp
+//     512): a CTA of eight warps per panel, x in shared memory, a blocked
+//     substitution over 32-column blocks: warp 0 substitutes block k on
+//     its lanes from a copy of its triangle in shared memory (staged by
+//     cp.async during the barrier before), a barrier, then warp 0 applies
+//     block k's terms to the rows of the next block (the one it
+//     substitutes next) while the other warps apply them to the rows past
+//     it, a thread a row: one barrier a block instead of two a column. With one chunk of below
+//     rows the CTA also does their phase (L: y after x; Lt: the column
+//     sums before the substitution).
+//   tri_l_rows_kernel / tri_lt_rows_kernel (more below rows than one
+//     chunk): K3's rows grids, a CTA per (panel, chunk of rows).
+// Only the lower triangle of each diag block is read (partial-range
+// factors hold Linv^T above it, pseudo-factored data nothing), only
+// columns < cols[i] and below rows < rows[i] (the padding of the input
+// buffer need not be zero). The earlier design (PR 3) ran a CTA per
+// panel with two barriers a column.
 //
 // Wide (cp > 512): the 128-wide tiles of _big_panel_solve, three launches
 // per call. tri_wide_pre gathers the panel's RHS rows into a (batch, B,
@@ -73,123 +102,279 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "level_solve.cuh"
+
 namespace {
 
-template <typename T>
-__global__ void tri_l_kernel(const T* data, int64_t data_bstride, T* vv,
-                             int64_t vv_bstride, T* y, int64_t y_bstride,
-                             int64_t y_base, const int64_t* off,
-                             const int64_t* rows, const int64_t* cols,
-                             const int64_t* vec_off, int cp, int rp,
-                             int nrhs, int kc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sb = reinterpret_cast<T*>(smem_raw);
-  const int64_t i = blockIdx.x;
-  const T* P = data + (int64_t)blockIdx.y * data_bstride + off[i];
-  const T* below = P + (int64_t)cp * cp;
-  T* v = vv + (int64_t)blockIdx.y * vv_bstride;
-  const int n = (int)cols[i], nrows = rp > 0 ? (int)rows[i] : 0;
-  const int64_t v0 = vec_off[i], ld = cp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k0 = 0; k0 < nrhs; k0 += kc) {
-    const int w = min(kc, nrhs - k0);
-    for (int t = tid; t < n * w; t += nt)
-      sb[t] = v[(v0 + t / w) * nrhs + k0 + t % w];
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      if (tid < w) sb[j * w + tid] /= P[j * ld + j];
-      __syncthreads();
-      for (int t = tid; t < (n - 1 - j) * w; t += nt) {
-        const int r = j + 1 + t / w, k = t % w;
-        sb[r * w + k] -= P[r * ld + j] * sb[j * w + k];
-      }
-      __syncthreads();
-    }
-    for (int t = tid; t < n * w; t += nt)
-      v[(v0 + t / w) * nrhs + k0 + t % w] = sb[t];
-    if (rp > 0) {
-      T* yo = y + (int64_t)blockIdx.y * y_bstride + y_base +
-              i * rp * (int64_t)nrhs;
-      for (int t = tid; t < rp * w; t += nt) {
-        const int r = t / w, k = t % w;
-        T acc = T(0);
-        if (r < nrows) {
-          const T* br = below + r * ld;
-          for (int j = 0; j < n; ++j) acc += br[j] * sb[j * w + k];
-        }
-        yo[(int64_t)r * nrhs + k0 + k] = acc;
+// ---------------------------------------------------------------------
+// narrow: one warp per panel (4 <= CP <= 32)
+// ---------------------------------------------------------------------
+
+// L pass: the below rows staged; x = L^-1 b by substitution on the lanes
+// (every group holds x, lane m its x[m]; step j takes lane j's x[j] / d[j]
+// by a shuffle and lanes m > j subtract L[m][j] times it); then y = below
+// . x from shared memory (warp_l_y). KB as K3's warp L grid: one RHS
+// column (blockIdx.y = batch item x column), or a batch item's columns KB
+// at a time, their chains interleaved
+template <typename T, int CP, int KB>
+__global__ void __launch_bounds__(kThreads) tri_l_warp_kernel(Sv a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t p = (int64_t)blockIdx.x * kWarps + warp;
+  if (p >= a.B) return;
+  const int nrhs = a.nrhs;
+  const Item<T> it(a, p, KB == 1 ? blockIdx.y : blockIdx.y * nrhs);
+  const int n = it.n, gi = lane / CP, m = lane % CP;
+  T* sp = reinterpret_cast<T*>(smem) + warp * a.rp * CP;
+  stage_below<T, CP>(sp, it.P + CP * CP, n, it.nrows, lane);
+  const T rd = m < n ? T(1) / it.P[m * CP + m] : T(0);
+  for (int k0 = 0; k0 < (KB == 1 ? 1 : nrhs); k0 += KB) {
+    T x[KB];
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk)
+      x[kk] = m < n && (KB == 1 || k0 + kk < nrhs)
+                  ? it.v[(it.v0 + m) * nrhs + k0 + kk]
+                  : T(0);
+#pragma unroll
+    for (int j = 0; j < CP; ++j) {
+      if (j >= n) break;
+      const T l = m > j && m < n ? it.P[m * CP + j] : T(0);
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        const T xj = __shfl_sync(kFull, x[kk] * rd, j);
+        if (m == j)
+          x[kk] = xj;
+        else if (m > j)
+          x[kk] -= l * xj;
       }
     }
-    __syncthreads();
+    if (gi == 0 && m < n) {
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk)
+        if (KB == 1 || k0 + kk < nrhs)
+          it.v[(it.v0 + m) * nrhs + k0 + kk] = x[kk];
+    }
+    if (k0 == 0) {
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+    warp_l_y<T, CP, KB>(a, it, sp, x, k0, lane);
   }
 }
 
-template <typename T>
-__global__ void tri_lt_kernel(const T* data, int64_t data_bstride, T* vv,
-                              int64_t vv_bstride, const int64_t* off,
-                              const int64_t* rows, const int64_t* cols,
-                              const int64_t* vec_off,
-                              const int64_t* below_idx, int64_t order,
-                              int cp, int rp, int nrhs, int kc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sb = reinterpret_cast<T*>(smem_raw);
-  T* red = sb + (int64_t)cp * kc;  // blockDim.x partial sums
-  const int64_t i = blockIdx.x;
-  const T* P = data + (int64_t)blockIdx.y * data_bstride + off[i];
-  const T* below = P + (int64_t)cp * cp;
-  const int64_t* bidx = below_idx + i * rp;
-  T* v = vv + (int64_t)blockIdx.y * vv_bstride;
-  const int n = (int)cols[i], nrows = rp > 0 ? (int)rows[i] : 0;
-  const int64_t v0 = vec_off[i], ld = cp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int k0 = 0; k0 < nrhs; k0 += kc) {
-    const int w = min(kc, nrhs - k0);
-    // x[j] = b[j] - sum_r below[r][j] vv[bidx[r]]: with few (j, k)
-    // pairs (cp 4: 3 of them), np threads share each pair's rows,
-    // strided, and their partial sums are added in part order
-    const int ne = n * w, np = ne >= nt ? 1 : nt / ne;
-    if (np == 1) {
-      for (int t = tid; t < ne; t += nt) {
-        const int j = t / w, k = t % w;
-        T acc = v[(v0 + j) * nrhs + k0 + k];
-        for (int r = 0; r < nrows; ++r) {
-          const int64_t q = bidx[r];
-          if (q != order) acc -= below[r * ld + j] * v[q * nrhs + k0 + k];
-        }
-        sb[t] = acc;
-      }
-    } else {
-      T acc = T(0);
-      if (tid < np * ne) {
-        const int e = tid % ne, j = e / w, k = e % w;
-        for (int r = tid / ne; r < nrows; r += np) {
-          const int64_t q = bidx[r];
-          if (q != order) acc += below[r * ld + j] * v[q * nrhs + k0 + k];
-        }
-      }
-      red[tid] = acc;
-      __syncthreads();
-      if (tid < ne) {
-        T x = v[(v0 + tid / w) * nrhs + k0 + tid % w];
-        for (int p = 0; p < np; ++p) x -= red[p * ne + tid];
-        sb[tid] = x;
-      }
+// Lt pass: x = b - below^T g as K3's warp Lt grid (warp_lt_x: the below
+// rows staged, their gathers a window ahead); then x = L^-T x by
+// substitution on the lanes from the last column (step j takes lane j's
+// x[j] / d[j]; lanes m < j subtract L[j][m], row j of L, times it).
+// MULTI: the warp takes a batch item's RHS columns in turn (blockIdx.y
+// = batch item), from one staged copy of the below rows; else one column
+// (blockIdx.y = batch item x column). Each column's sums run in the same
+// order either way
+template <typename T, int CP, bool MULTI>
+__global__ void __launch_bounds__(kThreads) tri_lt_warp_kernel(Sv a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t p = (int64_t)blockIdx.x * kWarps + warp;
+  if (p >= a.B) return;
+  const int nrhs = a.nrhs;
+  const Item<T> it(a, p, MULTI ? blockIdx.y * nrhs : blockIdx.y);
+  const int n = it.n, gi = lane / CP, m = lane % CP;
+  T* sp = reinterpret_cast<T*>(smem) + warp * a.rp * (CP + 1);
+  const T rd = m < n ? T(1) / it.P[m * CP + m] : T(0);
+  for (int k = 0; k < (MULTI ? nrhs : 1); ++k) {
+    T x = warp_lt_x<T, CP>(a, it, sp, lane, k, k == 0);
+#pragma unroll
+    for (int j = CP - 1; j >= 0; --j) {
+      if (j >= n) continue;
+      const T l = m < j ? it.P[j * CP + m] : T(0);
+      const T xj = __shfl_sync(kFull, x * rd, j);
+      if (m == j)
+        x = xj;
+      else if (m < j)
+        x -= l * xj;
     }
-    __syncthreads();
-    // back substitution on L^T: row j of L is contiguous
-    for (int j = n - 1; j >= 0; --j) {
-      if (tid < w) sb[j * w + tid] /= P[j * ld + j];
-      __syncthreads();
-      for (int t = tid; t < j * w; t += nt) {
-        const int m = t / w, k = t % w;
-        sb[m * w + k] -= P[j * ld + m] * sb[j * w + k];
-      }
-      __syncthreads();
-    }
-    for (int t = tid; t < n * w; t += nt)
-      v[(v0 + t / w) * nrhs + k0 + t % w] = sb[t];
-    __syncthreads();
+    if (gi == 0 && m < n) it.v[(it.v0 + m) * nrhs + k] = x;
   }
+}
+
+// ---------------------------------------------------------------------
+// narrow: CTAs per panel (every other bucket, cp <= 512)
+// ---------------------------------------------------------------------
+
+constexpr int kBlk = 32;  // columns of a block of the CTA substitution
+
+// warp 0 copies diagonal block [k0, k0 + w)'s lower triangle, its
+// diagonal included, into sd (row stride kBlk + 1) by cp.async, in
+// flight until warp_block_subst waits for it; nothing else in sd
+template <typename T>
+__device__ __forceinline__ void stage_diag(const Item<T>& it, int cp, int n,
+                                           int k0, T* sd) {
+  const int lane = threadIdx.x & 31, w = min(kBlk, n - k0);
+#pragma unroll
+  for (int i = 0; i < kBlk; ++i) {
+    const bool ok = i < w && lane <= i;
+    cp_async_el(sd + i * (kBlk + 1) + lane,
+                ok ? it.P + (int64_t)(k0 + i) * cp + k0 + lane : it.P,
+                ok ? (int)sizeof(T) : 0);
+  }
+  cp_async_commit();
+}
+
+// warp 0's step of the blocked substitution: block [k0, k0 + w) of x (in
+// sx, every earlier block's terms applied; its triangle staged in sd)
+// substituted on the lanes, lane i on row k0 + i, reading shared memory
+// only. L pass (LT false): step j takes lane j's x / d and the lanes
+// below it subtract L[k0 + i][k0 + j] times it; Lt pass: from the last
+// step, the lanes above it subtract L[k0 + j][k0 + i] times it
+template <typename T, bool LT>
+__device__ __forceinline__ void warp_block_subst(int k0, int w, T* sx,
+                                                 const T* sd) {
+  const int lane = threadIdx.x & 31, r = k0 + lane;
+  const bool live = lane < w;
+  cp_async_wait<0>();
+  __syncwarp();
+  T x = live ? sx[r] : T(0);
+  const T rd = live ? T(1) / sd[lane * (kBlk + 1) + lane] : T(0);
+  for (int s = 0; s < w; ++s) {
+    const int j = LT ? w - 1 - s : s;
+    const T l = LT ? sd[j * (kBlk + 1) + lane] : sd[lane * (kBlk + 1) + j];
+    const T xj = __shfl_sync(kFull, x * rd, j);
+    if (lane == j)
+      x = xj;
+    else if (live && (LT ? lane < j : lane > j))
+      x -= l * xj;
+  }
+  if (live) sx[r] = x;
+  __syncwarp();  // every lane is done with sd before it is staged again
+}
+
+// the terms of block [k0, k0 + w) (its x in sx) on row r of x, the
+// block's columns in order (Lt: from the last), loaded kTermLoads at a
+// time (all 32 at once would hold 64 registers a thread in f64 and halve
+// the CTAs an SM takes)
+constexpr int kTermLoads = 16;
+
+template <typename T, bool LT>
+__device__ __forceinline__ void block_terms(const Item<T>& it, int cp,
+                                            int k0, int w, int r, T* sx) {
+  T x = sx[r];
+#pragma unroll 1
+  for (int g = 0; g < kBlk; g += kTermLoads) {
+    T l[kTermLoads];
+#pragma unroll
+    for (int u = 0; u < kTermLoads; ++u) {
+      const int j = LT ? kBlk - 1 - g - u : g + u;
+      l[u] = j < w ? (LT ? it.P[(int64_t)(k0 + j) * cp + r]
+                         : it.P[(int64_t)r * cp + k0 + j])
+                   : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kTermLoads; ++u) {
+      const int j = LT ? kBlk - 1 - g - u : g + u;
+      if (j < w) x -= l[u] * sx[k0 + j];
+    }
+  }
+  sx[r] = x;
+}
+
+// the blocked substitution of x (in sx, n rows) by kBlk-column blocks, in
+// order (Lt: from the last), the first block's triangle staged in sd by
+// the caller (stage_diag) before its first barrier: per block, warp 0
+// applies the block before it (Lt: after it) to the block's rows,
+// substitutes it and stages the next block's triangle, then a barrier,
+// then warps 1.. apply the block to the rows past the next block (Lt:
+// before the previous one), a thread a row. Ends with x in sx, complete
+// after the last barrier
+template <typename T, bool LT>
+__device__ __forceinline__ void cta_subst(const Item<T>& it, int cp, int n,
+                                          T* sx, T* sd) {
+  const int warp = threadIdx.x >> 5, nb = (n + kBlk - 1) / kBlk;
+  for (int s = 0; s < nb; ++s) {
+    const int kb = LT ? nb - 1 - s : s, k0 = kb * kBlk;
+    const int w = min(kBlk, n - k0);
+    if (warp == 0) {
+      const int lane = threadIdx.x & 31;
+      if (s > 0 && lane < w) {  // the block just substituted
+        const int kp = LT ? k0 + kBlk : k0 - kBlk;
+        block_terms<T, LT>(it, cp, kp, min(kBlk, n - kp), k0 + lane, sx);
+      }
+      __syncwarp();
+      warp_block_subst<T, LT>(k0, w, sx, sd);
+      if (s + 1 < nb) stage_diag<T>(it, cp, n, LT ? k0 - kBlk : k0 + kBlk, sd);
+    }
+    __syncthreads();
+    if (warp > 0) {
+      const int lo = LT ? 0 : k0 + 2 * kBlk, hi = LT ? k0 - kBlk : n;
+      for (int r = lo + threadIdx.x - 32; r < hi; r += kThreads - 32)
+        block_terms<T, LT>(it, cp, k0, w, r, sx);
+    }
+  }
+}
+
+// L pass, panel blockIdx.x: b into sx, the blocked substitution, x into
+// vv; with one chunk of below rows, their dots into y (the first step's
+// below rows loaded before the substitution)
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) tri_l_diag_kernel(Sv a) {
+  __shared__ T sx[CT * 32];
+  __shared__ T sd[kBlk * (kBlk + 1)];
+  const Item<T> it(a, blockIdx.x, blockIdx.y);
+  const int cp = a.cp, nrhs = a.nrhs, n = it.n, G = cp < 32 ? cp : 32;
+  const int lane = threadIdx.x & 31, gi = lane / G, m = lane % G;
+  if (threadIdx.x < 32) stage_diag<T>(it, cp, n, 0, sd);
+  for (int j = threadIdx.x; j < n; j += kThreads)
+    sx[j] = it.v[(it.v0 + j) * nrhs];
+  T e[CT];
+#pragma unroll
+  for (int t = 0; t < CT; ++t) e[t] = T(0);
+  if (ahead<CT>())
+    below_row<T, CT>(
+        a, it, a.nchunk == 1 ? (threadIdx.x >> 5) * (32 / G) + gi : it.nrows,
+        m, e);
+  __syncthreads();
+  cta_subst<T, false>(it, cp, n, sx, sd);
+  for (int j = threadIdx.x; j < n; j += kThreads)
+    it.v[(it.v0 + j) * nrhs] = sx[j];
+  if (a.nchunk != 1) return;
+  T xs[CT];
+#pragma unroll
+  for (int t = 0; t < CT; ++t) {
+    const int col = m + 32 * t;
+    xs[t] = col < n ? sx[col] : T(0);
+  }
+  l_below_dots<T, CT>(a, it, 0, a.rp, xs, e);
+}
+
+// Lt pass, panel blockIdx.x: x = b - the below rows' column sums (of its
+// one chunk here, or the rows grid's partials in chunk order:
+// lt_diag_x), then the blocked substitution from the last block, x into
+// vv
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) tri_lt_diag_kernel(Sv a) {
+  __shared__ T red[kWarps][CT * 32];
+  __shared__ T sx[CT * 32];
+  __shared__ T sd[kBlk * (kBlk + 1)];
+  const Item<T> it(a, blockIdx.x, blockIdx.y);
+  const int n = it.n;
+  if (threadIdx.x < 32)
+    stage_diag<T>(it, a.cp, n, (n - 1) / kBlk * kBlk, sd);
+  T bj[2], dj[2];
+  lt_diag_x<T, CT>(a, it, bj, dj, red, sx);
+  cta_subst<T, true>(it, a.cp, n, sx, sd);
+  for (int j = threadIdx.x; j < n; j += kThreads)
+    it.v[(it.v0 + j) * a.nrhs] = sx[j];
+}
+
+// the rows grids: K3's (level_solve.cuh), under names of their own
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) tri_l_rows_kernel(Sv a) {
+  l_rows<T, CT>(a);
+}
+
+template <typename T, int CT>
+__global__ void __launch_bounds__(kThreads) tri_lt_rows_kernel(Sv a) {
+  __shared__ T red[kWarps][CT * 32];
+  lt_rows<T, CT>(a, red);
 }
 
 // scratch xs (batch, B, cp, nrhs): xs[j] = vv[v0 + j] for j < n (Lt pass:
@@ -240,21 +425,6 @@ constexpr int kLd = kNb + 1;       // row stride of its shared tile
 constexpr int kQ = 4;              // threads per output of its products
 constexpr int kChainThreads = kQ * kNb;
 constexpr int kRc = 8;             // RHS columns staged at a time
-
-template <typename T>
-__device__ __forceinline__ void cp_async_el(T* dst, const T* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (sizeof(T) == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -671,7 +841,7 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-constexpr int kWarps = 8;  // warps per CTA of tri_wide_post
+// tri_wide_post: kWarps (level_solve.cuh) warps a CTA
 
 // vv[rows] = xs; L pass: y[r] = below[r] . xs (0 past the real rows).
 // One warp per row q: q < cp a RHS row, q >= cp below row q - cp.
@@ -710,30 +880,91 @@ __global__ void tri_wide_post_kernel(const T* data, int64_t data_bstride,
   }
 }
 
-template <typename T>
-int launch_narrow(int transpose, const void* data, int64_t data_bstride,
-                  void* vv, int64_t vv_bstride, void* y, int64_t y_bstride,
-                  int64_t y_base, const int64_t* off, const int64_t* rows,
-                  const int64_t* cols, const int64_t* vec_off,
-                  const int64_t* below_idx, int64_t order, int64_t B, int cp,
-                  int rp, int nrhs, int batch, cudaStream_t stream) {
-  const int nt = cp <= 8 ? 64 : (cp <= 32 ? 128 : 256);
-  int kc = 32768 / (cp * (int)sizeof(T));
-  kc = kc < 1 ? 1 : (kc > nrhs ? nrhs : kc);
-  const dim3 grid((unsigned)B, batch);
-  const T* d = static_cast<const T*>(data);
-  const size_t smem = ((size_t)cp * kc + nt) * sizeof(T);
-  if (!transpose) {
-    tri_l_kernel<T><<<grid, nt, smem, stream>>>(
-        d, data_bstride, static_cast<T*>(vv), vv_bstride,
-        static_cast<T*>(y), y_bstride, y_base, off, rows, cols, vec_off, cp,
-        rp, nrhs, kc);
-  } else {
-    tri_lt_kernel<T><<<grid, nt, smem, stream>>>(
-        d, data_bstride, static_cast<T*>(vv), vv_bstride, off, rows, cols,
-        vec_off, below_idx, order, cp, rp, nrhs, kc);
+// the narrow grids of one call, laid out as K3's (bucket_solve.cu
+// launch_warp / launch_cta; the warp grids' shared memory up to 80 KB).
+// The Lt warp grid takes a batch item's RHS columns in one warp from
+// buckets of kMultiPanels panels or more, where the below rows' bytes
+// bound it; a smaller bucket runs a warp per column, which shortens its
+// chain of steps
+constexpr int kMultiPanels = 256;
+
+template <typename T, int CP>
+int launch_tri_warp(const Sv& a, bool lt, int batch, cudaStream_t st) {
+  constexpr int KB = 4;
+  static bool sized = false;
+  if (!sized) {
+    const int most = kWarps * (kWarpElems + kWarpElems / CP) * sizeof(T);
+    cudaFuncSetAttribute(tri_l_warp_kernel<T, CP, 1>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    cudaFuncSetAttribute(tri_l_warp_kernel<T, CP, KB>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    cudaFuncSetAttribute(tri_lt_warp_kernel<T, CP, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    cudaFuncSetAttribute(tri_lt_warp_kernel<T, CP, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    sized = true;
   }
+  const unsigned bx = (unsigned)((a.B + kWarps - 1) / kWarps);
+  const size_t smem = kWarps * a.rp * (CP + (lt ? 1 : 0)) * sizeof(T);
+  if (lt && a.nrhs > 1 && a.B >= kMultiPanels)
+    tri_lt_warp_kernel<T, CP, true><<<dim3(bx, batch), kThreads, smem, st>>>(
+        a);
+  else if (lt)
+    tri_lt_warp_kernel<T, CP, false><<<dim3(bx, batch * a.nrhs), kThreads,
+                                       smem, st>>>(a);
+  else if (a.nrhs == 1)
+    tri_l_warp_kernel<T, CP, 1><<<dim3(bx, batch), kThreads, smem, st>>>(a);
+  else
+    tri_l_warp_kernel<T, CP, KB><<<dim3(bx, batch), kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int CT>
+int launch_tri_cta(const Sv& a, bool lt, unsigned zk, cudaStream_t st) {
+  const dim3 diag((unsigned)a.B, zk);
+  const dim3 rows((unsigned)(a.B * a.nchunk), zk);
+  cudaError_t e;
+  if (lt) {
+    if (a.nchunk > 1) {
+      tri_lt_rows_kernel<T, CT><<<rows, kThreads, 0, st>>>(a);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    tri_lt_diag_kernel<T, CT><<<diag, kThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  tri_l_diag_kernel<T, CT><<<diag, kThreads, 0, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess || a.nchunk <= 1) return (int)e;
+  tri_l_rows_kernel<T, CT><<<rows, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_narrow(const Sv& a, bool lt, int batch, cudaStream_t st) {
+  const unsigned zk = (unsigned)(batch * a.nrhs);
+  const int cp = a.cp;
+  if (cp < 1 || cp > 512 || (cp & (cp - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.crc == 0) {
+    if (cp < 4 || cp > 32 || a.rp * cp > kWarpElems)
+      return (int)cudaErrorInvalidValue;
+    switch (cp) {
+      case 4: return launch_tri_warp<T, 4>(a, lt, batch, st);
+      case 8: return launch_tri_warp<T, 8>(a, lt, batch, st);
+      case 16: return launch_tri_warp<T, 16>(a, lt, batch, st);
+      default: return launch_tri_warp<T, 32>(a, lt, batch, st);
+    }
+  }
+  const int RG = 32 / (cp < 32 ? cp : 32);
+  if (a.crc > kMaxChunk || a.crc % (kWarps * RG) != 0 ||
+      (int64_t)a.nchunk * a.crc < a.rp)
+    return (int)cudaErrorInvalidValue;
+  switch (cp >= 32 ? cp / 32 : 1) {
+    case 1: return launch_tri_cta<T, 1>(a, lt, zk, st);
+    case 2: return launch_tri_cta<T, 2>(a, lt, zk, st);
+    case 4: return launch_tri_cta<T, 4>(a, lt, zk, st);
+    case 8: return launch_tri_cta<T, 8>(a, lt, zk, st);
+    default: return launch_tri_cta<T, 16>(a, lt, zk, st);
+  }
 }
 
 template <typename T>
@@ -781,26 +1012,27 @@ int launch_wide_chain(const void* data, int64_t data_bstride, const void* xs,
 }  // namespace
 
 // dtype: 0 float32, 1 float64; transpose: 0 L pass, 1 Lt pass.
-// Each returns the cudaError_t of its launches.
+// Each returns the cudaError_t of its launches. bs_tri_solve takes
+// bs_bucket_solve's arguments: y_base in y rows; chunk / nchunk the
+// layout (ops/kernels.py solve_layout; chunk 0: one warp per panel); part
+// the Lt pass's column partials, batch * nrhs * B * nchunk * cp elements,
+// read only with nchunk > 1.
 extern "C" int bs_tri_solve(int dtype, int transpose, const void* data,
                             int64_t data_bstride, void* vv,
                             int64_t vv_bstride, void* y, int64_t y_bstride,
-                            int64_t y_base, const int64_t* off,
+                            int64_t y_base, void* part, const int64_t* off,
                             const int64_t* rows, const int64_t* cols,
                             const int64_t* vec_off, const int64_t* below_idx,
                             int64_t order, int64_t B, int cp, int rp,
-                            int nrhs, int batch, void* stream) {
+                            int nrhs, int batch, int chunk, int nchunk,
+                            void* stream) {
+  if (B == 0) return 0;
+  Sv a{data, data_bstride, vv, vv_bstride, y, y_bstride, y_base, part, off,
+       rows, cols, vec_off, below_idx, order, B, cp, rp, nrhs, chunk,
+       nchunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_narrow<float>(transpose, data, data_bstride, vv,
-                                vv_bstride, y, y_bstride, y_base, off, rows,
-                                cols, vec_off, below_idx, order, B, cp, rp,
-                                nrhs, batch, s);
-  if (dtype == 1)
-    return launch_narrow<double>(transpose, data, data_bstride, vv,
-                                 vv_bstride, y, y_bstride, y_base, off, rows,
-                                 cols, vec_off, below_idx, order, B, cp, rp,
-                                 nrhs, batch, s);
+  if (dtype == 0) return launch_narrow<float>(a, transpose != 0, batch, s);
+  if (dtype == 1) return launch_narrow<double>(a, transpose != 0, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,19 +2,39 @@
 
 The hot host-side graph algorithms (AMD ordering, symbolic fill, etree
 build) have C++ implementations in native/symbolic.cpp, built into
-libbaspacho_symbolic.so and called through ctypes. Everything has a pure
-NumPy/Python fallback, so the library works without the native build; the
-native path is auto-selected when the shared object is present.
+native/libbaspacho_symbolic.so and called through ctypes. Everything has
+a pure NumPy/Python fallback, so the library works without the native
+build; the native path is selected when the shared object loads, and
+`available()` is the one place that says which path runs. The two paths
+may make different (both valid) choices, AMD above all, so every
+process of one program should take the same one.
+
+The shared object is not checked into version control: at first use it
+is built from the committed symbolic.cpp with the flags of
+native/Makefile, so it cannot drift from its source. Processes may start
+together (test workers, a script beside a test run) and all find it
+missing: the build holds an exclusive lock on native/.libbaspacho_symbolic
+.lock, checks again under it whether the library is fresh, compiles into
+a temporary file of the same directory and renames it into place, so no
+process ever opens a half-written file. A library that fails to load is
+rebuilt once under the lock. When symbolic.cpp is present and the build
+or the load fails, the loader warns with the command and its output and
+falls back to Python; without the source it silently uses a built
+library in native/ or beside the package, if any.
 
 This mirrors the split in the reference where symbolic analysis runs in
-optimized C++ (SparseStructure.cpp, EliminationTree.cpp) while here the
-numeric path is JAX/XLA instead of BLAS/CUDA.
+optimized C++ (SparseStructure.cpp, EliminationTree.cpp) while the
+numeric path runs on the device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
+import tempfile
+import warnings
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,24 +42,94 @@ import numpy as np
 _LIB = None
 _TRIED = False
 
+LIB_NAME = "libbaspacho_symbolic.so"
+LOCK_NAME = ".libbaspacho_symbolic.lock"
+# native/Makefile's defaults; CXX and CXXFLAGS from the environment
+# override them, as they do make's
+_CXX = "g++"
+_CXXFLAGS = "-O3 -std=c++17 -fPIC -Wall -Wextra"
 
-def _maybe_build(native_dir: str) -> None:
-    """Build (or rebuild) the shared object from source when missing or
-    stale. The binary is not checked into version control — it is always
-    produced from the committed symbolic.cpp, so it can't silently drift
-    from source (round-1 advisor finding)."""
-    src = os.path.join(native_dir, "symbolic.cpp")
-    so = os.path.join(native_dir, "libbaspacho_symbolic.so")
-    if not os.path.exists(src):
-        return
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
-        return
-    import subprocess
+
+class NativeBuildError(RuntimeError):
+    """The native library could not be built or loaded."""
+
+
+def _native_dir() -> str:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.normpath(os.path.join(here, "..", "native"))
+
+
+def _fresh(so: str, src: str) -> bool:
+    return os.path.exists(so) and \
+        os.path.getmtime(so) >= os.path.getmtime(src)
+
+
+@contextmanager
+def _locked(native_dir: str):
+    """An exclusive lock on native_dir's lock file for the block (no lock
+    where the directory is read-only: nothing can be built there)."""
+    import fcntl
     try:
-        subprocess.run(["make", "-C", native_dir, "-s"], check=True,
-                       capture_output=True, timeout=120)
-    except Exception:
-        pass  # pure-Python fallbacks cover everything
+        fd = os.open(os.path.join(native_dir, LOCK_NAME),
+                     os.O_RDWR | os.O_CREAT, 0o644)
+    except OSError:
+        yield
+        return
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # releases the lock
+
+
+def _compile(src: str, so: str) -> None:
+    """Compiles src into a temporary file beside so and renames it into
+    place; raises NativeBuildError with the command and its output."""
+    fd, tmp = tempfile.mkstemp(prefix=".libbaspacho_symbolic.",
+                               suffix=".tmp", dir=os.path.dirname(so))
+    os.close(fd)
+    cmd = [os.environ.get("CXX", _CXX),
+           *os.environ.get("CXXFLAGS", _CXXFLAGS).split(), "-shared",
+           "-o", tmp, src]
+    try:
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            raise NativeBuildError(f"{' '.join(cmd)}: {e}") from e
+        if r.returncode != 0:
+            raise NativeBuildError(f"{' '.join(cmd)} exited with "
+                                   f"{r.returncode}:\n{r.stderr.strip()}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _open(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    _bind(lib)
+    return lib
+
+
+def _build_and_open(native_dir: str) -> ctypes.CDLL:
+    """Under the lock: builds the library when it is missing or older than
+    its source, loads it and, when that fails, rebuilds it once."""
+    src = os.path.join(native_dir, "symbolic.cpp")
+    so = os.path.join(native_dir, LIB_NAME)
+    with _locked(native_dir):
+        if not _fresh(so, src):
+            _compile(src, so)
+        try:
+            return _open(so)
+        except (OSError, AttributeError) as first:
+            _compile(src, so)
+            try:
+                return _open(so)
+            except (OSError, AttributeError) as e:
+                raise NativeBuildError(
+                    f"{so} does not load after a rebuild: {e} (first "
+                    f"attempt: {first})") from e
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -47,21 +137,24 @@ def _load() -> Optional[ctypes.CDLL]:
     if _TRIED:
         return _LIB
     _TRIED = True
+    native_dir = _native_dir()
+    if os.path.exists(os.path.join(native_dir, "symbolic.cpp")):
+        try:
+            _LIB = _build_and_open(native_dir)
+        except NativeBuildError as e:
+            warnings.warn(f"baspacho_tpu_torch.native: the C++ symbolic "
+                          f"library is unavailable, the pure-Python "
+                          f"analysis runs instead: {e}", RuntimeWarning,
+                          stacklevel=3)
+        return _LIB
     here = os.path.dirname(os.path.abspath(__file__))
-    native_dir = os.path.join(here, "..", "native")
-    _maybe_build(native_dir)
-    candidates = [
-        os.path.join(native_dir, "libbaspacho_symbolic.so"),
-        os.path.join(here, "libbaspacho_symbolic.so"),
-    ]
-    for path in candidates:
+    for path in (os.path.join(native_dir, LIB_NAME),
+                 os.path.join(here, LIB_NAME)):
         if os.path.exists(path):
             try:
-                lib = ctypes.CDLL(path)
-                _bind(lib)
-                _LIB = lib
+                _LIB = _open(path)
                 break
-            except OSError:
+            except (OSError, AttributeError):
                 continue
     return _LIB
 

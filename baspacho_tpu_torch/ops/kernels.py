@@ -54,8 +54,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 SOURCES = ("bucket_factor.cu", "segmented_subtract.cu", "bucket_solve.cu",
            "wide_factor.cu", "wide_solve.cu", "dense_level.cu",
            "tri_solve.cu", "add_mv.cu", "grad_hess.cu")
-HEADERS = ("warp_tiles.cuh",)  # included by the K1, K1-wide, K3, K4, K5
-#                                sources
+# shared headers: warp_tiles.cuh (K1, K1-wide, K3, K3-rest, K4, K5),
+# level_solve.cuh (K3, K3-rest narrow)
+HEADERS = ("warp_tiles.cuh", "level_solve.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 WIDE_TILE = 128  # diagonal tile of the blocked wide factor (csrc/wide_factor.cu)
@@ -151,8 +152,8 @@ def _lib() -> ctypes.CDLL:
         sigs = {
             "bs_bucket_factor": [i32, vp, i64, vp, i64, i64, vp, vp, vp, i64,
                                  i32, i32, i32, vp],
-            "bs_segmented_subtract": [i32, vp, i64, vp, i64, vp, vp, vp, i64,
-                                      i64, i32, vp],
+            "bs_segmented_subtract": [i32, vp, vp, i64, vp, i64, vp, i32,
+                                      i32, vp],
             "bs_bucket_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
                                 vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
                                 i32, i32, i32, vp],
@@ -166,8 +167,8 @@ def _lib() -> ctypes.CDLL:
             "bs_dense_wide": [i32, vp, i64, i64, i64, i32, i64, vp, i64, vp,
                               vp, vp, vp, i32, vp],
             "bs_tri_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
-                             vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
-                             vp],
+                             vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
+                             i32, i32, i32, vp],
             "bs_tri_wide_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64,
                                   vp, vp, i64, vp, vp, vp, vp, vp, i64, i64,
                                   i32, i32, i32, i32, vp],
@@ -434,30 +435,127 @@ class _WideTwinSteps:
 # ----------------------------------------------------------------------
 # K2 segmented_subtract
 # ----------------------------------------------------------------------
-def segmented_subtract(out, src, tgt, seg_ptr, src_idx, width: int) -> None:
+SEG_SHORT = 32    # sources of a segment one thread sums at most
+#                   (csrc/segmented_subtract.cu seg_short_kernel)
+SEG_CHUNK = 1024  # sources of a longer segment's chunk at most: a CTA of
+#                   256 threads, 4 each (seg_chunk_kernel, kChunk)
+_I32_MAX = 2 ** 31 - 1
+
+
+def seg_plan(tgt, seg_ptr, src_idx) -> dict:
+    """K2's grids over one target-sorted CSR (host arrays), from the CSR
+    alone, so that a batch item equals its single run and reruns each
+    other: the short segments (at most SEG_SHORT sources, a thread each)
+    as a CSR of their own (s_tgt, s_ptr, s_src); the longer ones cut into
+    chunks of at most SEG_CHUNK sources, as equal as they come (chunk c:
+    sources l_src[c_ptr[c]:c_ptr[c + 1]], into target row c_dst[c] >= 0
+    or, for a segment of several chunks, partial slot -1 - c_dst[c]);
+    and the segments of several chunks (p_tgt; their slots p_ptr[q] ..
+    p_ptr[q + 1], in chunk order). Index arrays are int32 where every
+    value fits (`idx32`), else int64."""
+    tgt = np.asarray(tgt, dtype=np.int64)
+    seg_ptr = np.asarray(seg_ptr, dtype=np.int64)
+    src_idx = np.asarray(src_idx, dtype=np.int64)
+    lens = np.diff(seg_ptr)
+    short = lens <= SEG_SHORT
+    in_short = np.repeat(short, lens)
+    sid, lid = np.flatnonzero(short), np.flatnonzero(~short)
+    llen = lens[lid]
+    nck = -(-llen // SEG_CHUNK)
+    lstart = np.cumsum(llen) - llen
+    seg = np.repeat(np.arange(len(lid)), nck)
+    k = np.arange(int(nck.sum())) - np.repeat(np.cumsum(nck) - nck, nck)
+    c_beg = lstart[seg] + k * llen[seg] // nck[seg]
+    multi = nck > 1
+    slot = np.cumsum(multi[seg]) - 1
+    c_dst = np.where(multi[seg], -1 - slot, tgt[lid][seg])
+    plan = {"s_tgt": tgt[sid], "s_ptr": np.r_[0, np.cumsum(lens[sid])],
+            "s_src": src_idx[in_short], "c_dst": c_dst,
+            "c_ptr": np.r_[c_beg, llen.sum()], "l_src": src_idx[~in_short],
+            "p_tgt": tgt[lid][multi], "p_ptr": np.r_[0, np.cumsum(nck[multi])]}
+    top = max([int(a.max()) for a in plan.values() if a.size] +
+              [len(src_idx)])
+    idx32 = top <= _I32_MAX and int(c_dst.min(initial=0)) >= -_I32_MAX
+    dt = np.int32 if idx32 else np.int64
+    plan = {key: a.astype(dt) for key, a in plan.items()}
+    plan.update(idx32=idx32, n_slot=int(nck[multi].sum()))
+    return plan
+
+
+class _SegPlanC(ctypes.Structure):
+    """csrc/segmented_subtract.cu SegPlan."""
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "s_tgt", "s_ptr", "s_src", "c_dst", "c_ptr", "l_src", "p_tgt",
+        "p_ptr")] + [(f, ctypes.c_int64) for f in (
+            "n_short", "n_chunk", "n_post", "n_slot")] + \
+        [("idx32", ctypes.c_int)]
+
+
+class SegLayout:
+    """seg_plan's arrays on a device, with the C struct that hands them to
+    the kernels; built once per CSR (host arrays or tensors; the planned
+    backend keeps one beside each level's DevCSR), so that a call reads
+    nothing back to the host and checks nothing that depends only on the
+    plan."""
+
+    def __init__(self, tgt, seg_ptr, src_idx, device):
+        plan = seg_plan(*(a.cpu().numpy() if isinstance(a, torch.Tensor)
+                          else a for a in (tgt, seg_ptr, src_idx)))
+        self.idx32, self.n_slot = plan.pop("idx32"), plan.pop("n_slot")
+        self.arrays = {k: torch.from_numpy(a).to(device)
+                       for k, a in plan.items()}
+        self.n_short = len(plan["s_tgt"])
+        self.n_chunk = len(plan["c_dst"])
+        self.n_post = len(plan["p_tgt"])
+        self.empty = self.n_short + self.n_chunk == 0
+        self.c = _SegPlanC(
+            **{k: a.data_ptr() if a.numel() else None
+               for k, a in self.arrays.items()},
+            n_short=self.n_short, n_chunk=self.n_chunk, n_post=self.n_post,
+            n_slot=self.n_slot, idx32=int(self.idx32))
+        self.addr = ctypes.addressof(self.c)
+
+    @property
+    def grids(self) -> int:
+        """Grids a call launches: short, chunk, post where it has any."""
+        return (self.n_short > 0) + (self.n_chunk > 0) + (self.n_post > 0)
+
+
+def segmented_subtract(out, src, tgt, seg_ptr, src_idx, width: int,
+                       layout: Optional[SegLayout] = None) -> None:
     """out[:, tgt[t]*width + k] -= sum over the t-th segment of
-    src[:, src_idx[j]*width + k]; out and src are (batch, ...) buffers."""
+    src[:, src_idx[j]*width + k]; out and src are (batch, ...) buffers.
+    On the card the kernel runs the CSR's SegLayout: pass the one built
+    with the program (without it, one is built from the index tensors
+    here, which reads them back to the host)."""
     _check_batch("segmented_subtract", out, src)
     if out.device.type == "cpu":
         return segmented_subtract_twin(out, src, tgt, seg_ptr, src_idx,
                                        width)
-    _check_cuda("segmented_subtract", [out, src], [tgt, seg_ptr, src_idx])
-    n_tgt = tgt.shape[0]
-    if n_tgt == 0:
+    if layout is None:
+        _check_cuda("segmented_subtract", [out, src], [tgt, seg_ptr, src_idx])
+        layout = SegLayout(tgt, seg_ptr, src_idx, out.device)
+    if layout.empty:
         return
+    if not (src.device == out.device and src.dtype == out.dtype and
+            out.dtype in _DTYPE_CODE and out.is_contiguous() and
+            src.is_contiguous()):
+        _check_cuda("segmented_subtract", [out, src], [])
     batch = out.shape[0]
+    part = _scratch(out, batch * layout.n_slot * width).data_ptr() \
+        if layout.n_post else None
     err = _lib().bs_segmented_subtract(
-        _DTYPE_CODE[out.dtype], out.data_ptr(), out[0].numel(),
-        src.data_ptr(), src[0].numel(), tgt.data_ptr(), seg_ptr.data_ptr(),
-        src_idx.data_ptr(), n_tgt, width, batch, _stream(out))
+        _DTYPE_CODE[out.dtype], layout.addr, out.data_ptr(), out.stride(0),
+        src.data_ptr(), src.stride(0), part, width, batch, _stream(out))
     COUNTS["segmented_subtract"].launches += 1
-    COUNTS["segmented_subtract"].grid_launches += 1
+    COUNTS["segmented_subtract"].grid_launches += layout.grids
     _raise_on("segmented_subtract", err)
 
 
-def segmented_subtract_twin(out, src, tgt, seg_ptr, src_idx,
-                            width: int) -> None:
-    """Plain twin of K2: a segment sum and an indexed subtraction."""
+def segmented_subtract_twin(out, src, tgt, seg_ptr, src_idx, width: int,
+                            layout=None) -> None:
+    """Plain twin of K2: a segment sum and an indexed subtraction (the
+    layout, the kernel's, is not needed)."""
     COUNTS["segmented_subtract"].twin_calls += 1
     batch, n_tgt = out.shape[0], tgt.shape[0]
     o = out.view(batch, -1, width)
@@ -490,16 +588,20 @@ SOLVE_CHUNK_ELEMS = 8192  # below elements of one CTA's chunk of rows
 SOLVE_MAX_CHUNK = 256     # below rows per chunk at most: 32 a warp
 
 
-def solve_layout(cp: int, rp: int, B: int) -> tuple:
+def solve_layout(cp: int, rp: int, B: int,
+                 warp_panels: Optional[int] = None) -> tuple:
     """K3's grid for a bucket of B (cp, rp) panels, from the bucket's
     shape alone (so that batch items equal their single runs): (below
     rows per chunk, chunks per panel); 0 rows per chunk: one warp per
-    panel. cp must be a power of two up to NARROW_MAX (the padding's)."""
+    panel, for buckets of warp_panels panels or more (SOLVE_WARP_PANELS
+    by default). cp must be a power of two up to NARROW_MAX (the
+    padding's)."""
     if cp < 1 or cp > NARROW_MAX or cp & (cp - 1):
         raise ValueError(f"bucket_solve: cp {cp} is not a power of two "
                          f"up to {NARROW_MAX}")
-    if 4 <= cp <= 32 and rp * cp <= SOLVE_WARP_ELEMS and \
-            B >= SOLVE_WARP_PANELS:
+    if warp_panels is None:
+        warp_panels = SOLVE_WARP_PANELS
+    if 4 <= cp <= 32 and rp * cp <= SOLVE_WARP_ELEMS and B >= warp_panels:
         return 0, 1
     # a multiple of a CTA step's 8 (32 / G) rows, G = min(cp, 32)
     crc = min(SOLVE_MAX_CHUNK, max(8 * (32 // min(cp, 32)),
@@ -742,13 +844,33 @@ def dense_update_twin(data, d) -> None:
 # ----------------------------------------------------------------------
 # K3-rest tri_solve and wide_tri_solve
 # ----------------------------------------------------------------------
+# K3-rest's warp grid takes a bucket of panels of at most TRI_WARP_CP
+# columns and TRI_WARP_ROWS below rows whatever its panel count
+TRI_WARP_CP, TRI_WARP_ROWS = 4, 64
+
+
+def tri_layout(cp: int, rp: int, B: int) -> tuple:
+    """K3-rest narrow's grid: K3's layout (`solve_layout`), but a bucket of
+    cp-4 panels of at most 64 below rows takes the warp grid at any panel
+    count: its chain of three steps on the lanes beats a CTA's barriers
+    (tools/tri_layout_probe.py, PERF.md); with more rows one warp's y
+    loop is the longer chain."""
+    few = cp <= TRI_WARP_CP and rp <= TRI_WARP_ROWS
+    return solve_layout(cp, rp, B, 1 if few else None)
+
+
 def tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
               below_idx, cp: int, rp: int, transpose: bool) -> None:
     """Diagonal solve of one bucket by substitution on the lower triangle
     of each diag block (no stored inverse: partial-range solves, and
     pseudo-factored data), in place in vv, with bucket_solve's arguments
     and result: L pass vv[rows] = L^-1 vv[rows] and y = below . x; Lt
-    pass vv[rows] = L^-T (vv[rows] - below^T vv[below_idx])."""
+    pass vv[rows] = L^-T (vv[rows] - below^T vv[below_idx]). On the card
+    (csrc/tri_solve.cu) the grids of K3 with the substitution in place of
+    the inverse's product, in K3's layout (`tri_layout`): one warp per
+    small panel, else a CTA per panel and, past one chunk of below rows,
+    a CTA per chunk of them, the Lt pass's chunk sums through a cached
+    scratch."""
     use_y = _check_solve("tri_solve", data, vv, y, rp, transpose)
     if data.device.type == "cpu":
         return tri_solve_twin(data, vv, y, y_base, off, rows, cols, vec_off,
@@ -756,15 +878,24 @@ def tri_solve(data, vv, y, y_base: int, off, rows, cols, vec_off,
     _check_cuda("tri_solve", [data, vv, y] if use_y else [data, vv],
                 [off, rows, cols, vec_off, below_idx])
     batch, order, nrhs = vv.shape
+    B = off.shape[0]
+    if batch * nrhs > 65535:
+        raise ValueError(f"tri_solve: batch x nrhs {batch * nrhs} exceeds "
+                         "the grid's 65535")
+    crc, nchunk = tri_layout(cp, rp, B)
+    two = crc > 0 and nchunk > 1
+    part = _scratch(vv, batch * nrhs * B * nchunk * cp).data_ptr() \
+        if two and transpose else None
     err = _lib().bs_tri_solve(
         _DTYPE_CODE[data.dtype], int(transpose), data.data_ptr(),
         data.shape[1], vv.data_ptr(), order * nrhs,
         y.data_ptr() if use_y else None, y[0].numel() if use_y else 0,
-        y_base * nrhs, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-        vec_off.data_ptr(), below_idx.data_ptr(), order, off.shape[0], cp,
-        rp, nrhs, batch, _stream(data))
+        y_base, part, off.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+        vec_off.data_ptr(), below_idx.data_ptr(), order, B, cp, rp, nrhs,
+        batch, crc, nchunk, _stream(data))
     COUNTS["tri_solve"].launches += 1
-    COUNTS["tri_solve"].grid_launches += 1
+    # the warp grid, or the diag grid and, past one chunk, the rows grid
+    COUNTS["tri_solve"].grid_launches += 2 if two else 1
     _raise_on("tri_solve", err)
 
 

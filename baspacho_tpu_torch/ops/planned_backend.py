@@ -71,6 +71,7 @@ class DevCSR:
     tgt: torch.Tensor
     seg_ptr: torch.Tensor
     src_idx: torch.Tensor
+    layout: Optional[kernels.SegLayout]  # K2's grids (on a CUDA device)
 
 
 def _i64(a, device) -> torch.Tensor:
@@ -99,9 +100,12 @@ class DevDense:
 
 
 def _dev_csr(csr: SegmentCSR, device) -> DevCSR:
+    cuda = torch.device(device).type == "cuda"
     return DevCSR(n_tgt=len(csr.tgt), tgt=_i64(csr.tgt, device),
                   seg_ptr=_i64(csr.seg_ptr, device),
-                  src_idx=_i64(csr.src_idx, device))
+                  src_idx=_i64(csr.src_idx, device),
+                  layout=kernels.SegLayout(csr.tgt, csr.seg_ptr, csr.src_idx,
+                                           device) if cuda else None)
 
 
 class PlannedBackend(PlannedSchedule):
@@ -141,7 +145,7 @@ class PlannedBackend(PlannedSchedule):
                                           b.cp, b.rp, b.prod_base)
                 if csr is not None and csr.n_tgt:
                     ops.segmented_subtract(ext, prod, csr.tgt, csr.seg_ptr,
-                                           csr.src_idx, 1)
+                                           csr.src_idx, 1, layout=csr.layout)
                 if dense is not None:
                     ops.dense_update(ext, dense)
             return ext
@@ -190,7 +194,7 @@ class PlannedBackend(PlannedSchedule):
                 self._diag_solve(ops, b, use_inv, data, vv, y, base, False)
             if csr.n_tgt:
                 ops.segmented_subtract(vv, y, csr.tgt, csr.seg_ptr,
-                                       csr.src_idx, nrhs)
+                                       csr.src_idx, nrhs, layout=csr.layout)
 
     def _lt_pass(self, levels, use_inv, data, vv, ops) -> None:
         for buckets, _, _, _ in reversed(levels):
@@ -275,7 +279,7 @@ class PlannedBackend(PlannedSchedule):
                     b.below_idx, b.cp, b.rp, alpha)
             if csr.n_tgt:
                 ops.segmented_subtract(oo, y, csr.tgt, csr.seg_ptr,
-                                       csr.src_idx, nrhs)
+                                       csr.src_idx, nrhs, layout=csr.layout)
             return oo
 
         return add_mv

@@ -88,6 +88,20 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                damped system: as k3_levels, with per panel
                torch.linalg.solve_triangular (and, with below rows,
                torch.matmul with the below block) as the yardstick
+  K2 per call (k2_levels, after k5_levels) of MERI's, GRID's and BAL
+               871's factors (width 1), the L pass of BAL's and FLAT+Schur
+               50k's solves (nrhs 1 and 3) and BAL's PCG operator
+               add_mv_from(t): against its twin (f64, f32), batched and
+               rerun bitwise, ms by events, device ms per grid from a
+               complete trace, bounds, index_add_ (a yardstick the port
+               never calls)
+  K3-rest narrow per bucket and pass (k3r_levels, after k2_levels) of
+               the partial solves of MERI and GRID (up to and from their
+               split, and on the pseudo-factor), FLAT+Schur 50k (up to t
+               = 50,000) and BAL 871 (up to its points, the PCG LM
+               path; from its cameras on the pseudo-factor): as
+               k3_levels, with batched torch.linalg.solve_triangular on
+               the bucket's lower blocks as the yardstick
   K6 per family (k6_levels, last) of BAL 871's first assembly: against
                its twin (f64, f32) and a rerun, bitwise, ms by events,
                device ms per grid from a complete trace, the bounds of its
@@ -100,7 +114,11 @@ costs, k1w_levels); with `--only k3`, K3's (k3_levels, BAL 871's direct
 LM costs); with `--only k6`, K6's (k6_levels, BAL 871's direct LM
 costs); with `--only k3w`, K3-wide's (k3w_levels, BAL 871's direct LM
 costs); with `--only k1`, K1's (k1_not_pd, k1_levels on MERI, GRID and
-BAL 871, BAL 871's direct LM costs).
+BAL 871, BAL 871's direct LM costs); with `--only k2`, K2's (k2_levels,
+BAL 871's direct and PCG LM costs); with `--only k3r`, K3-rest
+narrow's (k3r_levels, the same costs). Every run first checks that the
+native symbolic library loads (baspacho_tpu_torch/native.py builds it
+under a lock), and fails if it does not.
 
 It checks the results, times the kernels against their twins (and,
 where one PyTorch call computes the same function, against that call)
@@ -171,7 +189,8 @@ GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
                            "prod_entry_kernel", "prod_tile_kernel"),
          "wide_factor": ("wide_tile_kernel", "wide_rows_kernel",
                          "wide_update_kernel"),
-         "segmented_subtract": ("seg_sub_kernel",),
+         "segmented_subtract": ("seg_short_kernel", "seg_chunk_kernel",
+                                "seg_post_kernel"),
          "bucket_solve": ("solve_l_warp_kernel", "solve_lt_warp_kernel",
                           "solve_l_diag_kernel", "solve_lt_diag_kernel",
                           "solve_l_rows_kernel", "solve_lt_rows_kernel"),
@@ -180,20 +199,25 @@ GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
                         "wide_lt_post_kernel", "wide_ltmv_kernel"),
          "dense_update": ("dense_wide_kernel", "dense_warp_kernel",
                           "dense_block_kernel"),
-         "tri_solve": ("tri_l_kernel", "tri_lt_kernel"),
+         "tri_solve": ("tri_l_warp_kernel", "tri_lt_warp_kernel",
+                       "tri_l_diag_kernel", "tri_lt_diag_kernel",
+                       "tri_l_rows_kernel", "tri_lt_rows_kernel"),
          "wide_tri_solve": ("tri_wide_pre_kernel", "tri_wide_chain_kernel",
                             "tri_wide_post_kernel"),
          "add_mv": ("mv_warp_kernel", "mv_chunk_kernel", "mv_post_kernel"),
          "wide_add_mv": ("wide_mv_chunk_kernel", "wide_mv_post_kernel"),
          "grad_hess": ("gh_chunk_kernel", "gh_short_kernel",
                        "gh_post_kernel")}
-# the grids of the earlier designs of K1's below, K3, K3-wide and K6
-# (PERF.md), so that k1_levels, k3_levels, k3w_levels and k6_levels also
-# time a checkout of them, beside these
+# the grids of the earlier designs of K1's below, K2, K3, K3-wide,
+# K3-rest narrow and K6 (PERF.md), so that k1_levels, k2_levels,
+# k3_levels, k3w_levels, k3r_levels and k6_levels also time a checkout of
+# them, beside these
 EARLIER_GRIDS = {"bucket_factor": ("below_kernel",),
+                 "segmented_subtract": ("seg_sub_kernel",),
                  "bucket_solve": ("solve_l_kernel", "solve_lt_kernel"),
                  "wide_solve": ("wide_lmv_kernel", "wide_lpost_kernel",
                                 "wide_ltpre_kernel"),
+                 "tri_solve": ("tri_l_kernel", "tri_lt_kernel"),
                  "grad_hess": ("gh_warp_kernel", "gh_block_kernel")}
 PRECONDS = ("IdentityPrecond", "BlockJacobiPrecond",
             "BlockGaussSeidelPrecond", "LowerPrecSolvePrecond")
@@ -238,6 +262,9 @@ BAL_COSTS = {"direct": (2637106.9562431723, 1842769.3256449024,
              "pcg": (2637106.9562431723, 1842769.3998866011,
                      1842660.9490706287)}
 BAL_PCG_ITERS = [80, 80]
+# FLAT+Schur 50k's PCG iterations (tol 1e-12) with each preconditioner
+SCHUR_PCG_ITERS = {"IdentityPrecond": 4, "BlockJacobiPrecond": 4,
+                   "BlockGaussSeidelPrecond": 2, "LowerPrecSolvePrecond": 2}
 # the problems k3_levels and k3w_levels solve, beside BAL 871
 K3_PROBLEMS = ("meri7", "grid100", "flat1000", "flat_schur50k")
 K3W_PROBLEMS = ("flat1000", "flat_schur50k", "wide_below")
@@ -246,9 +273,11 @@ K1_PARTS = {"chol_warp_kernel": "chol", "chol_block_kernel": "chol",
             "below_warp_kernel": "below", "below_tile_kernel": "below",
             "prod_entry_kernel": "prod", "prod_tile_kernel": "prod",
             **{k: "below" for k in EARLIER_GRIDS["bucket_factor"]}}
-# k1_levels' and k5_levels' traces of a call: at most this many, until
-# one shows every grid of every run
-K1_TRACE_TRIES = 5
+# the per-call phases' traces of a call (complete_trace): at most this
+# many, until one shows every grid of every run (late in a long run most
+# first traces lose records and some calls needed 3 tries on an H100,
+# chip call 9, PR 12; one tiny call lost records in 5)
+K1_TRACE_TRIES = 8
 # the fewest counted runs a retake halves them to
 TRACE_MIN_REPS = 3
 # the least time of a call: the larger of its bytes over the memory rate
@@ -319,11 +348,13 @@ class CheckedOps:
         self._note("wide_factor", data[:, idx], d2[:, idx])
         self.shapes.add(("wide_factor", cp, rp))
 
-    def segmented_subtract(self, out, src, tgt, seg_ptr, src_idx, width):
+    def segmented_subtract(self, out, src, tgt, seg_ptr, src_idx, width,
+                           **layout):
         o2 = out.clone()
         kernels.segmented_subtract_twin(o2, src, tgt, seg_ptr, src_idx,
                                         width)
-        kernels.segmented_subtract(out, src, tgt, seg_ptr, src_idx, width)
+        kernels.segmented_subtract(out, src, tgt, seg_ptr, src_idx, width,
+                                   **layout)
         b = out.shape[0]
         self._note("segmented_subtract", out.view(b, -1, width)[:, tgt],
                    o2.view(b, -1, width)[:, tgt])
@@ -1049,41 +1080,72 @@ def below_sparse(data, order: int, off, rows, cols, vec_off, below_idx,
     return A.coalesce().to_sparse_csr()
 
 
+def tri_library_call(data, vv, off, rows, cols, vec_off, cp: int, rp: int,
+                     transpose: bool):
+    """K3-rest's substitution in one PyTorch call: batched
+    torch.linalg.solve_triangular on the bucket's lower blocks (real
+    columns, identity on the padded ones: kernels._lower_masked) with
+    its RHS rows gathered, both built outside the timed call; the below
+    products are left out. For a yardstick the port never calls."""
+    order, dev = vv.shape[1], data.device
+    L = kernels._lower_masked(
+        kernels._bucket_panels(data, off, cp, rp)[0, :, :cp], cols)
+    xr = torch.arange(cp, device=dev)
+    xidx = torch.where(xr < cols[:, None], vec_off[:, None] + xr, order)
+    x = torch.cat([vv[0], vv.new_zeros((1, vv.shape[2]))])[xidx]
+    A = L.mT if transpose else L
+    return lambda: torch.linalg.solve_triangular(A, x, upper=transpose)
+
+
+# each solve phase: its log line, its layout, its yardstick
+SOLVE_PHASES = {"bucket_solve": "k3_levels", "wide_solve": "k3w_levels",
+                "tri_solve": "k3r_levels"}
+
+
 def solve_levels(cases, wrapper: str, name_limit: str) -> list:
     """The phases k3_levels (wrapper bucket_solve: K3, its layout
-    kernels.solve_layout) and k3w_levels (wide_solve: K3-wide,
-    kernels.wide_solve_layout): the wrapper on every bucket and pass of
-    one solve of each case ((label, solver, factor single f64)), as [cp,
+    kernels.solve_layout), k3w_levels (wide_solve: K3-wide,
+    kernels.wide_solve_layout) and k3r_levels (tri_solve: K3-rest narrow,
+    kernels.tri_layout): the wrapper on every bucket and pass of the solves
+    of each case ((label, solver, data single f64) or (label, solver,
+    data, path): path(ops, v) runs the case's solve programs on the data
+    with `ops`, by default the full solve of the factor `data`), as [cp,
     rp, panels, widest real width, most real below rows] with its
-    layout: against its twin (f64 at nrhs 1 and 3, f32 at
-    nrhs 1; CheckedOps); a batch of two (the second item's factor
-    scaled) against single runs and a rerun, bitwise, at nrhs 3; the
-    wrapper's ms by CUDA events (nrhs 1, solving its own output again in
-    place: no grid's work depends on the values), its twin's; device ms
-    per grid from a complete trace, at nrhs 1 and at nrhs 3; the bound
-    (cost(), nrhs 1); and a yardstick the port never calls (K3:
-    torch.sparse.mm of the bucket's below block as CSR with the RHS, the
-    n x n product left out; K3-wide: wide_solve_library_call on one
-    panel). Returns one row per call."""
+    layout: against its twin (f64 at nrhs 1 and 3, f32 at nrhs 1;
+    CheckedOps); a batch of two (the second item's data scaled) against
+    single runs and a rerun, bitwise, at nrhs 3; the wrapper's ms by
+    CUDA events (nrhs 1, solving its own output again in place: no
+    grid's work depends on the values), its twin's; device ms per grid
+    from a complete trace, at nrhs 1 and at nrhs 3; the bound (cost(),
+    nrhs 1); and a yardstick the port never calls (K3: torch.sparse.mm
+    of the bucket's below block as CSR with the RHS, the n x n product
+    left out; K3-wide: wide_solve_library_call on one panel; K3-rest:
+    tri_library_call, the substitution alone). Returns one row per
+    call."""
     out = []
     rng = np.random.RandomState(7)
     fn, twin = getattr(kernels, wrapper), getattr(kernels, f"{wrapper}_twin")
     names = GRIDS[wrapper] + EARLIER_GRIDS[wrapper]
     layout = {"bucket_solve": lambda cp, rp, B: getattr(
         kernels, "solve_layout", lambda *_: ())(cp, rp, B),
+        "tri_solve": lambda cp, rp, B: getattr(
+            kernels, "tri_layout", lambda *_: ())(cp, rp, B),
         "wide_solve": lambda cp, rp, B: getattr(
             kernels, "wide_solve_layout", lambda *_: ())(cp, rp)}[wrapper]
-    for label, s, f in cases:
+    for label, s, f, *path in cases:
         order, dev = s.order, f.device
         V = {n: torch.from_numpy(rng.rand(2, order, n) - 0.5).to(dev)
              for n in (1, 3)}
         cap = SolveCapture(wrapper)
-        s.solve_program()(f[None], V[3][:1], ops=cap)
+        if path:
+            path[0](cap, V[3][:1])
+        else:
+            s.solve_program()(f[None], V[3][:1], ops=cap)
         check(len(cap.calls) > 0, f"{label}: no {wrapper} call")
         D = {torch.float64: f[None], torch.float32: f[None].float()}
         D2 = torch.stack([f, f * 1.01])
         for transpose, *bucket in cap.calls:
-            off, rows, cols, _, _, cp, rp = bucket
+            off, rows, cols, vec_off, _, cp, rp = bucket
             B, use_y = off.numel(), rp > 0 and not transpose
             bucket = (*bucket, transpose)
 
@@ -1139,6 +1201,10 @@ def solve_levels(cases, wrapper: str, name_limit: str) -> list:
             if wrapper == "wide_solve":
                 row["library_ms"] = time_ms(
                     wide_solve_library_call(args), 5) if B == 1 else None
+            elif wrapper == "tri_solve":
+                row["library_ms"] = time_ms(tri_library_call(
+                    D[torch.float64], v, off, rows, cols, vec_off, cp, rp,
+                    transpose), 5)
             elif rp:
                 A = below_sparse(D[torch.float64], order, *bucket)
                 row["library_ms"] = time_ms(lambda: torch.sparse.mm(A, v[0]),
@@ -1161,9 +1227,12 @@ def solve_levels(cases, wrapper: str, name_limit: str) -> list:
            "wide_solve": "per panel torch.linalg.solve_triangular on its "
                          "lower triangle, with below rows also "
                          "torch.matmul with the below block (L: y = below "
-                         "x; Lt: below^T g, g the gathered rows)"}[wrapper]
-    log({"bucket_solve": "k3_levels", "wide_solve": "k3w_levels"}[wrapper],
-        card=name_limit, dtype="float64", nrhs=1,
+                         "x; Lt: below^T g, g the gathered rows)",
+           "tri_solve": "batched torch.linalg.solve_triangular on the "
+                        "bucket's masked lower blocks with its gathered "
+                        "RHS rows, the substitution alone (the below "
+                        "products left out)"}[wrapper]
+    log(SOLVE_PHASES[wrapper], card=name_limit, dtype="float64", nrhs=1,
         limits={"float64": 1e-10, "float32": 1e-4}, bitwise=True,
         library_call=lib, ms_by_case=by("ms"),
         device_ms_by_case=by("device_ms"),
@@ -1171,6 +1240,178 @@ def solve_levels(cases, wrapper: str, name_limit: str) -> list:
         bound_ms_by_case=by("bound_ms"), library_ms_by_case=by("library_ms"),
         buckets=out)
     return out
+
+
+def k3r_cases(probs, d64, bal_solver, bal_damped_data, bal_t: int,
+              grid_from: bool = True) -> list:
+    """k3r_levels' cases: every narrow K3-rest bucket of the partial
+    solves on MERI's and GRID's split (the up-to solves on factor_up_to's
+    output, the from-solves on factor_from's and on the pseudo-factor's,
+    as partial_ops runs them; GRID's from-solves, 164 calls, only with
+    grid_from), FLAT+Schur 50k's up-to solves at t = 50,000 (its
+    50,000-panel level), and BAL 871's first damped system: the up-to
+    solves of the PCG LM path (its 527,478-panel point bucket) and the
+    from-solves on the pseudo-factored camera corner (the Gauss-Seidel
+    preconditioner's data)."""
+    def up_down(s, lo, hi, data):
+        def path(ops, v):
+            s.program("solve_lt", lo, hi)(
+                data[None], s.program("solve_l", lo, hi)(data[None], v,
+                                                         ops=ops), ops=ops)
+        return path
+    cases = []
+    for p in ("meri7", "grid100", "flat_schur50k", "bal871"):
+        if p == "bal871":
+            s, d, t = bal_solver, bal_damped_data, bal_t
+        else:
+            s = probs[p]
+            d = torch.from_numpy(d64[p]).to(bal_damped_data.device)
+            t = SCHUR_T if p == "flat_schur50k" else split_span(s, p)
+        tl, nl = s._lump_of_span(t), s.skel.num_lumps
+        fu = s.program("factor", 0, tl)(d[None])[0]
+        cases.append((f"{p} up_to", s, fu, up_down(s, 0, tl, fu)))
+        if p == "grid100" and not grid_from:
+            continue
+        if p in ("meri7", "grid100"):
+            ff = s.program("factor", tl, nl)(fu[None])[0]
+            cases.append((f"{p} from", s, ff, up_down(s, tl, nl, ff)))
+        if p != "flat_schur50k":
+            pf = s.program("pseudo", t, s.skel.num_spans)(fu[None])[0]
+            cases.append((f"{p} pseudo from", s, pf, up_down(s, tl, nl, pf)))
+    return cases
+
+
+class K2Capture:
+    """The kernels, for a program, keeping each segmented_subtract call:
+    its arguments and keywords (the plan's layout)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(kernels, name)
+
+    def segmented_subtract(self, *args, **kw):
+        self.calls.append((args, kw))
+        kernels.segmented_subtract(*args, **kw)
+
+
+def k2_levels(cases, name_limit: str) -> list:
+    """K2 on every call of each case's path ((label, path(ops)): path
+    runs a program with `ops`): the call's CSR (targets, sources, the
+    longest segment, width) and, where the tree has one, its plan
+    (kernels.SegLayout: short segments, chunks, segments with a post);
+    against its twin (f64, f32; CheckedOps, on copies of the call's
+    inputs); a batch of two (the second item's sources scaled) against
+    single runs and a rerun, bitwise; ms by CUDA events and its twin's;
+    device ms per grid from a complete trace; the bound (cost()); and
+    index_add_ of the gathered sources (library_call), a yardstick the
+    port never calls. Returns one row per call."""
+    out = []
+    fn = kernels.segmented_subtract
+    names = GRIDS["segmented_subtract"] + EARLIER_GRIDS["segmented_subtract"]
+    for label, path in cases:
+        cap = K2Capture()
+        path(cap)
+        torch.cuda.synchronize()
+        check(len(cap.calls) > 0, f"{label}: no segmented_subtract call")
+        for i, (args, kw) in enumerate(cap.calls):
+            out0, src, tgt, seg_ptr, src_idx, width = args
+            lay = kw.get("layout")
+            row = {"case": label, "call": i, "width": width,
+                   "targets": int(tgt.numel()),
+                   "sources": int(src_idx.numel()),
+                   "longest": int(seg_ptr.diff().max()), "max_rel": {}}
+            if lay is not None:
+                row["plan"] = {"short": lay.n_short, "chunks": lay.n_chunk,
+                               "post": lay.n_post, "idx32": lay.idx32}
+            what = f"segmented_subtract on {label} call {i}"
+            for dt in (torch.float64, torch.float32):
+                chk = CheckedOps()
+                chk.segmented_subtract(out0.to(dt, copy=True), src.to(dt),
+                                       tgt, seg_ptr, src_idx, width, **kw)
+                r = chk.rel["segmented_subtract"]
+                check(r <= KERNEL_RTOL[dt], f"{what} vs twin {dt}: rel {r}")
+                row["max_rel"][str(dt)[6:]] = r
+            o2 = torch.cat([out0, out0])
+            s2 = torch.cat([src, src * 1.01])
+            fn(o2, s2, tgt, seg_ptr, src_idx, width, **kw)
+            for b in range(2):
+                for _ in range(2):  # the single run, then its rerun
+                    o1 = out0.clone()
+                    fn(o1, s2[b:b + 1], tgt, seg_ptr, src_idx, width, **kw)
+                    check(torch.equal(o1[0], o2[b]),
+                          f"{what}: batch item {b} differs from its single "
+                          "run")
+            del o2, s2
+            o = out0.clone()
+            args = (o, src, tgt, seg_ptr, src_idx, width)
+            run = functools.partial(fn, *args, **kw)
+            row["ms"] = time_ms(run, 20)
+            row["twin_ms"] = time_ms(functools.partial(
+                kernels.segmented_subtract_twin, *args), 1, warmup=1)
+            kernels.reset_counts()
+            run()
+            torch.cuda.synchronize()
+            grids = kernels.COUNTS["segmented_subtract"].grid_launches
+            reps = int(min(50, max(5, 5.0 / max(row["ms"], 1e-3))))
+            row["device_ms"], _, row["trace"] = complete_trace(
+                run, names, grids, reps, what)
+            row["grids"] = grids
+            row["bound_ms"], row["bound_by"] = bound(
+                *cost("segmented_subtract", args))
+            row["library_ms"] = time_ms(
+                library_call("segmented_subtract", args), 5)
+            out.append(row)
+            del o
+        del cap
+    labels = list(dict.fromkeys(r["case"] for r in out))
+
+    def by(field):
+        return {c: sum((sum(r[field].values()) if isinstance(r[field], dict)
+                        else r[field]) for r in out if r["case"] == c)
+                for c in labels}
+    log("k2_levels", card=name_limit, dtype="float64",
+        limits={"float64": 1e-10, "float32": 1e-4}, bitwise=True,
+        library_call="Tensor.index_add_(1, targets, src[:, src_idx], "
+                     "alpha=-1) on a copy of out (library_call)",
+        calls_by_case={c: sum(r["case"] == c for r in out) for c in labels},
+        ms_by_case=by("ms"), device_ms_by_case=by("device_ms"),
+        bound_ms_by_case=by("bound_ms"), library_ms_by_case=by("library_ms"),
+        calls=out)
+    return out
+
+
+def k2_cases(probs, d64, bal_solver, bal_damped_data, bal_t: int) -> list:
+    """k2_levels' cases: the factors of MERI and GRID (width 1), BAL
+    871's factor of its first damped system (its pair levels 1-3), the L
+    pass of BAL's and FLAT+Schur 50k's solves at nrhs 1 and 3, and BAL's
+    PCG operator add_mv_from(t) on factor_up_to's output (nrhs 1)."""
+    dev = bal_damped_data.device
+    rng = np.random.RandomState(9)
+    cases = []
+    for p in ("meri7", "grid100"):
+        s = probs[p]
+        d = torch.from_numpy(d64[p]).to(dev)[None]
+        cases.append((f"{p} factor", functools.partial(s.factor_program(),
+                                                       d)))
+    sb = bal_solver
+    fb = sb.factor(bal_damped_data)
+    cases.append(("bal871 factor", functools.partial(
+        sb.factor_program(), bal_damped_data[None])))
+    s50 = probs["flat_schur50k"]
+    f50 = s50.factor(torch.from_numpy(d64["flat_schur50k"]).to(dev))
+    for label, s, f in (("bal871", sb, fb), ("flat_schur50k", s50, f50)):
+        for n in (1, 3):
+            v = torch.from_numpy(rng.rand(1, s.order, n) - 0.5).to(dev)
+            cases.append((f"{label} solve L nrhs {n}", functools.partial(
+                s.program("solve_l", 0, s.skel.num_lumps), f[None], v)))
+    tl = sb._lump_of_span(bal_t)
+    part = sb.factor_up_to(bal_damped_data, bal_t)
+    x = torch.from_numpy(rng.rand(1, sb.order, 1) - 0.5).to(dev)
+    cases.append(("bal871 add_mv_from(t)", functools.partial(
+        sb.program("add_mv", tl), part[None], x, torch.zeros_like(x), 1.0)))
+    return cases
 
 
 def k6_costs(W, plan) -> dict:
@@ -1305,6 +1546,11 @@ def bal_pcg_trace(s, damped, grad, t: int, name_limit: str,
     trace_checked("bal871", f"pcg_{iters}_iterations", run, 1,
                   dtype="float64", card=name_limit, iterations=iters,
                   precond="BlockJacobiPrecond")
+    # the up-to solves around it (K3-rest narrow on the point bucket, K2
+    # onto the cameras' rows)
+    trace_checked("bal871", "solve_l_up_to + solve_lt_up_to",
+                  lambda: s.solve_lt_up_to(part, t, s.solve_l_up_to(
+                      part, t, -grad)), 3, dtype="float64", card=name_limit)
 
 
 def wide_tri_checks(probs, d64, dev) -> dict:
@@ -1650,16 +1896,16 @@ class TimedOps:
         for name in NAMES:
             setattr(self, name, functools.partial(self._timed, name))
 
-    def _timed(self, name, *args):
+    def _timed(self, name, *args, **kw):
         if self.costs:
             lib = library_call(name, args)
             if lib is not None:
                 self.libs[name].append(lib)
-            self.calls[name].append(args)
+            self.calls[name].append((args, kw))
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        getattr(self.ops, name)(*args)
+        getattr(self.ops, name)(*args, **kw)
         b.record()
         self.events[name].append((a, b))
         if self.costs:
@@ -1682,7 +1928,8 @@ class TimedOps:
         in place again, which changes no time)."""
         calls = self.calls[name]
         fn = getattr(self.ops, name)
-        return time_ms(lambda: [fn(*a) for a in calls], 3, warmup=1)
+        return time_ms(lambda: [fn(*a, **kw) for a, kw in calls], 3,
+                       warmup=1)
 
     def library_ms(self):
         """Per kernel, the summed time of the library calls replaying its
@@ -2357,6 +2604,55 @@ def solve_only(wrapper: str, dev, name_limit: str) -> int:
     return 0
 
 
+def bal_pcg_costs(opt, name_limit: str) -> list:
+    """BAL 871's PCG LM (2 iterations, BlockJacobi) from the set-up's
+    values, its costs and PCG iterations held to BAL_COSTS and
+    BAL_PCG_ITERS."""
+    st = opt.optimize(ba_settings(T.BackendType.PLANNED, 2, pcg=True,
+                                  **BAL_DAMP))
+    costs = st["costs"]
+    check(len(costs) == len(BAL_COSTS["pcg"]) and
+          all(abs(a / b - 1) <= 1e-9 for a, b in zip(costs, BAL_COSTS["pcg"]))
+          and list(st["pcg_iters"]) == BAL_PCG_ITERS,
+          f"BAL 871 PCG LM costs {costs}, iterations {st['pcg_iters']}; "
+          f"expected {BAL_COSTS['pcg']}, {BAL_PCG_ITERS}")
+    log("bal871_lm_pcg", card=name_limit, costs=costs,
+        pcg_iterations=st["pcg_iters"])
+    return costs
+
+
+def level_only(which: str, dev, name_limit: str) -> int:
+    """`--only k2` and `--only k3r`: the build, then k2_levels (k2_cases)
+    or k3r_levels (k3r_cases) alone on MERI, GRID, FLAT+Schur 50k and
+    BAL 871's first damped system, and BAL 871's direct and PCG LM held
+    to BAL_COSTS and BAL_PCG_ITERS, for iterating on
+    csrc/segmented_subtract.cu or the narrow grids of csrc/tri_solve.cu
+    without the whole run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    probs = {p: make(T, device=dev) for p, make in (
+        ("meri7", meri7), ("grid100", grid100),
+        ("flat_schur50k", flat_schur50k))}
+    d64 = {k: spd_data(s, 1) for k, s in probs.items()}
+    opt, values0, _ = bal_setup(dev)
+    damped, _, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
+    t = opt.elim_end_span
+    if which == "k2":
+        k2_levels(k2_cases(probs, d64, opt.solver, damped, t), name_limit)
+    else:
+        solve_levels(k3r_cases(probs, d64, opt.solver, damped, t),
+                     "tri_solve", name_limit)
+    del damped
+    for costs in (bal_direct_costs, bal_pcg_costs):
+        reset_values(opt, values0)
+        costs(opt, name_limit)
+    log(f"{which}_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
 def k1_only(dev, name_limit: str) -> int:
     """`--only k1`: the build, then K1's phases alone (k1_not_pd, and
     k1_levels and a trace of the whole factor on MERI and GRID,
@@ -2417,9 +2713,18 @@ def main(argv=()) -> int:
         capability=list(torch.cuda.get_device_capability(0)),
         torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0])
+    # every process of the run takes the same analysis path: the native
+    # symbolic library's (baspacho_tpu_torch/native.py builds it under a
+    # lock)
+    loaded = native.available()
+    log("native", symbolic_library_loaded=loaded)
+    check(loaded, "the native symbolic library did not load (see the "
+          "warning above): the analysis would run its Python fallback")
     only = {"k5": k5_only, "k1w": k1w_only, "k6": k6_only, "k1": k1_only,
             "k3": functools.partial(solve_only, "bucket_solve"),
-            "k3w": functools.partial(solve_only, "wide_solve")}
+            "k3w": functools.partial(solve_only, "wide_solve"),
+            "k2": functools.partial(level_only, "k2"),
+            "k3r": functools.partial(level_only, "k3r")}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         return only[argv[1]](dev, name_limit)
     if argv:
@@ -2431,8 +2736,7 @@ def main(argv=()) -> int:
     so = kernels.build()
     kernels._lib()
     t_build = time.perf_counter() - t0
-    log("build", seconds=t_build, library=so,
-        native_symbolic_loaded=native._load() is not None)
+    log("build", seconds=t_build, library=so)
 
     # 3. problems: host analysis (create_solver), the level schedule and
     # the device programs, timed apart
@@ -2705,8 +3009,9 @@ def main(argv=()) -> int:
         again = pcg_path(schur50, d, b1, pre)
         torch.cuda.synchronize()
         path_s = time.perf_counter() - t0
-        check(again["iterations"] == out["iterations"],
-              f"PCG {pre}: iterations differ between two runs")
+        its = (out["iterations"], again["iterations"])
+        check(its == (SCHUR_PCG_ITERS[pre],) * 2, f"PCG {pre}: iterations "
+              f"{its} in two runs, want {SCHUR_PCG_ITERS[pre]}")
         c_pcg[f"pcg_{pre}"] = c
         pcg_info[pre] = {
             "iterations": out["iterations"], "residual_k5": r_k5,
@@ -2993,6 +3298,14 @@ def main(argv=()) -> int:
     # and BAL 871's solves, K3-wide per bucket and pass of FLAT's, Schur
     # 50k's, WIDE_BELOW's and BAL 871's; K6 per family and grid of BAL's
     # assembly
+    # K2 per call of MERI's, GRID's and BAL 871's factors, BAL's and
+    # Schur 50k's L passes and BAL's PCG operator; K3-rest narrow per
+    # bucket and pass of the partial solves
+    k2 = k2_levels(k2_cases(probs, d64, opt.solver, bal["damped"],
+                            opt.elim_end_span), name_limit)
+    k3r = solve_levels(k3r_cases(probs, d64, opt.solver, bal["damped"],
+                                 opt.elim_end_span, grid_from=False),
+                       "tri_solve", name_limit)
     k3 = solve_levels(solve_cases(probs, d64, K3_PROBLEMS, opt.solver,
                                   bal["damped"]), "bucket_solve", name_limit)
     k3w = solve_levels(solve_cases(probs, d64, K3W_PROBLEMS, opt.solver,
@@ -3033,6 +3346,17 @@ def main(argv=()) -> int:
         for r in k3w}
     by_case["grad_hess"] = {
         f"bal871 family {r['family']} (k6_levels)": r["ms"] for r in k6}
+    by_case["segmented_subtract"] = {
+        f"{c} (k2_levels)": sum(r["ms"] for r in k2 if r["case"] == c)
+        for c in dict.fromkeys(r["case"] for r in k2)}
+    by_case["tri_solve"] = {
+        f"{c} {p} (k3r_levels)": sum(r["ms"] for r in k3r
+                                     if (r["case"], r["pass"]) == (c, p))
+        for c, p in sorted({(r["case"], r["pass"]) for r in k3r})}
+    # K3-rest's yardstick on the case TimedOps times: batched
+    # solve_triangular per bucket of Schur 50k's up-to solves (k3r_levels)
+    library["tri_solve"] = sum(r["library_ms"] for r in k3r
+                               if r["case"] == "flat_schur50k up_to")
     paths = {"meri7": c_meri, "flat1000": c_flat, "flat_schur50k": c_schur,
              **c_pcg, "refined_schur50k": c_ref, "bal_lm_direct": c_direct,
              "bal_lm_pcg": c_balpcg}

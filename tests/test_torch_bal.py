@@ -20,6 +20,7 @@ from baspacho_tpu.optimizer import BlockJacobiPrecond, OptimizerSettings
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch import bal as TB
 from baspacho_tpu_torch.testing.flows import ba_optimizer, ba_settings
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

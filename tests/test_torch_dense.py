@@ -31,6 +31,7 @@ from baspacho_tpu_torch.testing.mat_gen import SparseMatGenerator
 from baspacho_tpu_torch.testing.problems import (SMALL, flat_schur5k,
                                                  spd_data, wide_below,
                                                  wide_dense)
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -17,6 +17,7 @@ from baspacho_tpu.sparse_structure import SparseStructure
 from baspacho_tpu.utils import cum_sum_vec
 from baspacho_tpu_torch.examples import diff_solve, optimize_ba, \
     optimize_simple
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

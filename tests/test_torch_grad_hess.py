@@ -32,6 +32,7 @@ import baspacho_tpu_torch.optimizer as TO
 from baspacho_tpu_torch import bal as TB
 from baspacho_tpu_torch.ops import assembly, kernels
 from baspacho_tpu_torch.testing.problems import se3_ba
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

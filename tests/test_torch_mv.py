@@ -28,6 +28,7 @@ from baspacho_tpu.ops.planned_backend import PlannedBackend as JPlanned
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import _dev_bucket, _dev_csr
 from baspacho_tpu_torch.ops.schedule import LumpBucket, solve_csr
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

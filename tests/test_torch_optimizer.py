@@ -32,6 +32,7 @@ from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.assembly import LONG_SEG
 from baspacho_tpu_torch.testing.flows import dense_normal_equations
 from baspacho_tpu_torch.testing.problems import se3_ba, spring_chain
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,7 @@ from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.testing import SparseMatGenerator, random_spd_data
 from baspacho_tpu_torch.testing.problems import SMALL, spd_data, wide_below, \
     wide_dense
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

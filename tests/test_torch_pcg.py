@@ -24,6 +24,7 @@ import baspacho_tpu_torch as T
 import baspacho_tpu_torch.optimizer as TO
 from baspacho_tpu_torch.testing import SparseMatGenerator, random_spd_data
 from baspacho_tpu_torch.testing.flows import pcg_flow
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -16,6 +16,7 @@ import baspacho_tpu_torch as T
 from baspacho_tpu_torch.ops.schedule import PlannedSchedule, pair_csr, solve_csr
 from baspacho_tpu_torch.testing import SparseMatGenerator
 from baspacho_tpu_torch.testing.problems import SMALL
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -25,6 +25,7 @@ from baspacho_tpu.testing import SparseMatGenerator as JGen
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch.testing import SparseMatGenerator, random_spd_data
 from baspacho_tpu_torch.testing.problems import SMALL
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -14,6 +14,7 @@ import baspacho_tpu as J
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.testing.problems import SMALL, spd_data
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

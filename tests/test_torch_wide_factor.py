@@ -34,6 +34,7 @@ import baspacho_tpu as J
 from baspacho_tpu.ops.planned_backend import LumpBucket
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.testing.problems import SMALL
+from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
