@@ -38,7 +38,8 @@
 // Every sum's order depends on the CSR alone, not on the batch or the
 // run, so the result is bitwise the same from run to run and a batch
 // item equals its single run: no atomics. The plan's indices are int32
-// where they fit (idx32), which halves their bytes.
+// (idx32) where they fit and the plan is large or has chunks, which
+// halves their bytes; small plans of short segments read int64 faster.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -84,9 +84,13 @@ def _locked(native_dir: str):
 
 def _compile(src: str, so: str) -> None:
     """Compiles src into a temporary file beside so and renames it into
-    place; raises NativeBuildError with the command and its output."""
-    fd, tmp = tempfile.mkstemp(prefix=".libbaspacho_symbolic.",
-                               suffix=".tmp", dir=os.path.dirname(so))
+    place; raises NativeBuildError with the command and its output, or
+    with the error of a directory it cannot write (read-only)."""
+    try:
+        fd, tmp = tempfile.mkstemp(prefix=".libbaspacho_symbolic.",
+                                   suffix=".tmp", dir=os.path.dirname(so))
+    except OSError as e:
+        raise NativeBuildError(f"cannot build {so}: {e}") from e
     os.close(fd)
     cmd = [os.environ.get("CXX", _CXX),
            *os.environ.get("CXXFLAGS", _CXXFLAGS).split(), "-shared",
@@ -100,7 +104,10 @@ def _compile(src: str, so: str) -> None:
         if r.returncode != 0:
             raise NativeBuildError(f"{' '.join(cmd)} exited with "
                                    f"{r.returncode}:\n{r.stderr.strip()}")
-        os.replace(tmp, so)
+        try:
+            os.replace(tmp, so)
+        except OSError as e:
+            raise NativeBuildError(f"cannot put {tmp} in place: {e}") from e
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

@@ -439,6 +439,9 @@ SEG_SHORT = 32    # sources of a segment one thread sums at most
 #                   (csrc/segmented_subtract.cu seg_short_kernel)
 SEG_CHUNK = 1024  # sources of a longer segment's chunk at most: a CTA of
 #                   256 threads, 4 each (seg_chunk_kernel, kChunk)
+SEG_I32_SOURCES = 1 << 20  # sources from which a plan of short segments
+#                            alone reads int32 indices (plans with chunks
+#                            do at any size): below it int64 read faster
 _I32_MAX = 2 ** 31 - 1
 
 
@@ -451,8 +454,12 @@ def seg_plan(tgt, seg_ptr, src_idx) -> dict:
     sources l_src[c_ptr[c]:c_ptr[c + 1]], into target row c_dst[c] >= 0
     or, for a segment of several chunks, partial slot -1 - c_dst[c]);
     and the segments of several chunks (p_tgt; their slots p_ptr[q] ..
-    p_ptr[q + 1], in chunk order). Index arrays are int32 where every
-    value fits (`idx32`), else int64."""
+    p_ptr[q + 1], in chunk order). Index arrays are int32 (`idx32`)
+    where every value fits and the plan has chunks or SEG_I32_SOURCES
+    sources or more, else int64: on an H100, int32 took BAL 871's L-pass
+    scatter and its factor levels (3.9M-29M sources) 5 % and 23 % less
+    time, int64 MERI's and GRID's factor levels (at most 128k sources,
+    1-7 a segment) 3-7 % less (PERF.md, PR 12)."""
     tgt = np.asarray(tgt, dtype=np.int64)
     seg_ptr = np.asarray(seg_ptr, dtype=np.int64)
     src_idx = np.asarray(src_idx, dtype=np.int64)
@@ -475,7 +482,8 @@ def seg_plan(tgt, seg_ptr, src_idx) -> dict:
             "p_tgt": tgt[lid][multi], "p_ptr": np.r_[0, np.cumsum(nck[multi])]}
     top = max([int(a.max()) for a in plan.values() if a.size] +
               [len(src_idx)])
-    idx32 = top <= _I32_MAX and int(c_dst.min(initial=0)) >= -_I32_MAX
+    idx32 = top <= _I32_MAX and int(c_dst.min(initial=0)) >= -_I32_MAX \
+        and (len(c_dst) > 0 or len(src_idx) >= SEG_I32_SOURCES)
     dt = np.int32 if idx32 else np.int64
     plan = {key: a.astype(dt) for key, a in plan.items()}
     plan.update(idx32=idx32, n_slot=int(nck[multi].sum()))
@@ -525,16 +533,16 @@ def segmented_subtract(out, src, tgt, seg_ptr, src_idx, width: int,
                        layout: Optional[SegLayout] = None) -> None:
     """out[:, tgt[t]*width + k] -= sum over the t-th segment of
     src[:, src_idx[j]*width + k]; out and src are (batch, ...) buffers.
-    On the card the kernel runs the CSR's SegLayout: pass the one built
-    with the program (without it, one is built from the index tensors
-    here, which reads them back to the host)."""
+    On the card the kernel runs the CSR's SegLayout, built with the
+    program (required there; the CPU twin needs none)."""
     _check_batch("segmented_subtract", out, src)
     if out.device.type == "cpu":
         return segmented_subtract_twin(out, src, tgt, seg_ptr, src_idx,
                                        width)
     if layout is None:
         _check_cuda("segmented_subtract", [out, src], [tgt, seg_ptr, src_idx])
-        layout = SegLayout(tgt, seg_ptr, src_idx, out.device)
+        raise ValueError("segmented_subtract: no layout; build the CSR's "
+                         "SegLayout once, with the program")
     if layout.empty:
         return
     if not (src.device == out.device and src.dtype == out.dtype and

@@ -1359,7 +1359,7 @@ def k2_levels(cases, name_limit: str) -> list:
                 run, names, grids, reps, what)
             row["grids"] = grids
             row["bound_ms"], row["bound_by"] = bound(
-                *cost("segmented_subtract", args))
+                *cost("segmented_subtract", args, kw))
             row["library_ms"] = time_ms(
                 library_call("segmented_subtract", args), 5)
             out.append(row)
@@ -1607,19 +1607,22 @@ def _gathered(below_idx, rows, rp: int, order: int) -> tuple:
     return int(idx.numel()), int(torch.unique(idx[idx != order]).numel())
 
 
-def cost(name: str, args) -> tuple:
+def cost(name: str, args, kw=None) -> tuple:
     """(bytes, operations) that one wrapper call must move and do at the
-    least, from its arguments: each input element read once, each output
-    written once (the index arrays it reads included), the operations its
-    real (unpadded) panels need. Reads its index arrays back to the
-    host."""
+    least, from its arguments (and keywords): each input element read
+    once, each output written once (the index arrays it reads included,
+    at the size it reads them: K2's from its plan, where the tree has
+    one), the operations its real (unpadded) panels need. Reads its index
+    arrays back to the host."""
     data = args[0]
     item, batch = data.element_size(), data.shape[0]
     if name == "segmented_subtract":
         out, src, tgt, seg_ptr, src_idx, width = args
+        lay = (kw or {}).get("layout")
+        ib = 8 if lay is None else lay.arrays["s_src"].element_size()
         ns, nt = src_idx.numel(), tgt.numel()
         return (batch * item * width * (ns + 2 * nt) +
-                8 * (nt + seg_ptr.numel() + ns), batch * ns * width)
+                ib * (nt + seg_ptr.numel() + ns), batch * ns * width)
     if name == "dense_update":
         return k4_cost(data, args[1])
     if name == "bucket_factor":
@@ -1909,7 +1912,7 @@ class TimedOps:
         b.record()
         self.events[name].append((a, b))
         if self.costs:
-            by, op = cost(name, args)
+            by, op = cost(name, args, kw)
             self.work[name][0] += by
             self.work[name][1] += op
 

@@ -120,7 +120,8 @@ LENS = [1, 2, 3, 5, 31, 32, 33, 100, 1023, 1024, 1025, 2048, 2049, 3100, 7,
 def test_seg_plan_covers_every_source_in_order():
     """Each class holds what its grid can take, the chunks of a segment
     are as equal as they come, and the plan lists every source once in
-    its segment's order; int32 where every value fits."""
+    its segment's order; int32 where every value fits and the plan has
+    chunks or SEG_I32_SOURCES sources, else int64."""
     tgt, seg_ptr, src_idx = csr_case(LENS, 5000, 0)
     p = kernels.seg_plan(tgt, seg_ptr, src_idx)
     assert p["idx32"] and p["s_src"].dtype == np.int32
@@ -154,6 +155,14 @@ def test_seg_plan_covers_every_source_in_order():
     assert c == len(sizes) and slot == p["n_slot"]
     big = kernels.seg_plan(tgt, seg_ptr, src_idx + 2 ** 31)
     assert not big["idx32"] and big["l_src"].dtype == np.int64
+    # short segments alone: int64 below SEG_I32_SOURCES sources, int32 from
+    # there on
+    for n, want in ((kernels.SEG_I32_SOURCES - 1, False),
+                    (kernels.SEG_I32_SOURCES, True)):
+        one = np.arange(n)
+        q = kernels.seg_plan(one, np.arange(n + 1), one)
+        assert q["idx32"] is want and q["c_dst"].size == 0
+        assert q["s_src"].dtype == (np.int32 if want else np.int64)
 
 
 @pytest.mark.parametrize("width", [1, 3, 5])

@@ -9,7 +9,8 @@ JAX package, and never a silent fallback.
   run of such processes) is re-armed by the tests' shared step
   (same_native.py), after which both packages build the same permutation
   of the spring chain; with the miss left in place they do not.
-- With no compiler on PATH, the port's loader warns with the command.
+- With no compiler on PATH, or native/ read-only, the port's loader
+  warns with the cause and falls back.
 """
 
 import os
@@ -113,3 +114,21 @@ def test_loader_warns_without_compiler(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "native" / m.LIB_NAME)
     assert sorted(os.listdir(tmp_path / "native")) == sorted(
         ["symbolic.cpp", m.LOCK_NAME])
+
+
+def test_loader_warns_in_read_only_tree(tmp_path, monkeypatch):
+    import importlib.util
+    loader = _fresh_copy(tmp_path)
+    spec = importlib.util.spec_from_file_location("readonly", loader)
+    m = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(m)
+
+    def read_only(*a, **kw):
+        raise PermissionError(30, "Read-only file system", kw.get("dir"))
+    # native/ read-only (chmod does not stop root, who runs some tests)
+    monkeypatch.setattr(m.os, "open", read_only)
+    monkeypatch.setattr(m.tempfile, "mkstemp", read_only)
+    with pytest.warns(RuntimeWarning, match="cannot build .*Read-only"):
+        assert not m.available()
+    monkeypatch.undo()
+    assert sorted(os.listdir(tmp_path / "native")) == ["symbolic.cpp"]
