@@ -115,39 +115,78 @@ class PlannedBackend(PlannedSchedule):
     (the default) or their plain twins (`kernels.TWINS`, for comparison
     and timing on the card)."""
 
+    def __init__(self, plan, assembly: Optional[str] = None):
+        super().__init__(plan, assembly)
+        # device arrays per key (levels of a range, the padding's index):
+        # the programs of a range and its profile (stats.py) share them
+        self._device_cache = {}
+
+    def _factor_levels(self, start_lump: int, end_lump: int, device):
+        """Per level of [start_lump, end_lump): its device buckets, the K2
+        CSR of its block pairs (pair levels), the size of its product
+        buffer and its DevDense (dense levels)."""
+        key = ("factor", start_lump, end_lump, torch.device(device))
+        levels = self._device_cache.get(key)
+        if levels is None:
+            levels = []
+            for lump_buckets, pairs, ptot, dense in self._factor_schedule(
+                    start_lump, end_lump):
+                csr = _dev_csr(pair_csr(pairs), device) if ptot else None
+                dd = DevDense(dense, device) if dense is not None else None
+                levels.append(([_dev_bucket(lb, device)
+                                for lb in lump_buckets], csr, ptot, dd))
+            self._device_cache[key] = levels
+        return levels
+
+    def _pad_idx(self, device) -> torch.Tensor:
+        """The data buffer's padded slots (block_matrix.py), on the
+        device."""
+        key = ("padding", torch.device(device))
+        pad_idx = self._device_cache.get(key)
+        if pad_idx is None:
+            pad_idx = _i64(np.nonzero(self.plan.skel.padding_mask() == 0)[0],
+                           device)
+            self._device_cache[key] = pad_idx
+        return pad_idx
+
+    @staticmethod
+    def _level_prod(ext: torch.Tensor, level) -> Optional[torch.Tensor]:
+        """The product buffer of a pair level (None on a dense level)."""
+        ptot = level[2]
+        return ext.new_empty((ext.shape[0], ptot)) if ptot else None
+
+    @staticmethod
+    def _factor_buckets(ext, prod, level, ops) -> None:
+        """K1 / K1-wide on every bucket of the level."""
+        for b in level[0]:
+            if b.wide:
+                ops.wide_factor(ext, b.off, b.rows, b.cols, b.cp, b.rp,
+                                b.off_h, b.cols_h)
+            else:
+                ops.bucket_factor(ext, prod, b.off, b.rows, b.cols, b.cp,
+                                  b.rp, b.prod_base)
+
+    @staticmethod
+    def _level_update(ext, prod, level, ops) -> None:
+        """The level's update: K2 over its block pairs, or K4."""
+        _, csr, _, dense = level
+        if csr is not None and csr.n_tgt:
+            ops.segmented_subtract(ext, prod, csr.tgt, csr.seg_ptr,
+                                   csr.src_idx, 1, layout=csr.layout)
+        if dense is not None:
+            ops.dense_update(ext, dense)
+
     def make_factor(self, start_lump: int, end_lump: int,
                     device) -> Callable:
-        sched = self._factor_schedule(start_lump, end_lump)
-        sk = self.plan.skel
-        pad_idx = _i64(np.nonzero(sk.padding_mask() == 0)[0], device)
-        levels = []
-        for lump_buckets, pairs, ptot, dense in sched:
-            csr = _dev_csr(pair_csr(pairs), device) if ptot else None
-            dd = DevDense(dense, device) if dense is not None else None
-            levels.append(([_dev_bucket(lb, device) for lb in lump_buckets],
-                           csr, ptot, dd))
+        levels = self._factor_levels(start_lump, end_lump, device)
+        pad_idx = self._pad_idx(device)
 
         def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
-            ext = data.clone(memory_format=torch.contiguous_format)
-            # padding must hold zeros (see block_matrix.py): the JAX
-            # package multiplies by the padding mask, here the padded
-            # slots are filled by index
-            if pad_idx.numel():
-                ext.index_fill_(1, pad_idx, 0)
-            for buckets, csr, ptot, dense in levels:
-                prod = ext.new_empty((ext.shape[0], ptot)) if ptot else None
-                for b in buckets:
-                    if b.wide:
-                        ops.wide_factor(ext, b.off, b.rows, b.cols, b.cp,
-                                        b.rp, b.off_h, b.cols_h)
-                    else:
-                        ops.bucket_factor(ext, prod, b.off, b.rows, b.cols,
-                                          b.cp, b.rp, b.prod_base)
-                if csr is not None and csr.n_tgt:
-                    ops.segmented_subtract(ext, prod, csr.tgt, csr.seg_ptr,
-                                           csr.src_idx, 1, layout=csr.layout)
-                if dense is not None:
-                    ops.dense_update(ext, dense)
+            ext = factor_input(data, pad_idx)
+            for level in levels:
+                prod = self._level_prod(ext, level)
+                self._factor_buckets(ext, prod, level, ops)
+                self._level_update(ext, prod, level, ops)
             return ext
 
         return factor
@@ -156,13 +195,17 @@ class PlannedBackend(PlannedSchedule):
         """Per level of [start_lump, end_lump): its device buckets, their
         offsets into the level's below-product buffer y, y's rows, and
         the K2 CSR that applies y to the RHS rows."""
-        order = self.plan.skel.order
-        levels = []
-        for buckets in self._solve_schedule(start_lump, end_lump):
-            row_base, ytot = _row_bases(buckets)
-            csr = _dev_csr(solve_csr(buckets, row_base, order), device)
-            levels.append(([_dev_bucket(lb, device) for lb in buckets],
-                           row_base, ytot, csr))
+        key = ("solve", start_lump, end_lump, torch.device(device))
+        levels = self._device_cache.get(key)
+        if levels is None:
+            order = self.plan.skel.order
+            levels = []
+            for buckets in self._solve_schedule(start_lump, end_lump):
+                row_base, ytot = _row_bases(buckets)
+                csr = _dev_csr(solve_csr(buckets, row_base, order), device)
+                levels.append(([_dev_bucket(lb, device) for lb in buckets],
+                               row_base, ytot, csr))
+            self._device_cache[key] = levels
         return levels
 
     def _full_range(self, start_lump: int, end_lump: int) -> bool:
@@ -185,16 +228,32 @@ class PlannedBackend(PlannedSchedule):
         else:
             ops.tri_solve(*args)
 
+    @staticmethod
+    def _level_y(vv: torch.Tensor, level) -> Optional[torch.Tensor]:
+        """The below-product buffer of a solve level (None without below
+        rows)."""
+        ytot = level[2]
+        return vv.new_empty((vv.shape[0], ytot, vv.shape[2])) if ytot \
+            else None
+
+    def _l_buckets(self, level, use_inv, data, vv, y, ops) -> None:
+        """The L pass's diagonal solves of the level's buckets."""
+        for b, base in zip(level[0], level[1]):
+            self._diag_solve(ops, b, use_inv, data, vv, y, base, False)
+
+    @staticmethod
+    def _l_scatter(level, vv, y, ops) -> None:
+        """The L pass's below updates of the level: K2 over its CSR."""
+        csr = level[3]
+        if csr.n_tgt:
+            ops.segmented_subtract(vv, y, csr.tgt, csr.seg_ptr, csr.src_idx,
+                                   vv.shape[2], layout=csr.layout)
+
     def _l_pass(self, levels, use_inv, data, vv, ops) -> None:
-        batch, _, nrhs = vv.shape
-        for buckets, row_base, ytot, csr in levels:
-            y: Optional[torch.Tensor] = \
-                vv.new_empty((batch, ytot, nrhs)) if ytot else None
-            for b, base in zip(buckets, row_base):
-                self._diag_solve(ops, b, use_inv, data, vv, y, base, False)
-            if csr.n_tgt:
-                ops.segmented_subtract(vv, y, csr.tgt, csr.seg_ptr,
-                                       csr.src_idx, nrhs, layout=csr.layout)
+        for level in levels:
+            y = self._level_y(vv, level)
+            self._l_buckets(level, use_inv, data, vv, y, ops)
+            self._l_scatter(level, vv, y, ops)
 
     def _lt_pass(self, levels, use_inv, data, vv, ops) -> None:
         for buckets, _, _, _ in reversed(levels):
@@ -290,6 +349,18 @@ class PlannedBackend(PlannedSchedule):
         in plain torch, shared with the REF backend, as the JAX package
         delegates it (planned_backend.py:3135)."""
         return make_pseudo_factor(self.plan, start_span, end_span, device)
+
+
+def factor_input(data: torch.Tensor, pad_idx: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `data` (batch, data_size), which the factor
+    updates in place, with its padded slots `pad_idx` set to zero.
+    Padding must hold zeros (see block_matrix.py): the JAX package
+    multiplies by the padding mask, here the padded slots are filled by
+    index."""
+    ext = data.clone(memory_format=torch.contiguous_format)
+    if pad_idx.numel():
+        ext.index_fill_(1, pad_idx, 0)
+    return ext
 
 
 def _row_bases(buckets):

@@ -3,8 +3,9 @@ chip_smoke.py.
 
 Each function takes the package to build with (`baspacho_tpu_torch`, or
 `baspacho_tpu` in the tests that hold the port against it) and returns a
-PLANNED solver, so both packages analyse the same structure the same
-way. The port's solvers run on the CPU unless a `device` is passed (the
+PLANNED solver (`backend="REF"` for the other, `computation_model=` for
+another merge model), so both packages analyse the same structure the
+same way. The port's solvers run on the CPU unless a `device` is passed (the
 JAX package's create_solver takes none). Data are made with numpy from a
 seed.
 """
@@ -20,11 +21,15 @@ from .utils import random_spd_data
 _PORT = __name__.split(".")[0]
 
 
-def _planned(pkg, param_sizes, ss, elim_ranges=(), **kw):
+def _planned(pkg, param_sizes, ss, elim_ranges=(), backend="PLANNED",
+             computation_model=None, **kw):
+    """The solver of `ss` under Settings of the named backend (PLANNED
+    unless named) and merge model (the default unless given)."""
     if pkg.__name__ == _PORT:
         kw.setdefault("device", "cpu")
-    return pkg.create_solver(pkg.Settings(backend=pkg.BackendType.PLANNED),
-                             param_sizes, ss,
+    settings = pkg.Settings(backend=getattr(pkg.BackendType, backend),
+                            computation_model=computation_model)
+    return pkg.create_solver(settings, param_sizes, ss,
                              sparse_elim_ranges=list(elim_ranges), **kw)
 
 

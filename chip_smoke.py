@@ -102,10 +102,25 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                path; from its cameras on the pseudo-factor): as
                k3_levels, with batched torch.linalg.solve_triangular on
                the bucket's lower blocks as the yardstick
-  K6 per family (k6_levels, last) of BAL 871's first assembly: against
+  K6 per family (k6_levels) of BAL 871's first assembly: against
                its twin (f64, f32) and a rerun, bitwise, ms by events,
                device ms per grid from a complete trace, the bounds of its
                short and long parts
+  stats        (last) the stats slice on MERI, GRID, FLAT, FLAT+Schur 50k
+               and BAL 871's first damped system, f64: three factor +
+               solve calls with stats enabled (print_stats, reset, a
+               disabled solver records nothing), profile_ops(reps=5) and
+               profile_solve_ops on the kernels, counted (records finite
+               and > 0, one per bucket and op as the schedule lists them,
+               replays bitwise, residuals from sparse_residuals), the
+               records' sum beside one factor by events; on MERI and
+               GRID the factor records held against a trace of the same
+               timed runs and against a trace of whole factors
+               (profile_trace); one
+               ComputationModel fitted on all five problems' factor
+               records, and the skeletons it builds for the first four
+               (lumps, levels, residuals, factor / solve ms beside the
+               default model's)
 
 With `--only k5` it builds the kernels and runs K5's phases alone (BAL
 871's set-up and damped system, the PCG trace, k5_levels) and prints no
@@ -116,7 +131,8 @@ costs); with `--only k3w`, K3-wide's (k3w_levels, BAL 871's direct LM
 costs); with `--only k1`, K1's (k1_not_pd, k1_levels on MERI, GRID and
 BAL 871, BAL 871's direct LM costs); with `--only k2`, K2's (k2_levels,
 BAL 871's direct and PCG LM costs); with `--only k3r`, K3-rest
-narrow's (k3r_levels, the same costs). Every run first checks that the
+narrow's (k3r_levels, the same costs); with `--only stats`, the stats
+phase (~1.5 min with BAL 871's set-up). Every run first checks that the
 native symbolic library loads (baspacho_tpu_torch/native.py builds it
 under a lock), and fails if it does not.
 
@@ -249,6 +265,14 @@ PATH_KERNELS = {
     "bal_lm_pcg": {"grad_hess", "bucket_factor", "dense_update",
                    "segmented_subtract", "tri_solve", "add_mv",
                    "wide_add_mv"},
+    # the stats phase: profile_ops + profile_solve_ops of each problem
+    "stats_meri7": {"bucket_factor", "segmented_subtract", "bucket_solve"},
+    "stats_grid100": {"bucket_factor", "segmented_subtract", "bucket_solve"},
+    "stats_flat1000": {"bucket_factor", "wide_factor", "segmented_subtract",
+                       "bucket_solve", "wide_solve"},
+    "stats_flat_schur50k": set(NAMES[:6]),
+    "stats_bal871": {"bucket_factor", "wide_factor", "dense_update",
+                     "segmented_subtract", "bucket_solve", "wide_solve"},
 }
 # the LM runs on BAL 871 damp additively (the reference's lambda * (1 +
 # diag)): the scene leaves camera 870 unobserved, a zero Hessian block
@@ -2453,19 +2477,26 @@ def demo_twins() -> dict:
     their default device; their own output is dropped."""
     import contextlib
     import io
-    from baspacho_tpu_torch.examples import (diff_solve, optimize_ba,
-                                             optimize_simple)
+    from baspacho_tpu_torch.examples import (diff_solve, fit_model,
+                                             optimize_ba, optimize_simple)
     with contextlib.redirect_stdout(io.StringIO()):
         simple = optimize_simple.main([])
         ba = optimize_ba.main([])
         diff = diff_solve.main(["--steps", "400"])
+        fit = fit_model.main([])
+    m = fit["model"]
+    coef = np.concatenate([m.potrf_params, m.trsm_params, m.syge_params,
+                           m.asmbl_params])
     out = {"optimize_simple_costs": simple["costs"],
            "optimize_ba_costs": ba["costs"],
            "diff_solve_loss_first_last": [diff["losses"][0],
-                                          diff["losses"][-1]]}
+                                          diff["losses"][-1]],
+           "fit_model_records": len(fit["records"])}
     check(simple["final_cost"] < 1e-16 and
           all(b < a for a, b in zip(ba["costs"], ba["costs"][1:])) and
-          diff["losses"][-1] < 0.5 * diff["losses"][0],
+          diff["losses"][-1] < 0.5 * diff["losses"][0] and
+          all(np.isfinite(r[4]) and r[4] > 0 for r in fit["records"]) and
+          bool(np.all(np.isfinite(coef)) and np.all(coef >= 0)),
           f"demo twins on the card: {out}")
     return out
 
@@ -2701,6 +2732,352 @@ def k6_only(dev, name_limit: str) -> int:
     return 0
 
 
+def expected_records(s) -> tuple:
+    """The (op, a, b, c) keys of the factor and solve profiles as the
+    schedule lists them (stats.profile_factor / profile_solve): per
+    factor bucket potrf, trsm with below rows, syge on a pair level, per
+    level asmbl or dense_upd; per solve bucket its diagonal stage and,
+    where stats.solve_split splits it, gemv / gemvT, per L level with a
+    scatter one assembleVec."""
+    from baspacho_tpu_torch.stats import solve_split
+    be, nl = s.backend, s.skel.num_lumps
+    fac = []
+    for lbs, pairs, _, dense in be._factor_schedule(0, nl):
+        for lb in lbs:
+            B = len(lb.off)
+            fac.append(("potrf", lb.cp, B, 0))
+            if lb.rp:
+                fac.append(("trsm", lb.cp, lb.rp * B, 0))
+                if dense is None:
+                    fac.append(("syge", lb.rp, lb.rp, lb.cp * B))
+        if dense is not None:
+            fac.append(("dense_upd", dense.R,
+                        len(dense.rec) + len(dense.w_tile), 0))
+        elif pairs is not None and len(pairs.rs):
+            fac.append(("asmbl", len(pairs.rs),
+                        int((pairs.rs * pairs.cs).sum()), 0))
+    elim_end = int(s.skel.span_to_lump[s.sparse_elim_ranges[-1]]) \
+        if s.sparse_elim_ranges else 0
+    levels = be._solve_levels(0, nl, s.device)
+    hosts = be._solve_schedule(0, nl)
+
+    def stages(level, lbs, lt):
+        out = []
+        for b, lb in zip(level[0], lbs):
+            B = len(lb.off)
+            elim = elim_end > 0 and len(lb.members) > 0 and \
+                bool(np.all(np.asarray(lb.members) < elim_end))
+            out.append((("sparseElimSolve" if elim else "solve") +
+                        ("Lt" if lt else "L"), lb.cp, B, 0))
+            if solve_split(b):
+                out.append(("gemvT" if lt else "gemv", lb.cp, lb.rp * B, 0))
+        return out
+    sol = []
+    for level, lbs in zip(levels, hosts):
+        sol += stages(level, lbs, False)
+        if level[3].n_tgt:
+            sol.append(("assembleVec", level[3].n_tgt,
+                        sum(b.rp > 0 for b in level[0]), 0))
+    for level, lbs in zip(reversed(levels), reversed(hosts)):
+        sol += stages(level, lbs, True)
+    return fac, sol
+
+
+def by_op_ms(records) -> dict:
+    out = {}
+    for op, _, _, _, t in records:
+        out[op] = out.get(op, 0.0) + t * 1e3
+    return out
+
+
+def host_residuals(solver, data, f, b) -> tuple:
+    """sparse_residuals of a factor `f` of `data` and of the solve of
+    `b` (order, nrhs) on the factor, from host copies."""
+    x = solver.solve(f, b)
+    return sparse_residuals(solver, data.cpu().numpy(), f.cpu().numpy(),
+                            x.cpu().numpy(), b.cpu().numpy())
+
+
+# the device grids of each factor record category (K1-wide's buckets:
+# potrf and trsm together, under "wide")
+GRID_CATEGORY = (("chol_", "potrf"), ("below_", "trsm"), ("prod_", "syge"),
+                 ("wide_", "wide"), ("seg_", "asmbl"), ("dense_", "dense_upd"))
+# the problems whose factor records profile_trace holds against traces
+STATS_TRACED = ("meri7", "grid100")
+# a category's records may differ from the device time of its timed
+# runs by the CUDA events' own latency, at most this much a timer call
+EVENT_LATENCY_MS = 0.003
+# and exceed its grids' device time in whole factors by 10 % and this
+# much a record: a timed run's first grid starts ~4 us after the
+# sleep (tools/stats_timer_probe.py), a gap back-to-back launches hide
+LAUNCH_GAP_MS = 0.006
+
+
+def grid_category(name: str):
+    k = _short(name)
+    return next((c for p, c in GRID_CATEGORY if k.startswith(p)), None)
+
+
+def record_category(r) -> str:
+    return "wide" if r[0] in ("potrf", "trsm") and r[1] > NARROW_MAX \
+        else r[0]
+
+
+def traced_events(fn, lead_in_s: float = TRACE_LEAD_IN_S) -> list:
+    """fn() under torch.profiler after a lead-in: the device activities
+    of its run (counted_device_events) in start order, and its result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(lead_in_s)
+        with record_function("counted_runs"):
+            out = fn()
+            torch.cuda.synchronize()
+    ev = counted_device_events(prof.events(), DeviceType.CUDA)
+    return sorted(ev, key=lambda e: e.time_range.start), out
+
+
+def timed_windows(ev: list) -> list:
+    """The timed runs of stats._Timer in a trace: after each
+    torch.cuda._sleep, the device activities up to the next sleep or
+    copy (the next run's restore), as (sleep end, activities)."""
+    runs = []
+    for i, e in enumerate(ev):
+        if _short(e.name) != "spin_kernel":
+            continue
+        j = i + 1
+        while j < len(ev) and _short(ev[j].name) != "spin_kernel" and \
+                not ev[j].name.startswith("Memcpy"):
+            j += 1
+        if j > i + 1:  # the timer's calibration sleeps time nothing
+            runs.append((e.time_range.end, ev[i + 1:j]))
+    return runs
+
+
+def profile_trace(s, d, reps: int = 5) -> dict:
+    """profile_factor's records held against device time, per category
+    (GRID_CATEGORY): `records`, the records' sum (CUDA events); `trace`,
+    the same sum with each timer call's median run read off a trace of
+    this profile (from the sleep's end to the run's last grid's end,
+    differences taken as the records take them); `busy`, the same with
+    the grids' own durations; `factor`, the category's grids in a trace
+    of whole factors, ms a factor. Checks that the records and `trace`
+    differ by at most 5 % of `trace` and EVENT_LATENCY_MS a timer call
+    (the two clocks read the same windows), and that the records lie
+    between 0.9 x `factor` and 1.1 x `factor` + LAUNCH_GAP_MS a record
+    (a piece timed alone costs what it costs in the factor, but for its
+    launch; `n` records, `calls` timed calls). Both traces are retaken
+    up to K1_TRACE_TRIES times while one lacks runs or grids (the
+    profiler loses records late in a long process)."""
+    from baspacho_tpu_torch.stats import profile_factor
+    fac_reps = 5
+    s.factor(d)
+    for tries in range(1, K1_TRACE_TRIES + 1):
+        lead_in = min(1.0, TRACE_LEAD_IN_S * 4 ** (tries - 1))
+        ev, recs = traced_events(lambda: profile_factor(s, d, reps=reps),
+                                 lead_in)
+        runs = timed_windows(ev)
+        kernels.reset_counts()
+        ev, _ = traced_events(lambda: [s.factor(d) for _ in range(fac_reps)],
+                              lead_in)
+        grids = [e for e in ev if grid_category(e.name)]
+        want = sum(kernels.COUNTS[k].grid_launches for k in (
+            "bucket_factor", "wide_factor", "segmented_subtract",
+            "dense_update"))
+        if len(runs) == reps * len(recs) and len(grids) == want:
+            break
+    check(len(runs) == reps * len(recs) and len(grids) == want,
+          f"profile trace: {len(runs)} timed runs of {reps * len(recs)}, "
+          f"factor trace: {len(grids)} grids of {want} "
+          f"({K1_TRACE_TRIES} tries)")
+    span = np.median(np.array([max(a.time_range.end for a in w) - t
+                               for t, w in runs]).reshape(-1, reps), 1)
+    busy = np.median(np.array([sum(a.time_range.elapsed_us() for a in w)
+                               for _, w in runs]).reshape(-1, reps), 1)
+    out = {k: {"records": 0.0, "trace": 0.0, "busy": 0.0, "n": 0,
+               "calls": 0, "factor": 0.0} for k in dict.fromkeys(
+                   c for _, c in GRID_CATEGORY)}
+    for k, r in enumerate(recs):
+        row = out[record_category(r)]
+        diff = r[0] in ("trsm", "syge")
+        row["records"] += r[4] * 1e3
+        row["trace"] += (span[k] - diff * span[k - 1]) / 1e3
+        row["busy"] += (busy[k] - diff * busy[k - 1]) / 1e3
+        row["n"] += 1
+        row["calls"] += 1 + diff
+    for e in grids:
+        out[grid_category(e.name)]["factor"] += \
+            e.time_range.elapsed_us() / 1e3 / fac_reps
+    out = {k: v for k, v in out.items() if v["n"]}
+    for k, v in out.items():
+        check(abs(v["records"] - v["trace"]) <=
+              0.05 * v["trace"] + EVENT_LATENCY_MS * v["calls"],
+              f"profile records of {k}: {v['records']} ms by events, "
+              f"{v['trace']} ms in a trace of the same runs")
+        check(0.9 * v["factor"] <= v["records"] <=
+              1.1 * v["factor"] + LAUNCH_GAP_MS * v["n"],
+              f"profile records of {k}: {v['records']} ms, its grids "
+              f"{v['factor']} ms in a factor")
+        v["records_to_factor"] = v["records"] / v["factor"] \
+            if v["factor"] else None
+    return {"tries": tries, "reps": reps, "categories": out}
+
+
+# the problems of the stats phase beside BAL 871 (the fitted model's
+# skeletons are built on them)
+STATS_PROBLEMS = {"meri7": meri7, "grid100": grid100, "flat1000": flat1000,
+                  "flat_schur50k": flat_schur50k}
+
+
+def stats_phase(cases, name_limit: str) -> None:
+    """The stats slice on the card, f64, batch 1, on each case (name,
+    solver, data, rhs (order, nrhs)): coarse stats of three factor +
+    solve calls (print_stats, reset, disabled), then profile_ops(reps=5)
+    and profile_solve_ops counted (every record finite and > 0, one per
+    bucket and op as the schedule lists them, the replays equal to
+    factor / solve bit for bit, the residuals), the sum of the factor
+    records beside one factor by events; then one ComputationModel fitted
+    on every case's factor records (20 finite coefficients >= 0) and the
+    skeletons it builds for the problems of STATS_PROBLEMS, their
+    residuals and factor / solve ms beside the default model's. On the
+    cases of STATS_TRACED, profile_trace."""
+    import contextlib
+    import io
+    from baspacho_tpu_torch.stats import fit_computation_model, solve_split
+    t0 = time.perf_counter()
+    records = []
+    for name, s, d, b in cases:
+        s.reset_stats()
+        s.enable_stats()
+        for _ in range(3):
+            f = s.factor(d)
+            x = s.solve(f, b)
+        torch.cuda.synchronize()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            s.print_stats()
+        text = text.getvalue()
+        print(text, end="", flush=True)
+        check(s.stats.factor.num_runs == 3 and
+              s.stats.solve_l.num_runs == 3 and
+              s.stats.solve_lt.num_runs == 0 and
+              "factor: #runs: 3," in text and "solveL: #runs: 3," in text,
+              f"{name}: coarse stats after 3 factor + solve: {text}")
+        coarse_ms = {"factor": s.stats.factor.total_time * 1e3 / 3,
+                     "solve": s.stats.solve_l.total_time * 1e3 / 3}
+        s.reset_stats()
+        check(all(st.num_runs == 0 for st in s.stats._all()),
+              f"{name}: reset_stats left runs")
+        s.enable_stats(False)
+        s.solve(s.factor(d), b)
+        check(all(st.num_runs == 0 for st in s.stats._all()),
+              f"{name}: disabled stats recorded a run")
+        (fr_, sr_), c = counted(f"stats_{name}", lambda: (
+            s.profile_ops(d, reps=5), s.profile_solve_ops(f, b)))
+        want_f, want_s = expected_records(s)
+        for what, recs, want in (("factor", fr_, want_f),
+                                 ("solve", sr_, want_s)):
+            check(all(np.isfinite(r[4]) and r[4] > 0 for r in recs),
+                  f"{name}: a {what} record not finite or <= 0")
+            check([r[:4] for r in recs] == want,
+                  f"{name}: {what} records differ from the schedule's "
+                  f"{len(recs)} / {len(want)}")
+        check(torch.equal(fr_.output, f) and
+              torch.equal(fr_.output, s.factor(d)),
+              f"{name}: the profile's replay differs from factor(data)")
+        check(torch.equal(sr_.output, x),
+              f"{name}: the solve profile's replay differs from solve")
+        fres, sres = host_residuals(s, d, s.factor(d), b)
+        check(fres <= 1e-10 and sres <= 1e-10, f"{name}: after profiling, "
+              f"factor residual {fres}, solve residual {sres}")
+        records += list(fr_)
+        prof_ms = sum(r[4] for r in fr_) * 1e3
+        # buckets whose solve records hold the whole call (solve_split)
+        unsplit = [[b.cp, b.rp, int(b.off.shape[0])]
+                   for lv in s.backend._solve_levels(0, s.skel.num_lumps,
+                                                     s.device)
+                   for b in lv[0] if b.rp and not solve_split(b)]
+        ev_ms = time_ms(lambda: s.factor(d), 1, warmup=1)
+        if name in STATS_TRACED:
+            log("stats_trace", case=name, card=name_limit, dtype="float64",
+                batch=1, **profile_trace(s, d))
+        log("stats", case=name, card=name_limit, dtype="float64", batch=1,
+            nrhs=b.shape[1], coarse_ms=coarse_ms,
+            factor_records=len(fr_), solve_records=len(sr_),
+            factor_ms_by_op=by_op_ms(fr_), solve_ms_by_op=by_op_ms(sr_),
+            clamped={"factor": fr_.clamped, "solve": sr_.clamped},
+            unsplit_solve_buckets=unsplit,
+            profile_factor_sum_ms=prof_ms, factor_events_ms=ev_ms,
+            profile_to_events=prof_ms / ev_ms,
+            factor_residual_probe=fres, solve_residual=sres,
+            launches={k: v[0] for k, v in c.items() if v[0]})
+        del f, x, fr_, sr_
+    fitted = fit_computation_model(records)
+    coef = {k: [float(v) for v in getattr(fitted, k)] for k in (
+        "potrf_params", "trsm_params", "syge_params", "asmbl_params")}
+    flat_coef = sum(coef.values(), [])
+    check(len(flat_coef) == 20 and all(np.isfinite(flat_coef)) and
+          min(flat_coef) >= 0, f"fitted coefficients {coef}")
+    log("stats_fit", card=name_limit, records=len(records), **coef)
+    use = {}
+    defaults = {name: s for name, s, _, _ in cases}
+    for p, make in STATS_PROBLEMS.items():
+        row = {}
+        for which, s in (("default", defaults[p]), ("fitted", make(
+                T, device=defaults[p].device, computation_model=fitted))):
+            d = torch.from_numpy(spd_data(s, 1)).to(s.device)
+            b = torch.from_numpy(np.random.RandomState(0).rand(
+                s.order, 3)).to(s.device)
+            f = s.factor(d)
+            fres, sres = host_residuals(s, d, f, b)
+            check(fres <= 1e-10 and sres <= 1e-10, f"{p} {which} model: "
+                  f"factor residual {fres}, solve residual {sres}")
+            row[which] = {
+                "lumps": s.skel.num_lumps, "levels": s.backend.num_levels,
+                "factor_ms": time_ms(lambda: s.factor(d), 5),
+                "solve_ms": time_ms(lambda: s.solve(f, b), 5),
+                "factor_residual_probe": fres, "solve_residual": sres}
+        use[p] = row
+    log("stats_use", card=name_limit, dtype="float64", nrhs=3, **use)
+    log("stats_phase", seconds=time.perf_counter() - t0)
+
+
+def stats_cases(probs, d64, bal_solver, bal_damped_data, bal_grad) -> list:
+    """The stats phase's cases: the problems of STATS_PROBLEMS on their
+    data with a 3-column right-hand side, and BAL 871's first damped
+    system with its gradient."""
+    dev = bal_damped_data.device
+    cases = []
+    for p in STATS_PROBLEMS:
+        s = probs[p]
+        cases.append((p, s, torch.from_numpy(d64[p]).to(dev),
+                      torch.from_numpy(np.random.RandomState(0).rand(
+                          s.order, 3)).to(dev)))
+    cases.append(("bal871", bal_solver, bal_damped_data,
+                  -bal_grad[:, None].contiguous()))
+    return cases
+
+
+def stats_only(dev, name_limit: str) -> int:
+    """`--only stats`: the build, then the stats phase alone on MERI,
+    GRID, FLAT, FLAT+Schur 50k and BAL 871's first damped system, for
+    iterating on the stats slice without the whole run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    probs = {p: make(T, device=dev) for p, make in STATS_PROBLEMS.items()}
+    d64 = {k: spd_data(s, 1) for k, s in probs.items()}
+    opt, values0, _ = bal_setup(dev)
+    damped, grad, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
+    stats_phase(stats_cases(probs, d64, opt.solver, damped, grad),
+                name_limit)
+    log("stats_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
 def main(argv=()) -> int:
     # 1. card
     if not torch.cuda.is_available():
@@ -2727,7 +3104,8 @@ def main(argv=()) -> int:
             "k3": functools.partial(solve_only, "bucket_solve"),
             "k3w": functools.partial(solve_only, "wide_solve"),
             "k2": functools.partial(level_only, "k2"),
-            "k3r": functools.partial(level_only, "k3r")}
+            "k3r": functools.partial(level_only, "k3r"),
+            "stats": stats_only}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         return only[argv[1]](dev, name_limit)
     if argv:
@@ -3312,9 +3690,13 @@ def main(argv=()) -> int:
     k3 = solve_levels(solve_cases(probs, d64, K3_PROBLEMS, opt.solver,
                                   bal["damped"]), "bucket_solve", name_limit)
     k3w = solve_levels(solve_cases(probs, d64, K3W_PROBLEMS, opt.solver,
-                                   bal.pop("damped")), "wide_solve",
+                                   bal["damped"]), "wide_solve",
                        name_limit)
     k6 = k6_levels(opt, bal["terms"], name_limit)
+    # 16. the stats slice: coarse stats, the factor and solve profiles on
+    # the kernels (counted), the fitted model and its skeletons
+    stats_phase(stats_cases(probs, d64, opt.solver, bal.pop("damped"),
+                            bal["grad"]), name_limit)
     by_case["wide_factor"] = {
         f"{r['case']} {r['bucket'][:2]} (k1w_levels)": r["ms"] for r in k1w}
     by_case["bucket_factor"] = {
