@@ -27,6 +27,16 @@ instead of reading a zero row. Buffers are updated in place (the factor
 works on a copy of its input), which the JAX package, being functional,
 cannot do.
 
+One factor or solve can be split over the ranks of a torch.distributed
+process group (make_factor_sharded / make_solve_sharded, the JAX
+package's shard_map programs): every rank runs K1-K4 on its share of
+each level's large buckets (ops/schedule.py factor_share /
+solve_share), and per level one all-gather shares the factored panels,
+or one all-reduce sums a dense level's update or a solve level's RHS
+changes. The collectives
+run on the tensors' own device through the group given; nothing is
+copied to the host by this module, and a failed collective raises.
+
 Every host array a program needs moves to the device once, when the
 program is built; a factor or solve call then does no host-to-device
 traffic beyond the launches.
@@ -39,11 +49,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import kernels
 from .ref_backend import make_pseudo_factor
 from .schedule import NARROW_MAX, DenseUpdate, LumpBucket, PlannedSchedule, \
-    SegmentCSR, pair_csr, solve_csr
+    SegmentCSR, factor_share, pair_csr, solve_csr, solve_share
 
 
 @dataclass
@@ -169,7 +180,7 @@ class PlannedBackend(PlannedSchedule):
     @staticmethod
     def _level_update(ext, prod, level, ops) -> None:
         """The level's update: K2 over its block pairs, or K4."""
-        _, csr, _, dense = level
+        csr, dense = level[1], level[3]
         if csr is not None and csr.n_tgt:
             ops.segmented_subtract(ext, prod, csr.tgt, csr.seg_ptr,
                                    csr.src_idx, 1, layout=csr.layout)
@@ -349,6 +360,203 @@ class PlannedBackend(PlannedSchedule):
         in plain torch, shared with the REF backend, as the JAX package
         delegates it (planned_backend.py:3135)."""
         return make_pseudo_factor(self.plan, start_span, end_span, device)
+
+    # -- one factor or solve sharded over the ranks of a process group --
+    def _sharded_levels(self, kind: str, start_lump: int, end_lump: int,
+                        n: int, r: int, device):
+        """The factor ("factor") or solve ("solve") levels of
+        [start_lump, end_lump) as rank r of n runs them: each level's
+        tuple as _factor_levels / _solve_levels build it, over the rank's
+        buckets (on a factor level, its dense update: the rank's part
+        where the level's update is summed over the ranks), then the
+        rest of its share (ops/schedule.py factor_share / solve_share) on
+        the device (DevShare)."""
+        key = (kind + "_sharded", start_lump, end_lump, n, r,
+               torch.device(device))
+        levels = self._device_cache.get(key)
+        if levels is not None:
+            return levels
+        levels = []
+        if kind == "factor":
+            for level in self._factor_schedule(start_lump, end_lump):
+                sh = factor_share(self, level, n, r)
+                _, pairs, ptot, _ = level
+                csr = _dev_csr(pair_csr(pairs), device) if ptot else None
+                levels.append((
+                    [_dev_bucket(lb, device) for lb in sh.buckets], csr,
+                    ptot, DevDense(sh.dense, device)
+                    if sh.dense is not None else None, DevShare(sh, device)))
+        else:
+            order = self.plan.skel.order
+            for buckets in self._solve_schedule(start_lump, end_lump):
+                sh = solve_share(self, buckets, n, r)
+                row_base, ytot = _row_bases(sh.buckets)
+                levels.append((
+                    [_dev_bucket(lb, device) for lb in sh.buckets],
+                    row_base, ytot,
+                    _dev_csr(solve_csr(sh.buckets, row_base, order),
+                             device), DevShare(sh, device)))
+        self._device_cache[key] = levels
+        return levels
+
+    def make_factor_sharded(self, start_lump: int, end_lump: int, group,
+                            device) -> Callable:
+        """One factor (batch 1) sharded over the ranks of `group`
+        (make_factor_sharded, planned_backend.py:2068): data replicated
+        in, the same factor out on every rank. Per level, each rank runs
+        K1 / K1-wide on its share of every bucket of at least
+        n * SHARD_MIN_B panels and on the smaller buckets whole; one
+        all-gather then carries the shares' factored panels (and, on a
+        pair level, their products), and K2 runs replicated. A dense
+        level with a split bucket runs K4 on each rank's origins into
+        zeroed targets and sums them with one all-reduce."""
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        levels = self._sharded_levels("factor", start_lump, end_lump, n, r,
+                                      device)
+        pad_idx = self._pad_idx(device)
+
+        def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
+            ext = factor_input(data, pad_idx)
+            for level in levels:
+                sh = level[4]
+                prod = self._level_prod(ext, level)
+                self._factor_buckets(ext, prod, level, ops)
+                if sh.pack_len:
+                    _share_panels(ext, prod, sh, group, n)
+                if sh.targets is None:
+                    self._level_update(ext, prod, level, ops)
+                else:
+                    _sum_dense(ext, level[3], sh.targets, group, ops)
+            return ext
+
+        return factor
+
+    def make_solve_sharded(self, start_lump: int, end_lump: int, group,
+                           device) -> Callable:
+        """One solve (batch 1) sharded over the ranks of `group` on a
+        factor from make_factor / make_factor_sharded (it reads the
+        stored inverse; make_solve_sharded, planned_backend.py:2949).
+        Per level and pass, each rank runs K3 / K3-wide on its share of
+        every split bucket (the replicated buckets on rank 0) and, in
+        the L pass, K2 over its own CSR; the changes of the RHS rows the
+        level touches are summed by one all-reduce. A level with no
+        split bucket runs replicated, with no collective."""
+        if not self._full_range(start_lump, end_lump):
+            raise NotImplementedError(
+                "the sharded solve reads the stored inverse of a "
+                "full-range factor")
+        levels = self._sharded_levels("solve", start_lump, end_lump,
+                                      dist.get_world_size(group),
+                                      dist.get_rank(group), device)
+
+        def solve(data: torch.Tensor, v: torch.Tensor,
+                  ops=kernels) -> torch.Tensor:
+            vv = v.clone(memory_format=torch.contiguous_format)
+            for level in levels:
+                old = _rows_before(vv, level[4].rows_l)
+                y = self._level_y(vv, level)
+                self._l_buckets(level, True, data, vv, y, ops)
+                self._l_scatter(level, vv, y, ops)
+                _sum_rows(vv, old, level[4].rows_l, group)
+            for level in reversed(levels):
+                old = _rows_before(vv, level[4].rows_lt)
+                for b in level[0]:
+                    self._diag_solve(ops, b, True, data, vv, None, 0, True)
+                _sum_rows(vv, old, level[4].rows_lt, group)
+            return vv
+
+        return solve
+
+
+class DevShare:
+    """A FactorShare's or SolveShare's index arrays as int64 tensors on
+    the device (same names; None stays None), its scalars as they are.
+    Its buckets and dense update go to the level's tuple instead."""
+
+    def __init__(self, share, device):
+        for k, v in vars(share).items():
+            if k not in ("buckets", "dense"):
+                setattr(self, k, _i64(v, device)
+                        if isinstance(v, np.ndarray) else v)
+
+
+@dataclass
+class CommCount:
+    """Collectives of the sharded programs in this process and their
+    payload: an all-gather sends the rank's part and receives the n - 1
+    others, an all-reduce sends and receives its tensor."""
+    calls: int = 0
+    sent_bytes: int = 0
+    received_bytes: int = 0
+
+
+COMM = CommCount()
+
+
+def reset_comm() -> None:
+    COMM.calls = COMM.sent_bytes = COMM.received_bytes = 0
+
+
+def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(n,) + x.shape: every rank's x, in rank order."""
+    out = x.new_empty((n,) + tuple(x.shape))
+    dist.all_gather(list(out.unbind(0)), x, group=group)
+    COMM.calls += 1
+    COMM.sent_bytes += x.nbytes
+    COMM.received_bytes += (n - 1) * x.nbytes
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group) -> None:
+    dist.all_reduce(x, group=group)
+    COMM.calls += 1
+    COMM.sent_bytes += x.nbytes
+    COMM.received_bytes += x.nbytes
+
+
+def _share_panels(ext, prod, sh: DevShare, group, n: int) -> None:
+    """Every rank's factored shares (panels, and products on a pair
+    level) into ext and prod: one all-gather of the packs."""
+    batch, nd = ext.shape[0], sh.pack_data.shape[0]
+    pack = ext.new_empty((batch, sh.pack_len))
+    pack[:, :nd] = ext[:, sh.pack_data]
+    if sh.pack_prod.shape[0]:
+        pack[:, nd:nd + sh.pack_prod.shape[0]] = prod[:, sh.pack_prod]
+    got = _all_gather(pack, group, n).transpose(0, 1).reshape(batch, -1)
+    ext.index_copy_(1, sh.unpack_data_dst, got[:, sh.unpack_data_src])
+    if sh.unpack_prod_dst.shape[0]:
+        prod.index_copy_(1, sh.unpack_prod_dst, got[:, sh.unpack_prod_src])
+
+
+def _sum_dense(ext, dense: Optional[DevDense], targets, group,
+               ops) -> None:
+    """A dense level's update summed over the ranks: K4 on this rank's
+    origins (`dense`, None without any) into the zeroed targets leaves
+    -U_r there; one all-reduce of the targets gives -U, added to their
+    saved values. Only the target elements are zeroed: K4 reads x from
+    the origins' panels."""
+    t0 = ext[:, targets]
+    ext.index_fill_(1, targets, 0)
+    if dense is not None:
+        ops.dense_update(ext, dense)
+    u = ext[:, targets]
+    _all_reduce(u, group)
+    ext.index_copy_(1, targets, t0 + u)
+
+
+def _rows_before(vv, rows) -> Optional[torch.Tensor]:
+    return vv[:, rows] if rows is not None else None
+
+
+def _sum_rows(vv, old, rows, group) -> None:
+    """The ranks' changes of the RHS rows `rows` since `old` summed by
+    one all-reduce, then added to `old` (rows None: the level ran
+    replicated)."""
+    if rows is None:
+        return
+    delta = vv[:, rows] - old
+    _all_reduce(delta, group)
+    vv[:, rows] = old + delta
 
 
 def factor_input(data: torch.Tensor, pad_idx: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,18 @@ K4's cost does not depend on how far an origin's rows spread.
 Added for the hand-written kernels: `pair_csr` and `solve_csr` turn a
 level's contributions into a target-sorted CSR (stable in origin order),
 which the deterministic segmented-subtract kernel consumes.
+
+The schedule split over the n ranks of a process group
+(`factor_share` / `solve_share`, for make_factor_sharded /
+make_solve_sharded): a
+bucket of at least n * SHARD_MIN_B panels is split into n contiguous
+shares (`share_bounds`, `bucket_share`), smaller ones run replicated.
+Unlike the JAX package, shares are not padded to one size: only the
+all-gather's packs are (`FactorShare.pack_len`), and no padded slot is
+ever written back. A dense level with a split bucket gives each rank a
+DenseUpdate over its own origins (the replicated buckets' on rank 0) and
+the level's target elements (`dense_targets`), which the ranks'
+updates are summed over.
 """
 
 from __future__ import annotations
@@ -393,11 +405,13 @@ class PlannedSchedule:
         pairs = self._build_pairs(lds, origin_pos)
         return lump_buckets, pairs, prod_total, None
 
-    def _dense_update(self, lump_buckets) -> Optional[DenseUpdate]:
+    def _dense_update(self, lump_buckets,
+                      force: bool = False) -> Optional[DenseUpdate]:
         """The level's DenseUpdate when the rule of the module docstring
-        sends it dense, else None (vectorized: the rule is linear in the
-        origins' below chains and rows, K4's records in the pairs of each
-        origin's below chains)."""
+        sends it dense (or, with `force`, whenever the buckets hold an
+        origin: one rank's part of a dense level), else None (vectorized:
+        the rule is linear in the origins' below chains and rows, K4's
+        records in the pairs of each origin's below chains)."""
         sk = self.plan.skel
         span_size = sk.span_start[1:] - sk.span_start[:-1]
         org, xoff, ld, width, groups = [], [], [], [], []
@@ -428,7 +442,7 @@ class PlannedSchedule:
         tspans = np.unique(sp)
         R = int(span_size[tspans].sum())
         wide = bool(np.any(ld > NARROW_MAX))
-        if not wide:
+        if not (wide or force):
             if self.assembly == "pairs":
                 return None
             overlap = float((rows.astype(np.float64) ** 2).sum()) / R / R
@@ -682,3 +696,172 @@ def solve_csr(buckets: List[LumpBucket], row_base: List[int],
         return SegmentCSR(z, np.zeros(1, np.int64), z)
     return _csr(np.concatenate(tgts), np.concatenate(srcs),
                 np.concatenate(origins))
+
+
+# ----------------------------------------------------------------------
+# the schedule sharded over the ranks of a process group
+# ----------------------------------------------------------------------
+SHARD_MIN_B = 2  # buckets of fewer than n * SHARD_MIN_B panels run
+#                  replicated on every rank
+
+
+def share_bounds(B: int, n: int) -> Optional[np.ndarray]:
+    """Panel bounds of the n contiguous shares of a bucket of B panels
+    (sizes differ by one at most), or None when the bucket runs
+    replicated."""
+    if B < n * SHARD_MIN_B:
+        return None
+    return np.arange(n + 1, dtype=np.int64) * B // n
+
+
+def bucket_share(lb: LumpBucket, lo: int, hi: int) -> LumpBucket:
+    """Panels [lo, hi) of the bucket as a bucket of their own, its
+    products at their place in the level's product buffer."""
+    share = LumpBucket(
+        rp=lb.rp, cp=lb.cp, off=lb.off[lo:hi], rows=lb.rows[lo:hi],
+        cols=lb.cols[lo:hi], vec_off=lb.vec_off[lo:hi],
+        below_idx=None if lb.below_idx is None else lb.below_idx[lo:hi],
+        prod_base=lb.prod_base + lo * lb.rp * lb.rp)
+    share.members = lb.members[lo:hi]
+    return share
+
+
+def _panel_elements(lbs) -> np.ndarray:
+    """Data positions of the panels of the buckets, panel by panel."""
+    parts = [_expand(lb.off.astype(np.int64),
+                     np.full(len(lb.off), (lb.cp + lb.rp) * lb.cp, np.int64))
+             for lb in lbs]
+    return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+
+def _product_elements(lbs) -> np.ndarray:
+    """Product-buffer positions of the buckets' panels' products."""
+    parts = [lb.prod_base + np.arange(len(lb.off) * lb.rp * lb.rp,
+                                      dtype=np.int64)
+             for lb in lbs if lb.rp]
+    return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+
+def _rhs_rows(lbs, order: int, below: bool) -> np.ndarray:
+    """RHS rows the buckets' solves change: each panel's own rows and,
+    with `below`, its below rows (sentinels dropped), sorted."""
+    parts = [_expand(lb.vec_off.astype(np.int64), lb.cols.astype(np.int64))
+             for lb in lbs]
+    if below:
+        parts += [lb.below_idx[lb.below_idx != order].astype(np.int64)
+                  for lb in lbs if lb.rp]
+    return np.unique(np.concatenate(parts)) if parts else \
+        np.zeros(0, np.int64)
+
+
+def dense_targets(du: DenseUpdate) -> np.ndarray:
+    """Data positions of every element of a dense level's target slices
+    (rows of span a by the columns of span b), sorted."""
+    n_sl = np.diff(du.slice_ptr)
+    s_of = np.repeat(np.arange(len(du.tspans)), n_sl)
+    cols, ld = du.sp_size[s_of], du.sp_ld[s_of]
+    ne = du.sl_size * cols
+    q = np.repeat(np.arange(len(ne)), ne)
+    k = _expand(np.zeros(len(ne), np.int64), ne)
+    return np.sort(du.sl_off[q] + k // cols[q] * ld[q] + k % cols[q])
+
+
+@dataclass
+class FactorShare:
+    """One rank's part of a factor level sharded over n ranks.
+
+    The rank factors `buckets`: its share of every bucket split across
+    the ranks (share_bounds) and every replicated bucket whole. When a
+    bucket is split, one all-gather carries each rank's pack, padded to
+    `pack_len`: its shares' factored panel elements (data positions
+    `pack_data`) and, on a pair level, their products (product
+    positions `pack_prod`); every rank then writes element
+    `unpack_*_src` of the gathered (n * pack_len) buffer to position
+    `unpack_*_dst`. pack_len 0: nothing is split, no all-gather.
+
+    A dense level with a split bucket sums its update over the ranks:
+    `dense` is this rank's part (the origins of its shares, and of the
+    replicated buckets on rank 0 only; None without origins), `targets`
+    the level's target elements, the same on every rank. Otherwise
+    `dense` is the level's whole update and `targets` None."""
+    buckets: List[LumpBucket]
+    pack_len: int
+    pack_data: np.ndarray
+    pack_prod: np.ndarray
+    unpack_data_src: np.ndarray
+    unpack_data_dst: np.ndarray
+    unpack_prod_src: np.ndarray
+    unpack_prod_dst: np.ndarray
+    dense: Optional[DenseUpdate]
+    targets: Optional[np.ndarray]
+
+
+@dataclass
+class SolveShare:
+    """One rank's part of a solve level sharded over n ranks: the buckets
+    it solves (its shares of the split buckets; the replicated ones on
+    rank 0 only when a bucket is split, else all of them on every rank)
+    and the RHS rows the level's L and Lt passes change (None when
+    nothing is split: the level runs replicated, with no all-reduce)."""
+    buckets: List[LumpBucket]
+    rows_l: Optional[np.ndarray]
+    rows_lt: Optional[np.ndarray]
+
+
+def _split_level(lump_buckets, n: int, r: int):
+    """One level split over n ranks: (the buckets rank r factors or
+    solves: its shares of the split buckets and the replicated buckets,
+    in level order; the update's origins on rank r: its shares, and the
+    replicated buckets on rank 0 only; every rank's shares of the split
+    buckets). No share lists: nothing is split."""
+    mine, origins, shares = [], [], [[] for _ in range(n)]
+    for lb in lump_buckets:
+        bounds = share_bounds(len(lb.off), n)
+        if bounds is None:
+            mine.append(lb)
+            if r == 0:
+                origins.append(lb)
+            continue
+        for q in range(n):
+            shares[q].append(bucket_share(lb, int(bounds[q]),
+                                          int(bounds[q + 1])))
+        mine.append(shares[r][-1])
+        origins.append(shares[r][-1])
+    return mine, origins, shares if shares[0] else None
+
+
+def factor_share(sched: PlannedSchedule, level, n: int,
+                 r: int) -> FactorShare:
+    """Rank r's part of a factor level of `sched` split over n ranks."""
+    lump_buckets, _, _, dense = level
+    mine, origins, shares = _split_level(lump_buckets, n, r)
+    z = np.zeros(0, np.int64)
+    if shares is None:
+        return FactorShare(mine, 0, z, z, z, z, z, z, dense, None)
+    pair = dense is None
+    data_el = [_panel_elements(s) for s in shares]
+    prod_el = [_product_elements(s) if pair else z for s in shares]
+    M = max(len(a) + len(b) for a, b in zip(data_el, prod_el))
+    src_d, src_p = [], []
+    for q, (a, b) in enumerate(zip(data_el, prod_el)):
+        src_d.append(q * M + np.arange(len(a), dtype=np.int64))
+        src_p.append(q * M + len(a) + np.arange(len(b), dtype=np.int64))
+    my_dense = targets = None
+    if not pair:
+        my_dense = sched._dense_update(origins, force=True)
+        targets = dense_targets(dense)
+    return FactorShare(
+        mine, M, data_el[r], prod_el[r], np.concatenate(src_d),
+        np.concatenate(data_el), np.concatenate(src_p),
+        np.concatenate(prod_el), my_dense, targets)
+
+
+def solve_share(sched: PlannedSchedule, buckets, n: int,
+                r: int) -> SolveShare:
+    """Rank r's part of a solve level of `sched` split over n ranks."""
+    mine, origins, shares = _split_level(buckets, n, r)
+    if shares is None:
+        return SolveShare(mine, None, None)
+    order = sched.plan.skel.order
+    return SolveShare(origins, _rhs_rows(buckets, order, True),
+                      _rhs_rows(buckets, order, False))

@@ -16,9 +16,10 @@ through the hand-written kernels, REF in plain torch), and the stats:
 enable_stats / reset_stats / print_stats with `stats` (factor and solve
 calls timed by CUDA events while enabled) and the per-op profiles
 profile_ops / profile_solve_ops (PLANNED, stats.py). A solver runs on
-the CUDA card unless a device is named. The sharded methods raise
-NotImplementedError naming the slice that brings them; the chained ones
-(a TPU timing aid) are not ported.
+the CUDA card unless a device is named. factor_sharded / solve_sharded
+split one factor or solve over the ranks of a torch.distributed process
+group (PLANNED, one system); the chained methods (a TPU timing aid) are
+not ported.
 
 createSolver pipeline (same analysis structure as reference :611-752):
   1. apply given sparse-elim-range fill,
@@ -37,6 +38,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .accessor import CoalescedAccessor, PermutedCoalescedAccessor
 from .block_matrix import CoalescedBlockMatrixSkel
@@ -73,14 +75,16 @@ class Settings:
     level_reorder: bool = False
 
 
-# the slice of the port (ROADMAP.md, queue 1) that brings what is refused
-# here
-_SLICE_MULTI = "the multi-GPU slice (ROADMAP queue 1, item 1)"
-
-
-def _not_ported(what: str, slice_: str):
-    raise NotImplementedError(f"{what} is not ported yet; it comes with "
-                              f"{slice_}")
+def shard_group(mesh):
+    """The process group of a 1-D `torch.distributed.device_mesh.DeviceMesh`
+    or a ProcessGroup given as it is (the JAX package's 1-D Mesh)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(mesh, DeviceMesh):
+        if mesh.ndim != 1:
+            raise ValueError(f"a sharded factor or solve takes a 1-D mesh, "
+                             f"got {mesh.ndim} dimensions")
+        return mesh.get_group()
+    return mesh
 
 
 def resolve_device(device=None) -> torch.device:
@@ -445,12 +449,60 @@ class Solver:
 
         return diff_solve
 
-    # -- not in this slice ----------------------------------------------
+    # -- one factor or solve sharded over a process group ----------------
+    def sharded_program(self, op: str, mesh):
+        """The full-range program "factor_sharded" or "solve_sharded" of
+        the PLANNED backend for this rank of `mesh` (shard_group),
+        cached per (op, ranks, rank, group)."""
+        group = shard_group(mesh)
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        key = (op, n, r, group)
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = getattr(self.backend, f"make_{op}")(
+                0, self.skel.num_lumps, group, self.device)
+            self._fns[key] = fn
+        return fn
+
+    def _check_sharded(self, what: str) -> None:
+        if self.backend_type != BackendType.PLANNED:
+            raise ValueError(f"{what} needs the PLANNED backend")
+
     def factor_sharded(self, data, mesh):
-        _not_ported("factor_sharded", _SLICE_MULTI)
+        """Factor ONE matrix with every level's panel work split over the
+        ranks of `mesh`, a 1-D DeviceMesh or a ProcessGroup: per level,
+        one all-gather of the factored panels and, on a dense level, one
+        all-reduce of its update (PlannedBackend.make_factor_sharded).
+        Every rank passes the same data and gets the same factor, that
+        of `factor(data)` up to the order of the update's sums. Timed
+        into `stats.factor` while it is enabled."""
+        self._check_sharded("factor_sharded")
+        data = self._as_tensor(data)
+        self._check_data(data)
+        if data.ndim != 1:
+            raise ValueError("factor_sharded shards ONE factorization")
+        fn = self.sharded_program("factor_sharded", mesh)
+        x = data[None].contiguous()
+        return self._timed(self.stats.factor, lambda: fn(x))[0]
 
     def solve_sharded(self, mat_data, rhs, mesh):
-        _not_ported("solve_sharded", _SLICE_MULTI)
+        """Solve ONE system with every level's panel work split over the
+        ranks of `mesh`: per level and pass, one all-reduce of the
+        changes of the RHS rows the level touches
+        (PlannedBackend.make_solve_sharded). `mat_data` must come from
+        factor / factor_sharded (the solve reads the stored inverse);
+        rhs is (order,) or (order, nrhs)."""
+        self._check_sharded("solve_sharded")
+        data = self._as_tensor(mat_data)
+        v = self._as_tensor(rhs)
+        self._check_data(data)
+        if data.ndim != 1:
+            raise ValueError("solve_sharded shards ONE solve")
+        _, vec1d = self._check_vec(data, v)
+        fn = self.sharded_program("solve_sharded", mesh)
+        out = fn(data[None].contiguous(),
+                 (v[:, None] if vec1d else v)[None])[0]
+        return out[:, 0] if vec1d else out
 
     # -- not ported: the JAX package's TPU timing aid -------------------
     def factor_chained(self, data, k: int):
@@ -516,22 +568,24 @@ def skeleton_arrays(skel) -> Dict[str, np.ndarray]:
 
 def solver_from_skeleton(arrays: Dict[str, np.ndarray], permutation,
                          sparse_elim_ranges: Sequence[int],
-                         device=None) -> Solver:
-    """A PLANNED solver on exactly the skeleton described by `arrays`
-    (from skeleton_arrays, e.g. of a JAX Solver's skel), on `device`
-    (default: the CUDA card). Raises ValueError when the rebuilt layout
-    differs from the given one."""
+                         device=None,
+                         backend: BackendType = BackendType.PLANNED
+                         ) -> Solver:
+    """A solver of `backend` (PLANNED unless named) on exactly the
+    skeleton described by `arrays` (from skeleton_arrays, e.g. of a JAX
+    Solver's skel), on `device` (default: the CUDA card). Raises
+    ValueError when the rebuilt layout differs from the given one."""
     skel = CoalescedBlockMatrixSkel(
         arrays["span_start"], arrays["lump_to_span"],
         arrays["chain_col_ptr"], arrays["chain_row_span"],
-        pad_fn=_pad_fn_for(Settings(backend=BackendType.PLANNED)))
+        pad_fn=_pad_fn_for(Settings(backend=backend)))
     mine = skeleton_arrays(skel)
     for k, v in arrays.items():
         if k in mine and not np.array_equal(mine[k], v):
             raise ValueError(f"skeleton array {k!r} differs from the "
                              "padded layout this port builds")
-    return Solver(skel, sparse_elim_ranges, permutation,
-                  BackendType.PLANNED, -1, device)
+    return Solver(skel, sparse_elim_ranges, permutation, backend, -1,
+                  device)
 
 
 def _level_shape_reorder(span_sizes, lump_to_span, col_start, row_param,

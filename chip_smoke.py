@@ -121,6 +121,21 @@ and drives the planned factor + solve (create_solver -> Solver.factor
                records, and the skeletons it builds for the first four
                (lumps, levels, residuals, factor / solve ms beside the
                default model's)
+  sharded      (after stats) the multi-GPU slice on ranks of their own
+               (baspacho_tpu_torch/testing/ranks.py; 4 over gloo on one
+               card, NCCL across 4 cards, or 2 on 2 or 3 cards):
+               the MERI batch of 16 data-parallel, bitwise equal to the
+               one-process batch; factor_sharded and solve_sharded
+               (nrhs 2 and 1-D) on GRID 100x100, FLAT+Schur 50k and BAL
+               871's first damped system, within rel 1e-9 / atol 1e-11
+               of factor / solve on one card, residuals <= 1e-10, every
+               rank's bytes equal, reruns bitwise, K1-K4 counted on each
+               rank; ms by CUDA events per rank, collective bytes, GRID's
+               sharded factor on the twins (within rel 1e-9 / atol 1e-11
+               of the kernels') and its bound; on one card, also GRID's
+               factor_sharded and solve_sharded on one NCCL rank (the
+               launcher's NCCL branch; the factor bitwise equal to
+               factor)
 
 With `--only k5` it builds the kernels and runs K5's phases alone (BAL
 871's set-up and damped system, the PCG trace, k5_levels) and prints no
@@ -132,7 +147,8 @@ costs); with `--only k1`, K1's (k1_not_pd, k1_levels on MERI, GRID and
 BAL 871, BAL 871's direct LM costs); with `--only k2`, K2's (k2_levels,
 BAL 871's direct and PCG LM costs); with `--only k3r`, K3-rest
 narrow's (k3r_levels, the same costs); with `--only stats`, the stats
-phase (~1.5 min with BAL 871's set-up). Every run first checks that the
+phase (~1.5 min with BAL 871's set-up); with `--only sharded`, the
+sharded phase (~3.5 min with BAL 871's set-up). Every run first checks that the
 native symbolic library loads (baspacho_tpu_torch/native.py builds it
 under a lock), and fails if it does not.
 
@@ -265,6 +281,19 @@ PATH_KERNELS = {
     "bal_lm_pcg": {"grad_hess", "bucket_factor", "dense_update",
                    "segmented_subtract", "tri_solve", "add_mv",
                    "wide_add_mv"},
+    # the sharded phase, on rank 0 of the ranks (sharded_phase)
+    "sharded_dp_meri7": {"bucket_factor", "segmented_subtract",
+                         "bucket_solve"},
+    "sharded_factor_grid100": {"bucket_factor", "segmented_subtract"},
+    "sharded_solve_grid100": {"bucket_solve", "segmented_subtract"},
+    "sharded_factor_flat_schur50k": {"bucket_factor", "wide_factor",
+                                     "dense_update"},
+    "sharded_solve_flat_schur50k": {"bucket_solve", "wide_solve",
+                                    "segmented_subtract"},
+    "sharded_factor_bal871": {"bucket_factor", "wide_factor",
+                              "dense_update", "segmented_subtract"},
+    "sharded_solve_bal871": {"bucket_solve", "wide_solve",
+                             "segmented_subtract"},
     # the stats phase: profile_ops + profile_solve_ops of each problem
     "stats_meri7": {"bucket_factor", "segmented_subtract", "bucket_solve"},
     "stats_grid100": {"bucket_factor", "segmented_subtract", "bucket_solve"},
@@ -3078,6 +3107,278 @@ def stats_only(dev, name_limit: str) -> int:
     return 0
 
 
+# the sharded phase: SHARDED_RANKS ranks over NCCL across the cards when
+# there are that many, 2 on 2 or 3 cards (a count that splits the dp
+# batch of 16), else SHARDED_RANKS ranks over gloo on the one card (NCCL
+# refuses two ranks on one GPU)
+SHARDED_RANKS = 4
+SHARDED_REPS = 5
+SHARDED_TIMEOUT_S = 600.0
+
+
+def sharded_transport() -> tuple:
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        return (SHARDED_RANKS if cards >= SHARDED_RANKS else 2), "nccl"
+    return SHARDED_RANKS, "gloo"
+
+
+def _rel_ok(got: np.ndarray, want: np.ndarray, what: str) -> float:
+    """JAX's tolerance for the sharded runs (tests/test_multichip.py:123):
+    |got - want| <= 1e-11 + 1e-9 |want| everywhere; returns max abs."""
+    err = np.abs(got - want)
+    check(bool(np.all(err <= 1e-11 + 1e-9 * np.abs(want))),
+          f"{what}: beyond rel 1e-9 / atol 1e-11 (max abs {err.max()})")
+    return float(err.max())
+
+
+def _ranks_summary(res, key: str, path: str) -> dict:
+    """A case's records: every rank's bytes equal, reruns bitwise, the
+    path's kernels launched on rank 0 in the counted run and no twin;
+    ms of rank 0 and of the slowest rank (median over the timed runs)."""
+    recs = res.records
+    check(len(set(res.hashes)) == 1, f"{key}: the ranks' outputs differ")
+    check(all(r["rerun_equal"] for r in recs), f"{key}: a rerun differs")
+    for r in recs:
+        check(not r["twin_calls"], f"{key}: a twin ran on the card "
+              f"{r['twin_calls']}")
+    for k in PATH_KERNELS[path]:
+        check(recs[0]["launches"].get(k, 0) > 0,
+              f"{k} was not launched on the {path} path")
+    out = {"launches": recs[0]["launches"],
+           "collectives": recs[0]["collectives"],
+           "sent_bytes": max(r["sent_bytes"] for r in recs),
+           "received_bytes": max(r["received_bytes"] for r in recs)}
+    for what in ("ms", "plain_ms"):
+        if recs[0].get(what):
+            out[f"{what}_rank0"] = float(np.median(recs[0][what]))
+            out[f"{what}_slowest_rank"] = float(np.median(
+                np.max([r[what] for r in recs], axis=0)))
+    return out
+
+
+def _sharded_residuals(c, res, inputs, f_one_card, dev) -> dict:
+    """f64 residuals of a sharded case: the factor's and the solve's from
+    sparse products (sparse_residuals; the solve on the one-card
+    factor), BAL 871's solve through K5 (add_mv_from(0)), where its
+    sparse matrix would take the host long; none for BAL's factor (held
+    to the one-card factor, whose residual bal_phase checks)."""
+    d_np, b_np = inputs
+    if c.flow == "solve_sharded" and b_np.ndim == 2 and \
+            c.name.startswith("solve1_"):
+        b_np = b_np[:, 0]
+    bal = c.name.endswith("bal871")
+    if c.flow == "factor_sharded":
+        if bal:
+            return {}
+        fr, _ = sparse_residuals(c.solver, d_np, res.outputs["factor"])
+        check(fr <= 1e-10, f"{c.name}: factor residual {fr}")
+        return {"factor_residual": fr}
+    x_np = res.outputs["solution"]
+    if bal:
+        xs, bb = torch.from_numpy(x_np).to(dev), torch.from_numpy(b_np).to(dev)
+        r = c.solver.add_mv_from(torch.from_numpy(d_np).to(dev), 0, xs,
+                                 torch.zeros_like(xs)) - bb
+        sr = float(r.norm() / bb.norm())
+    else:
+        _, sr = sparse_residuals(c.solver, d_np, f_one_card, x_np, b_np)
+    check(sr <= 1e-10, f"{c.name}: solve residual {sr}")
+    return {"solve_residual": sr}
+
+
+def sharded_phase(dev, name_limit: str, probs, d64, bal_solver,
+                  bal_damped_data, bal_grad) -> dict:
+    """The multi-GPU slice through its entry points on ranks spawned by
+    baspacho_tpu_torch/testing/ranks.py (sharded_transport): (a) the
+    data-parallel batch, MERI n=7 x 16, f64, nrhs 2, each rank factoring
+    and solving its 16 / n items, bitwise equal to the one-process
+    batch; (b) factor_sharded on GRID 100x100 (pair levels) and
+    FLAT+Schur 50k (a dense level with a split bucket, the wide corner),
+    within rel 1e-9 / atol 1e-11 of factor on one card, residuals <=
+    1e-10 from sparse products; (c) solve_sharded on their factors, nrhs
+    2 and 1-D, to the same limits; (d) with BAL 871's first damped
+    system, factor_sharded and solve_sharded of its gradient (their
+    seconds logged apart). Every
+    rank's outputs bitwise equal, reruns bitwise, the path's kernels
+    launched (counted on each rank), ms by CUDA events on each rank
+    beside factor / solve on one card, the collective bytes; GRID's
+    sharded factor also on the twins (plain_ms; held to the kernels' to
+    the same limits) and its bound (the cost()
+    sum of the same factor's launches on one card). Returns the
+    record's row."""
+    from baspacho_tpu_torch.testing import ranks
+    t_phase = time.perf_counter()
+    n, backend = sharded_transport()
+    torch.cuda.empty_cache()
+    cases, want, info = [], {}, {}
+    meri = probs["meri7"]
+    datas = batched(d64["meri7"], 16, dev)
+    rb = torch.from_numpy(np.random.RandomState(16).rand(
+        16, meri.order, 2)).to(dev)
+    fb = meri.factor(datas)
+    want["dp_meri7"] = {"factor": fb.cpu().numpy(),
+                        "solution": meri.solve(fb, rb).cpu().numpy()}
+    info["meri7"] = {"factor_solve_ms_one_process": time_ms(
+        lambda: meri.solve(meri.factor(datas), rb), SHARDED_REPS)}
+    cases.append(ranks.Case("dp_meri7", meri, "dp", {
+        "data": datas.cpu().numpy(), "rhs": rb.cpu().numpy()},
+        reps=SHARDED_REPS))
+    problems = [(p, probs[p], d64[p], np.random.RandomState(2).rand(
+        probs[p].order, 2)) for p in ("grid100", "flat_schur50k")]
+    problems.append(("bal871", bal_solver, bal_damped_data.cpu().numpy(),
+                     -bal_grad.cpu().numpy()))
+    for pname, s, d_np, b_np in problems:
+        t_prep = time.perf_counter()
+        d = torch.from_numpy(d_np).to(dev)
+        b = torch.from_numpy(b_np).to(dev)
+        f = s.factor(d)
+        x = s.solve(f, b)
+        reps = 3 if pname == "bal871" else SHARDED_REPS
+        info[pname] = {"factor_ms_one_card": time_ms(lambda: s.factor(d),
+                                                     reps),
+                       "solve_ms_one_card": time_ms(lambda: s.solve(f, b),
+                                                    reps)}
+        f_np = f.cpu().numpy()
+        want[f"factor_{pname}"] = {"factor": f_np}
+        cases.append(ranks.Case(f"factor_{pname}", s, "factor_sharded",
+                                {"data": d_np}, reps=reps,
+                                plain=pname == "grid100"))
+        want[f"solve_{pname}"] = {"solution": x.cpu().numpy()}
+        cases.append(ranks.Case(f"solve_{pname}", s, "solve_sharded",
+                                {"factor": f_np, "rhs": b_np}, reps=reps))
+        if b_np.ndim == 2:
+            want[f"solve1_{pname}"] = {
+                "solution": s.solve(f, b[:, 0]).cpu().numpy()}
+            cases.append(ranks.Case(f"solve1_{pname}", s, "solve_sharded",
+                                    {"factor": f_np, "rhs": b_np[:, 0]}))
+        info[pname]["inputs"] = (d_np, b_np)
+        info[pname]["parent_seconds"] = time.perf_counter() - t_prep
+    # GRID's factor on one card, timed per launch: the bound
+    tops = TimedOps(kernels, costs=True)
+    grid = probs["grid100"]
+    grid.factor_program()(torch.from_numpy(d64["grid100"]).to(dev)[None],
+                          ops=tops)
+    work = np.sum([w for k, w in tops.work.items() if tops.events[k]],
+                  axis=0)
+    grid_bound = bound(*work)
+    del datas, rb, fb
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = ranks.launch(n, cases, backend=backend, device="cuda",
+                       timeout_s=SHARDED_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t0
+    rows = {}
+    for c, res in zip(cases, got):
+        path = "sharded_" + ("dp_meri7" if c.name == "dp_meri7" else
+                             c.name.replace("solve1_", "solve_"))
+        row = _ranks_summary(res, c.name, path)
+        for k, w in want[c.name].items():
+            g = res.outputs[k]
+            check(g.shape == w.shape and bool(np.all(np.isfinite(g))),
+                  f"{c.name} {k}: shape {g.shape} (want {w.shape}) or not "
+                  "finite")
+            if c.flow == "dp":
+                check(np.array_equal(g, w), f"{c.name} {k} differs from "
+                      "the one-process batch")
+                row[f"{k}_bitwise_equal_to_one_process"] = True
+            else:
+                row[f"max_abs_vs_one_card_{k}"] = _rel_ok(g, w, c.name)
+        for k, w in res.plain.items():
+            # the same sharded program on the kernels' plain twins
+            row["max_abs_vs_plain"] = _rel_ok(res.outputs[k], w,
+                                              f"{c.name} {k} against the "
+                                              "twins")
+        pname = c.name.split("_", 1)[1]
+        if c.flow != "dp":
+            row.update(_sharded_residuals(c, res, info[pname]["inputs"],
+                                          want[f"factor_{pname}"]["factor"],
+                                          dev))
+        rows[c.name] = row
+        log("sharded", case=c.name, ranks=n, transport=backend,
+            card=name_limit, dtype="float64",
+            **{k: v for k, v in info.get(pname, {}).items()
+               if k.endswith("_one_card") or k.endswith("_one_process")},
+            **row)
+    if backend == "gloo":
+        _nccl_one_rank(cases, want, name_limit)
+    g = rows["factor_grid100"]
+    # BAL's part of the phase: the parent's set-up of its cases and the
+    # ranks' seconds on them (rank 0; the solver's rebuild in)
+    bal_s = info["bal871"]["parent_seconds"] + sum(
+        res.records[0]["seconds"] for c, res in zip(cases, got)
+        if c.name.endswith("bal871"))
+    out = {"ranks": n, "transport": backend, "seconds": t_ranks,
+           "ms": g["ms_rank0"], "ms_slowest_rank": g["ms_slowest_rank"],
+           "plain_ms": g["plain_ms_rank0"], "bound": grid_bound,
+           "max_abs_err": g["max_abs_vs_plain"],
+           "yardstick_ms": info["grid100"]["factor_ms_one_card"],
+           "launches": {p: sum(r["launches"].values())
+                        for p, r in rows.items()}}
+    log("sharded_phase", card=name_limit, ranks=n, transport=backend,
+        ranks_seconds=t_ranks, seconds=time.perf_counter() - t_phase,
+        bal871_seconds=bal_s, grid100_factor_bound_ms=grid_bound[0],
+        grid100_factor_bound_by=grid_bound[1],
+        case_seconds_rank0={c.name: res.records[0]["seconds"]
+                            for c, res in zip(cases, got)})
+    return out
+
+
+def _nccl_one_rank(cases, want, name_limit: str) -> None:
+    """The launcher's NCCL branch (a DeviceMesh on "cuda", NCCL
+    collectives on the card's tensors) on one card: GRID's
+    factor_sharded and solve_sharded on a group of one rank, where every
+    bucket of two panels or more is one share and its panels still go
+    through the all-gathers. The factor must equal factor on one card
+    bit for bit (the same kernels on the same panels), the solve be
+    within rel 1e-9 / atol 1e-11 of solve, a rerun bitwise."""
+    from baspacho_tpu_torch.testing import ranks
+    mine = [ranks.Case(c.name, c.solver, c.flow, c.inputs,
+                       reps=SHARDED_REPS)
+            for c in cases if c.name in ("factor_grid100", "solve_grid100")]
+    t0 = time.perf_counter()
+    got = ranks.launch(1, mine, backend="nccl", device="cuda",
+                       timeout_s=SHARDED_TIMEOUT_S)
+    for c, res in zip(mine, got):
+        rec = res.records[0]
+        check(rec["collectives"] > 0, f"{c.name}: no NCCL collective ran")
+        check(rec["rerun_equal"], f"{c.name} over NCCL: a rerun differs")
+        check(not rec["twin_calls"], f"{c.name} over NCCL: a twin ran")
+        row = {}
+        for k, w in want[c.name].items():
+            g = res.outputs[k]
+            if c.flow == "factor_sharded":
+                check(np.array_equal(g, w), f"{c.name} over NCCL on one "
+                      "rank differs from factor")
+                row[f"{k}_bitwise_equal_to_one_card"] = True
+            else:
+                row[f"max_abs_vs_one_card_{k}"] = _rel_ok(
+                    g, w, f"{c.name} over NCCL")
+        log("sharded_nccl_one_rank", case=c.name, card=name_limit,
+            dtype="float64", collectives=rec["collectives"],
+            sent_bytes=rec["sent_bytes"], launches=rec["launches"],
+            ms=float(np.median(rec["ms"])), **row)
+    log("sharded_nccl_one_rank_phase", seconds=time.perf_counter() - t0)
+
+
+def sharded_only(dev, name_limit: str) -> int:
+    """`--only sharded`: the build (before the ranks are spawned, so
+    that they load it), then the sharded phase alone on MERI, GRID,
+    FLAT+Schur 50k and BAL 871's first damped system."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    probs = {"meri7": meri7(T, device=dev), "grid100": grid100(T, device=dev),
+             "flat_schur50k": flat_schur50k(T, device=dev)}
+    d64 = {k: spd_data(s, 1) for k, s in probs.items()}
+    opt, values0, _ = bal_setup(dev)
+    damped, grad, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
+    sharded_phase(dev, name_limit, probs, d64, opt.solver, damped, grad)
+    log("sharded_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
 def main(argv=()) -> int:
     # 1. card
     if not torch.cuda.is_available():
@@ -3105,7 +3406,7 @@ def main(argv=()) -> int:
             "k3w": functools.partial(solve_only, "wide_solve"),
             "k2": functools.partial(level_only, "k2"),
             "k3r": functools.partial(level_only, "k3r"),
-            "stats": stats_only}
+            "stats": stats_only, "sharded": sharded_only}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         return only[argv[1]](dev, name_limit)
     if argv:
@@ -3695,8 +3996,14 @@ def main(argv=()) -> int:
     k6 = k6_levels(opt, bal["terms"], name_limit)
     # 16. the stats slice: coarse stats, the factor and solve profiles on
     # the kernels (counted), the fitted model and its skeletons
-    stats_phase(stats_cases(probs, d64, opt.solver, bal.pop("damped"),
-                            bal["grad"]), name_limit)
+    damped = bal.pop("damped")
+    stats_phase(stats_cases(probs, d64, opt.solver, damped, bal["grad"]),
+                name_limit)
+    # 17. the multi-GPU slice: the data-parallel batch, factor_sharded
+    # and solve_sharded on ranks of their own (sharded_phase)
+    sh = sharded_phase(dev, name_limit, probs, d64, opt.solver, damped,
+                       bal["grad"])
+    del damped
     by_case["wide_factor"] = {
         f"{r['case']} {r['bucket'][:2]} (k1w_levels)": r["ms"] for r in k1w}
     by_case["bucket_factor"] = {
@@ -3762,6 +4069,22 @@ def main(argv=()) -> int:
          "ms_back_to_back": back_to_back.get(k),
          **({"ms_by_case": by_case[k]} if k in by_case else {})}
         for k, src, rep in KERNELS]}
+    # the sharded level runners: K1-K4 between collectives, on ranks of
+    # their own; timed on GRID's factor_sharded, against the same runners
+    # on the twins and factor on one card (no one PyTorch call computes
+    # it: library_ms null)
+    record["kernels"].append({
+        "name": "sharded", "route": "cuda",
+        "source": "baspacho_tpu_torch/ops/planned_backend.py",
+        "replaces": f"{_PB}:1856", "launches": sum(sh["launches"].values()),
+        "launches_by_path": sh["launches"], "max_abs_err": sh["max_abs_err"],
+        "ms": sh["ms"], "plain_ms": sh["plain_ms"],
+        "bound_ms": sh["bound"][0], "bound_by": sh["bound"][1],
+        "library_ms": None, "yardstick_ms": sh["yardstick_ms"],
+        "ms_slowest_rank": sh["ms_slowest_rank"],
+        "timed_on": f"grid100 f64 factor_sharded, {sh['ranks']} ranks over "
+                    f"{sh['transport']}, rank 0 (yardstick: factor on one "
+                    "card)"})
     print(json.dumps(record), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ import baspacho_tpu as J
 from baspacho_tpu.testing import SparseMatGenerator as JGen
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch.testing import SparseMatGenerator, random_spd_data
+from baspacho_tpu_torch.testing import ranks
 from baspacho_tpu_torch.testing.problems import SMALL
 from same_native import one_native_library  # noqa: F401 (autouse)
 
@@ -121,9 +122,9 @@ def test_differentiable_solve_matches_jax_grad(backend, problem):
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
-    """create_solver, Solver and solver_from_skeleton run on the CUDA
-    card unless a device is named; with no card they raise instead of
-    quietly running on the CPU."""
+    """create_solver, Solver, solver_from_skeleton and the ranks'
+    launcher run on the CUDA card unless a device is named; with no card
+    they raise instead of quietly running on the CPU."""
     ss = SparseMatGenerator.gen_flat(6, 0.5, seed=1).to_structure()
     planned = T.Settings(backend=T.BackendType.PLANNED)
     ref = T.create_solver(planned, np.full(6, 2), ss, device="cpu")
@@ -139,6 +140,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         T.Solver(ref.skel, [], ref.permutation)
     with pytest.raises(RuntimeError, match="CUDA"):
         SMALL["flat"](T, device=None)
+    # the ranks' launcher reads its device as the solvers do: it raises
+    # before it spawns a rank
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ranks.launch(2, [])
     assert T.create_solver(planned, np.full(6, 2), ss,
                            device="cpu").device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

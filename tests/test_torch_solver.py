@@ -6,6 +6,7 @@ different orders, and the stored inverse amplifies rounding); 1e-12
 between batched and single runs of the port; 1e-4 between its f32 and
 f64 runs."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -158,20 +159,46 @@ def test_port_only_checks():
         ts.factor(torch.ones(ts.data_size, device="meta"))
 
 
+_SHARDED_REFUSALS = {
+    # id: (method, backend, batched data, JAX's message)
+    "factor_sharded_batched": ("factor_sharded", "PLANNED", True,
+                               "factor_sharded shards ONE factorization"),
+    "factor_sharded_ref": ("factor_sharded", "REF", False,
+                           "factor_sharded needs the PLANNED backend"),
+    "solve_sharded_batched": ("solve_sharded", "PLANNED", True,
+                              "solve_sharded shards ONE solve"),
+    "solve_sharded_ref": ("solve_sharded", "REF", False,
+                          "solve_sharded needs the PLANNED backend"),
+}
+
+
 @pytest.mark.parametrize("method,args,match", [
-    ("factor_sharded", (0, None), r"slice \(ROADMAP queue 1, item 1\)"),
-    ("solve_sharded", (0, 0, None), r"slice \(ROADMAP queue 1, item 1\)"),
+    *((k, None, None) for k in _SHARDED_REFUSALS),
     ("factor_chained", (0, 1), r"not ported .* CUDA events.* enable_stats"),
     ("solve_chained", (0, 0, 1), r"not ported .* CUDA events.* enable_stats"),
-], ids=["factor_sharded", "solve_sharded", "factor_chained",
-        "solve_chained"])
+], ids=[*_SHARDED_REFUSALS, "factor_chained", "solve_chained"])
 def test_unported_methods_refuse(method, args, match):
-    """The sharded methods name the slice that brings them (ROADMAP queue
-    1 item 1); the chained ones, a TPU timing aid that is not ported,
-    point to CUDA events and the stats."""
-    _, ts, _, _ = case("meri2")
-    with pytest.raises(NotImplementedError, match=match):
-        getattr(ts, method)(*args)
+    """The sharded methods refuse batched data and the REF backend with
+    the JAX package's messages, before they read the mesh; the chained
+    ones, a TPU timing aid that is not ported, point to CUDA events and
+    the stats."""
+    if method not in _SHARDED_REFUSALS:
+        _, ts, _, _ = case("meri2")
+        with pytest.raises(NotImplementedError, match=match):
+            getattr(ts, method)(*args)
+        return
+    name, backend, batched, msg = _SHARDED_REFUSALS[method]
+    js, ts, data, fj = case("meri2")
+    if backend == "REF":
+        js, ts = SMALL["meri2"](J, backend="REF"), \
+            SMALL["meri2"](T, backend="REF")
+    d = np.stack([data] * 2) if batched else data
+    args = (d,) if name == "factor_sharded" else (d, np.ones(ts.order))
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:2]), ("shard",))
+    with pytest.raises(AssertionError, match=f"^{msg}$"):
+        getattr(js, name)(*args, mesh)
+    with pytest.raises(ValueError, match=f"^{msg}$"):
+        getattr(ts, name)(*(torch.from_numpy(a) for a in args), None)
 
 
 def test_public_names_and_accessor():
