@@ -971,6 +971,14 @@ def _scratch(like, n: int, dtype=None) -> torch.Tensor:
     return buf[:n]
 
 
+def take_scratch(stream: torch.cuda.Stream) -> list:
+    """Removes the work buffers kept for `stream` and returns them: a
+    CUDA graph captured on the stream (ops/chain.py) holds the ones it
+    baked in, which no later call can then take, grow or free."""
+    keys = [k for k in _SCRATCH if k[2] == stream.cuda_stream]
+    return [_SCRATCH.pop(k) for k in keys]
+
+
 def wide_tri_solve_twin(*args) -> None:
     """Plain twin of K3-rest wide (the same function as tri_solve's; the
     host copies off_h / cols_h are not needed)."""

@@ -25,7 +25,9 @@ Unlike the JAX package, buffers carry no [trash, zero] margins: every
 kernel masks its own ragged edges, and the solve skips sentinel rows
 instead of reading a zero row. Buffers are updated in place (the factor
 works on a copy of its input), which the JAX package, being functional,
-cannot do.
+cannot do; make_factor_body / make_solve_body are the in-place programs
+themselves, which a chain (ops/chain.py) runs again and again on one
+buffer.
 
 One factor or solve can be split over the ranks of a torch.distributed
 process group (make_factor_sharded / make_solve_sharded, the JAX
@@ -187,17 +189,32 @@ class PlannedBackend(PlannedSchedule):
         if dense is not None:
             ops.dense_update(ext, dense)
 
-    def make_factor(self, start_lump: int, end_lump: int,
-                    device) -> Callable:
+    def make_factor_body(self, start_lump: int, end_lump: int,
+                         device) -> Callable:
+        """The factor of [start_lump, end_lump) in place on a contiguous
+        (batch, data_size) buffer: its padded slots zeroed by index, as
+        factor_input zeroes its copy's, then the levels. make_factor runs
+        it on a copy of its input; a chain (ops/chain.py) runs it again
+        and again on one buffer."""
         levels = self._factor_levels(start_lump, end_lump, device)
         pad_idx = self._pad_idx(device)
 
-        def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
-            ext = factor_input(data, pad_idx)
+        def factor_body(ext: torch.Tensor, ops=kernels) -> None:
+            zero_padding(ext, pad_idx)
             for level in levels:
                 prod = self._level_prod(ext, level)
                 self._factor_buckets(ext, prod, level, ops)
                 self._level_update(ext, prod, level, ops)
+
+        return factor_body
+
+    def make_factor(self, start_lump: int, end_lump: int,
+                    device) -> Callable:
+        body = self.make_factor_body(start_lump, end_lump, device)
+
+        def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
+            ext = data.clone(memory_format=torch.contiguous_format)
+            body(ext, ops)
             return ext
 
         return factor
@@ -271,22 +288,33 @@ class PlannedBackend(PlannedSchedule):
             for b in buckets:
                 self._diag_solve(ops, b, use_inv, data, vv, None, 0, True)
 
-    def make_solve(self, start_lump: int, end_lump: int,
-                   device) -> Callable:
+    def make_solve_body(self, start_lump: int, end_lump: int,
+                        device) -> Callable:
         """Full-range solve on a factor from make_factor (it reads the
-        stored inverse): L pass over levels in order, Lt pass in
-        reverse."""
+        stored inverse), in place on a contiguous (batch, order, nrhs)
+        RHS: L pass over levels in order, Lt pass in reverse. make_solve
+        runs it on a copy of its RHS."""
         if not self._full_range(start_lump, end_lump):
             raise NotImplementedError(
                 "the fused solve reads the stored inverse of a full-range "
                 "factor; partial ranges run make_solve_l / make_solve_lt")
         levels = self._solve_levels(start_lump, end_lump, device)
 
+        def solve_body(data: torch.Tensor, vv: torch.Tensor,
+                       ops=kernels) -> None:
+            self._l_pass(levels, True, data, vv, ops)
+            self._lt_pass(levels, True, data, vv, ops)
+
+        return solve_body
+
+    def make_solve(self, start_lump: int, end_lump: int,
+                   device) -> Callable:
+        body = self.make_solve_body(start_lump, end_lump, device)
+
         def solve(data: torch.Tensor, v: torch.Tensor,
                   ops=kernels) -> torch.Tensor:
             vv = v.clone(memory_format=torch.contiguous_format)
-            self._l_pass(levels, True, data, vv, ops)
-            self._lt_pass(levels, True, data, vv, ops)
+            body(data, vv, ops)
             return vv
 
         return solve
@@ -566,9 +594,15 @@ def factor_input(data: torch.Tensor, pad_idx: torch.Tensor) -> torch.Tensor:
     multiplies by the padding mask, here the padded slots are filled by
     index."""
     ext = data.clone(memory_format=torch.contiguous_format)
+    zero_padding(ext, pad_idx)
+    return ext
+
+
+def zero_padding(ext: torch.Tensor, pad_idx: torch.Tensor) -> None:
+    """The padded slots `pad_idx` of a (batch, data_size) buffer set to
+    zero, in place."""
     if pad_idx.numel():
         ext.index_fill_(1, pad_idx, 0)
-    return ext
 
 
 def _row_bases(buckets):

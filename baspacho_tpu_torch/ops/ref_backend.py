@@ -45,6 +45,11 @@ def _chol(a):
     return torch.where((info > 0)[..., None, None], torch.nan, L)
 
 
+def _with_trash(data):
+    """A copy of `data` (batch, data_size) with one zero slot appended."""
+    return torch.cat([data, data.new_zeros((data.shape[0], 1))], 1)
+
+
 def _i64(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)) \
         .to(device)
@@ -59,8 +64,11 @@ class UnrolledBackend:
         self.plan = plan
 
     # -- factor ---------------------------------------------------------
-    def make_factor(self, start_lump: int, end_lump: int,
+    def _factor_ext(self, start_lump: int, end_lump: int,
                     device) -> Callable:
+        """The factor loop in place on `ext`, the data (batch, data_size)
+        with one trash slot appended, which takes the scatters of upper
+        block pairs."""
         plan = self.plan
         num_lumps = plan.skel.num_lumps
         lumps = plan.lumps
@@ -69,10 +77,7 @@ class UnrolledBackend:
                       if start_lump <= b.origin_lump < end_lump]
                   for l in range(start_lump, num_lumps)}
 
-        def factor(data: torch.Tensor) -> torch.Tensor:
-            # one trash slot at data_size takes the scatters of upper
-            # block pairs
-            ext = torch.cat([data, data.new_zeros((data.shape[0], 1))], 1)
+        def factor_ext(ext: torch.Tensor) -> None:
             for l in range(start_lump, num_lumps):
                 ld = lumps[l]
                 for b, idx in boards[l]:
@@ -91,22 +96,47 @@ class UnrolledBackend:
                                       ld.stride, ld.size)
                         below.copy_(torch.linalg.solve_triangular(
                             L.mT, below, upper=True, left=False))
+
+        return factor_ext
+
+    def make_factor(self, start_lump: int, end_lump: int,
+                    device) -> Callable:
+        loop = self._factor_ext(start_lump, end_lump, device)
+
+        def factor(data: torch.Tensor) -> torch.Tensor:
+            ext = _with_trash(data)
+            loop(ext)
             return ext[:, :-1].contiguous()
 
         return factor
+
+    def make_factor_body(self, start_lump: int, end_lump: int,
+                         device) -> Callable:
+        """The factor in place on a contiguous (batch, data_size) buffer:
+        make_factor's loop on a copy with the trash slot, copied back (a
+        chain, ops/chain.py, runs it again and again on one buffer)."""
+        loop = self._factor_ext(start_lump, end_lump, device)
+
+        def factor_body(data: torch.Tensor) -> None:
+            ext = _with_trash(data)
+            loop(ext)
+            data.copy_(ext[:, :-1])
+
+        return factor_body
 
     # -- solves ---------------------------------------------------------
     def _below_idx(self, start: int, end: int, device):
         return {l: _i64(self.plan.lumps[l].below_row_idx, device)
                 for l in range(start, end) if self.plan.lumps[l].below > 0}
 
-    def make_solve_l(self, start_lump: int, end_lump: int,
-                     device) -> Callable:
+    def make_solve_l_body(self, start_lump: int, end_lump: int,
+                          device) -> Callable:
+        """The L pass in place on a contiguous (batch, order, nrhs) RHS;
+        make_solve_l runs it on a copy."""
         lumps = self.plan.lumps
         bidx = self._below_idx(start_lump, end_lump, device)
 
-        def solve_l(data: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-            vv = v.clone(memory_format=torch.contiguous_format)
+        def solve_l_body(data: torch.Tensor, vv: torch.Tensor) -> None:
             for l in range(start_lump, end_lump):
                 ld = lumps[l]
                 L = torch.tril(_view(data, ld.col_offset, ld.size,
@@ -118,6 +148,16 @@ class UnrolledBackend:
                     below = _view(data, ld.below_offset, ld.below,
                                   ld.stride, ld.size)
                     vv.index_add_(1, bidx[l], below @ x, alpha=-1)
+
+        return solve_l_body
+
+    def make_solve_l(self, start_lump: int, end_lump: int,
+                     device) -> Callable:
+        body = self.make_solve_l_body(start_lump, end_lump, device)
+
+        def solve_l(data: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+            vv = v.clone(memory_format=torch.contiguous_format)
+            body(data, vv)
             return vv
 
         return solve_l

@@ -1,12 +1,14 @@
 """The port's demo twins (baspacho_tpu_torch/examples) at their own
 sizes on the CPU, against the JAX package's demos (examples/) computed
-the same way: the spring chain's and BA's LM cost trajectories, and the
-differentiable solve's gradient and Adam loss trajectory."""
+the same way: the spring chain's and BA's LM cost trajectories, the
+differentiable solve's gradient and Adam loss trajectory, and the mixed
+solve's PCG iterations and residual per preconditioner."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from baspacho_tpu import Settings, create_solver
@@ -14,9 +16,10 @@ from baspacho_tpu import bal as JB
 import baspacho_tpu.optimizer as JO
 from baspacho_tpu.optimizer import OptimizerSettings
 from baspacho_tpu.sparse_structure import SparseStructure
+from baspacho_tpu.testing import SparseMatGenerator, random_spd_data
 from baspacho_tpu.utils import cum_sum_vec
 from baspacho_tpu_torch.examples import diff_solve, optimize_ba, \
-    optimize_simple
+    optimize_simple, pcg_sample
 from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -109,3 +112,44 @@ def test_diff_solve_matches_jax():
     assert np.max(np.abs(np.subtract(got["losses"], want))) <= \
         1e-9 * want[0]
     assert got["losses"][-1] < 0.5 * got["losses"][0]
+
+
+def jax_pcg_demo(precond: str):
+    """examples/pcg_sample.py's computation: (PCG iterations, the
+    residual max |M x - b| of the full system)."""
+    gen = SparseMatGenerator.gen_flat(20, 0.3, seed=42)
+    gen.add_schur_set(80, 0.1)
+    ss = gen.to_structure()
+    solver = create_solver(Settings(), np.full(ss.order, 3), ss,
+                           sparse_elim_ranges=[0, 80])
+    data = random_spd_data(solver.data_size, solver.order, 7)
+    data = jnp.asarray(solver.skel.damp(data, 0.0, solver.order * 1.5))
+    rhs = jnp.asarray(np.random.RandomState(0).rand(solver.order))
+    t = solver.sparse_elim_ranges[-1]
+    o = solver.span_vector_offset(t)
+    part = solver.factor_up_to(data, t)
+    v = solver.solve_l_up_to(part, t, rhs)
+    pre = {"jacobi": JO.BlockJacobiPrecond,
+           "gauss_seidel": JO.BlockGaussSeidelPrecond}[precond](solver, t)
+    pre.init(part)
+
+    def embed(x):
+        return jnp.zeros_like(v).at[o:].set(x)
+
+    x, _, iters = JO.pcg(
+        lambda r: pre.apply(embed(r))[o:],
+        lambda p: solver.add_mv_from(part, t, embed(p),
+                                     jnp.zeros_like(v))[o:],
+        v[o:], 1e-10, 100)
+    sol = solver.solve_lt_up_to(part, t, v.at[o:].set(x))
+    mv = solver.add_mv_from(data, 0, sol, jnp.zeros_like(sol))
+    return int(iters), float(jnp.max(jnp.abs(mv - rhs)))
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "gauss_seidel"])
+def test_pcg_sample_matches_jax(precond):
+    iters, resid = jax_pcg_demo(precond)
+    got = pcg_sample.main([precond, "--device", "cpu"])
+    assert got["iterations"] == iters
+    assert got["residual"] <= 1e-9
+    assert abs(got["residual"] - resid) <= 1e-4 * resid

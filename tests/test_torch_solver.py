@@ -172,21 +172,10 @@ _SHARDED_REFUSALS = {
 }
 
 
-@pytest.mark.parametrize("method,args,match", [
-    *((k, None, None) for k in _SHARDED_REFUSALS),
-    ("factor_chained", (0, 1), r"not ported .* CUDA events.* enable_stats"),
-    ("solve_chained", (0, 0, 1), r"not ported .* CUDA events.* enable_stats"),
-], ids=[*_SHARDED_REFUSALS, "factor_chained", "solve_chained"])
-def test_unported_methods_refuse(method, args, match):
+@pytest.mark.parametrize("method", list(_SHARDED_REFUSALS))
+def test_sharded_methods_refuse(method):
     """The sharded methods refuse batched data and the REF backend with
-    the JAX package's messages, before they read the mesh; the chained
-    ones, a TPU timing aid that is not ported, point to CUDA events and
-    the stats."""
-    if method not in _SHARDED_REFUSALS:
-        _, ts, _, _ = case("meri2")
-        with pytest.raises(NotImplementedError, match=match):
-            getattr(ts, method)(*args)
-        return
+    the JAX package's messages, before they read the mesh."""
     name, backend, batched, msg = _SHARDED_REFUSALS[method]
     js, ts, data, fj = case("meri2")
     if backend == "REF":
