@@ -39,6 +39,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Optional
@@ -46,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from .schedule import NARROW_MAX
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -69,6 +71,8 @@ class LaunchCount:
     #                         up to three grids per call, K1-wide three
     #                         per diagonal tile but the last)
     twin_calls: int = 0  # calls of the plain twin (any device)
+    host_ns: int = 0     # host ns inside the wrapper's calls, summed only
+    #                      through `timed` (while the port's tracing is on)
 
 
 COUNTS = {name: LaunchCount() for name in (
@@ -82,6 +86,24 @@ def reset_counts() -> None:
         c.launches = 0
         c.grid_launches = 0
         c.twin_calls = 0
+        c.host_ns = 0
+
+
+def timed(ops) -> SimpleNamespace:
+    """The wrappers of `ops` (this module, or TWINS) under their names,
+    each call's host ns added to its counter's host_ns: the timing shim
+    the facade hands the PLANNED programs while tracing is on
+    (trace.py)."""
+    def wrap(count, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter_ns()
+            out = fn(*args, **kwargs)
+            count.host_ns += time.perf_counter_ns() - t0
+            return out
+        return call
+
+    return SimpleNamespace(**{name: wrap(c, getattr(ops, name))
+                              for name, c in COUNTS.items()})
 
 
 # ----------------------------------------------------------------------
@@ -507,11 +529,13 @@ class SegLayout:
     plan."""
 
     def __init__(self, tgt, seg_ptr, src_idx, device):
-        plan = seg_plan(*(a.cpu().numpy() if isinstance(a, torch.Tensor)
-                          else a for a in (tgt, seg_ptr, src_idx)))
+        with trace.span("programs.layout"):
+            plan = seg_plan(*(a.cpu().numpy() if isinstance(a, torch.Tensor)
+                              else a for a in (tgt, seg_ptr, src_idx)))
         self.idx32, self.n_slot = plan.pop("idx32"), plan.pop("n_slot")
-        self.arrays = {k: torch.from_numpy(a).to(device)
-                       for k, a in plan.items()}
+        with trace.span("programs.upload"):
+            self.arrays = {k: torch.from_numpy(a).to(device)
+                           for k, a in plan.items()}
         self.n_short = len(plan["s_tgt"])
         self.n_chunk = len(plan["c_dst"])
         self.n_post = len(plan["p_tgt"])

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from . import kernels
 from .ref_backend import make_pseudo_factor
 from .schedule import NARROW_MAX, DenseUpdate, LumpBucket, PlannedSchedule, \
@@ -88,18 +89,20 @@ class DevCSR:
 
 
 def _i64(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)) \
-        .to(device)
+    with trace.span("programs.upload"):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)) \
+            .to(device)
 
 
 def _dev_bucket(lb: LumpBucket, device) -> DevBucket:
-    return DevBucket(cp=lb.cp, rp=lb.rp, prod_base=lb.prod_base,
-                     off=_i64(lb.off, device), rows=_i64(lb.rows, device),
-                     cols=_i64(lb.cols, device),
-                     vec_off=_i64(lb.vec_off, device),
-                     below_idx=_i64(lb.below_idx, device),
-                     off_h=tuple(int(o) for o in lb.off),
-                     cols_h=tuple(int(c) for c in lb.cols))
+    with trace.span("programs.upload"):
+        return DevBucket(cp=lb.cp, rp=lb.rp, prod_base=lb.prod_base,
+                         off=_i64(lb.off, device), rows=_i64(lb.rows, device),
+                         cols=_i64(lb.cols, device),
+                         vec_off=_i64(lb.vec_off, device),
+                         below_idx=_i64(lb.below_idx, device),
+                         off_h=tuple(int(o) for o in lb.off),
+                         cols_h=tuple(int(c) for c in lb.cols))
 
 
 class DevDense:
@@ -157,8 +160,9 @@ class PlannedBackend(PlannedSchedule):
         key = ("padding", torch.device(device))
         pad_idx = self._device_cache.get(key)
         if pad_idx is None:
-            pad_idx = _i64(np.nonzero(self.plan.skel.padding_mask() == 0)[0],
-                           device)
+            with trace.span("programs.schedule"):
+                pad = np.nonzero(self.plan.skel.padding_mask() == 0)[0]
+            pad_idx = _i64(pad, device)
             self._device_cache[key] = pad_idx
         return pad_idx
 
@@ -189,34 +193,54 @@ class PlannedBackend(PlannedSchedule):
         if dense is not None:
             ops.dense_update(ext, dense)
 
-    def make_factor_body(self, start_lump: int, end_lump: int,
-                         device) -> Callable:
-        """The factor of [start_lump, end_lump) in place on a contiguous
-        (batch, data_size) buffer: its padded slots zeroed by index, as
-        factor_input zeroes its copy's, then the levels. make_factor runs
-        it on a copy of its input; a chain (ops/chain.py) runs it again
-        and again on one buffer."""
+    def _factor_run(self, start_lump: int, end_lump: int, device):
+        """The levels of the factor of [start_lump, end_lump), in place
+        on a buffer whose padded slots hold zeros, and the padding's
+        index."""
         levels = self._factor_levels(start_lump, end_lump, device)
-        pad_idx = self._pad_idx(device)
 
-        def factor_body(ext: torch.Tensor, ops=kernels) -> None:
-            zero_padding(ext, pad_idx)
+        def run(ext: torch.Tensor, ops) -> None:
             for level in levels:
                 prod = self._level_prod(ext, level)
                 self._factor_buckets(ext, prod, level, ops)
                 self._level_update(ext, prod, level, ops)
 
+        return run, self._pad_idx(device)
+
+    def make_factor_body(self, start_lump: int, end_lump: int,
+                         device) -> Callable:
+        """The factor of [start_lump, end_lump) in place on a contiguous
+        (batch, data_size) buffer: its padded slots zeroed by index, as
+        factor_input zeroes its copy's, then the levels. make_factor runs
+        the same levels on factor_input's copy of its input; a chain
+        (ops/chain.py) runs this body again and again on one buffer."""
+        run, pad_idx = self._factor_run(start_lump, end_lump, device)
+
+        def factor_body(ext: torch.Tensor, ops=kernels) -> None:
+            zero_padding(ext, pad_idx)
+            run(ext, ops)
+
         return factor_body
 
     def make_factor(self, start_lump: int, end_lump: int,
                     device) -> Callable:
-        body = self.make_factor_body(start_lump, end_lump, device)
+        """The factor on a copy of its input. `factor.traced(data, ops)`
+        is the same program with the copy inside the span factor.input,
+        which the facade calls while tracing is on (trace.py)."""
+        run, pad_idx = self._factor_run(start_lump, end_lump, device)
 
         def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
-            ext = data.clone(memory_format=torch.contiguous_format)
-            body(ext, ops)
+            ext = factor_input(data, pad_idx)
+            run(ext, ops)
             return ext
 
+        def traced(data: torch.Tensor, ops) -> torch.Tensor:
+            with trace.span("factor.input"):
+                ext = factor_input(data, pad_idx)
+            run(ext, ops)
+            return ext
+
+        factor.traced = traced
         return factor
 
     def _solve_levels(self, start_lump: int, end_lump: int, device):
@@ -309,6 +333,8 @@ class PlannedBackend(PlannedSchedule):
 
     def make_solve(self, start_lump: int, end_lump: int,
                    device) -> Callable:
+        """The solve on a copy of its right-hand side; `solve.traced(data,
+        v, ops)` with the copy inside the span solve.input (trace.py)."""
         body = self.make_solve_body(start_lump, end_lump, device)
 
         def solve(data: torch.Tensor, v: torch.Tensor,
@@ -317,6 +343,14 @@ class PlannedBackend(PlannedSchedule):
             body(data, vv, ops)
             return vv
 
+        def traced(data: torch.Tensor, v: torch.Tensor,
+                   ops) -> torch.Tensor:
+            with trace.span("solve.input"):
+                vv = v.clone(memory_format=torch.contiguous_format)
+            body(data, vv, ops)
+            return vv
+
+        solve.traced = traced
         return solve
 
     def make_solve_l(self, start_lump: int, end_lump: int,

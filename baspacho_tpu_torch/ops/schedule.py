@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from .plan import NumericPlan
 
 NARROW_MAX = 512  # widest padded panel the one-CTA bucket factor takes;
@@ -377,8 +378,9 @@ class PlannedSchedule:
         key = (start, end)
         sched = self._sched_cache.get(key)
         if sched is None:
-            sched = [self._build_level(lds, with_below_idx=True)
-                     for lds in self._by_level(start, end)]
+            with trace.span("programs.schedule"):
+                sched = [self._build_level(lds, with_below_idx=True)
+                         for lds in self._by_level(start, end)]
             self._sched_cache[key] = sched
         return sched
 
@@ -630,8 +632,9 @@ class PlannedSchedule:
             if fs is not None:
                 sched = [lev[0] for lev in fs]
             else:
-                sched = [self._bucket_lumps(lds, with_below_idx=True)
-                         for lds in self._by_level(start, end)]
+                with trace.span("programs.schedule"):
+                    sched = [self._bucket_lumps(lds, with_below_idx=True)
+                             for lds in self._by_level(start, end)]
             self._solve_cache[key] = sched
         return sched
 
@@ -663,15 +666,17 @@ def pair_csr(pb: PairBucket) -> SegmentCSR:
     (r < rs, c < cs) element of every pair rectangle contributes
     prod[src_base + r * src_stride + c] to
     data[tgt_row_start + c0 + r * tgt_stride + c]."""
-    n_el = pb.rs * pb.cs
-    p = np.repeat(np.arange(len(n_el)), n_el)
-    k = np.arange(int(n_el.sum()), dtype=np.int64) - \
-        np.repeat(np.cumsum(n_el) - n_el, n_el)
-    r, c = k // pb.cs[p], k % pb.cs[p]
-    # the targets of one rectangle are distinct: origin order is the
-    # order of the pairs' enumeration
-    return _csr(pb.tgt_row_start[p] + pb.c0[p] + r * pb.tgt_stride[p] + c,
-                pb.src_base[p] + r * pb.src_stride[p] + c, p)
+    with trace.span("programs.schedule"):
+        n_el = pb.rs * pb.cs
+        p = np.repeat(np.arange(len(n_el)), n_el)
+        k = np.arange(int(n_el.sum()), dtype=np.int64) - \
+            np.repeat(np.cumsum(n_el) - n_el, n_el)
+        r, c = k // pb.cs[p], k % pb.cs[p]
+        # the targets of one rectangle are distinct: origin order is the
+        # order of the pairs' enumeration
+        return _csr(pb.tgt_row_start[p] + pb.c0[p] +
+                    r * pb.tgt_stride[p] + c,
+                    pb.src_base[p] + r * pb.src_stride[p] + c, p)
 
 
 def solve_csr(buckets: List[LumpBucket], row_base: List[int],
@@ -679,23 +684,24 @@ def solve_csr(buckets: List[LumpBucket], row_base: List[int],
     """CSR over RHS rows of one solve level's below updates: row r of
     panel b of bucket i contributes y[row_base[i] + b * rp + r] to RHS
     row below_idx[b, r]. Sentinel rows (== order) are skipped."""
-    tgts, srcs, origins = [], [], []
-    for lb, base in zip(buckets, row_base):
-        if lb.rp == 0:
-            continue
-        bidx = lb.below_idx.astype(np.int64)
-        B, rp = bidx.shape
-        src = base + np.arange(B * rp, dtype=np.int64).reshape(B, rp)
-        keep = bidx != order
-        tgts.append(bidx[keep])
-        srcs.append(src[keep])
-        origins.append(np.broadcast_to(
-            np.asarray(lb.members, dtype=np.int64)[:, None], (B, rp))[keep])
-    if not tgts:
-        z = np.zeros(0, np.int64)
-        return SegmentCSR(z, np.zeros(1, np.int64), z)
-    return _csr(np.concatenate(tgts), np.concatenate(srcs),
-                np.concatenate(origins))
+    with trace.span("programs.schedule"):
+        tgts, srcs, origins = [], [], []
+        for lb, base in zip(buckets, row_base):
+            if lb.rp == 0:
+                continue
+            bidx = lb.below_idx.astype(np.int64)
+            B, rp = bidx.shape
+            src = base + np.arange(B * rp, dtype=np.int64).reshape(B, rp)
+            keep = bidx != order
+            tgts.append(bidx[keep])
+            srcs.append(src[keep])
+            members = np.asarray(lb.members, dtype=np.int64)
+            origins.append(np.broadcast_to(members[:, None], (B, rp))[keep])
+        if not tgts:
+            z = np.zeros(0, np.int64)
+            return SegmentCSR(z, np.zeros(1, np.int64), z)
+        return _csr(np.concatenate(tgts), np.concatenate(srcs),
+                    np.concatenate(origins))
 
 
 # ----------------------------------------------------------------------

@@ -21,6 +21,9 @@ split one factor or solve over the ranks of a torch.distributed process
 group (PLANNED, one system); factor_chained / solve_chained run k
 factors or solves back to back, on the card as one CUDA graph replayed k
 times (ops/chain.py), for device time free of the host's launches.
+While the port's tracing is on (trace.py), a PLANNED factor or solve
+call runs inside its span with the kernel wrappers timed; off, it costs
+one test of the flag.
 
 createSolver pipeline (same analysis structure as reference :611-752):
   1. apply given sparse-elim-range fill,
@@ -41,10 +44,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import trace
 from .accessor import CoalescedAccessor, PermutedCoalescedAccessor
 from .block_matrix import CoalescedBlockMatrixSkel
 from .computation_model import ComputationModel
 from .elimination_tree import EliminationTree
+from .ops import kernels
 from .ops.chain import chained
 from .ops.plan import build_plan
 from .sparse_structure import SparseStructure
@@ -292,19 +297,37 @@ class Solver:
                              f"{data.shape[0]}")
         return batched, v.ndim == (2 if batched else 1)
 
-    def _run_factor_like(self, op, data, start: int, end: int, stat=None):
+    def _traced(self, op: str) -> bool:
+        """Whether a call of `op` runs inside its span (trace.py): the
+        PLANNED factor and solve programs, on a copy of the input they
+        trace, with the kernel wrappers timed."""
+        return op in ("factor", "solve") and \
+            self.backend_type == BackendType.PLANNED
+
+    def _run_factor_like(self, op, data, start: int, end: int, stat=None,
+                         ops=None):
         """The program `op` on `data`; with `stat`, the program's call
-        timed into it (_timed)."""
+        timed into it (_timed). While tracing is on, a traced op runs
+        inside its span with the wrappers timed (`ops`)."""
+        if trace.ON and ops is None and self._traced(op):
+            with trace.span(op, call=True):
+                return self._run_factor_like(op, data, start, end, stat,
+                                             kernels.timed(kernels))
         data = self._as_tensor(data)
         self._check_data(data)
         batched = data.ndim == 2
         fn = self.program(op, start, end)
         x = (data if batched else data[None]).contiguous()
-        out = self._timed(stat, lambda: fn(x))
+        out = self._timed(stat, lambda: fn(x) if ops is None
+                          else fn.traced(x, ops))
         return out if batched else out[0]
 
     def _run_solve_like(self, op, mat_data, rhs, start: int, end: int,
-                        stat=None):
+                        stat=None, ops=None):
+        if trace.ON and ops is None and self._traced(op):
+            with trace.span(op, call=True):
+                return self._run_solve_like(op, mat_data, rhs, start, end,
+                                            stat, kernels.timed(kernels))
         data = self._as_tensor(mat_data)
         v = self._as_tensor(rhs)
         self._check_data(data)
@@ -315,7 +338,8 @@ class Solver:
             data, v = data[None], v[None]
         fn = self.program(op, start, end)
         data = data.contiguous()
-        out = self._timed(stat, lambda: fn(data, v))
+        out = self._timed(stat, lambda: fn(data, v) if ops is None
+                          else fn.traced(data, v, ops))
         if not batched:
             out = out[0]
         return out[..., 0] if vec1d else out
