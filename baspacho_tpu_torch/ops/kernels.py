@@ -73,6 +73,9 @@ class LaunchCount:
     twin_calls: int = 0  # calls of the plain twin (any device)
     host_ns: int = 0     # host ns inside the wrapper's calls, summed only
     #                      through `timed` (while the port's tracing is on)
+    tc_destinations: int = 0  # dense_update only: the long f64
+    tc_records: int = 0       # destinations, and their records, that its
+    #                           tensor-core grids summed
 
 
 COUNTS = {name: LaunchCount() for name in (
@@ -87,6 +90,8 @@ def reset_counts() -> None:
         c.grid_launches = 0
         c.twin_calls = 0
         c.host_ns = 0
+        c.tc_destinations = 0
+        c.tc_records = 0
 
 
 def timed(ops) -> SimpleNamespace:
@@ -186,6 +191,8 @@ def _lib() -> ctypes.CDLL:
                               i32, i32, i32, i32, vp],
             "bs_dense_update": [i32, vp, i64, vp, i64, i32, vp, vp, vp, vp,
                                 vp, vp, vp, i32, vp],
+            "bs_dense_mma": [vp, i64, vp, i64, vp, i64, vp, i64, vp, vp,
+                             vp, vp, vp, i32, vp],
             "bs_dense_wide": [i32, vp, i64, i64, i64, i32, i64, vp, i64, vp,
                               vp, vp, vp, i32, vp],
             "bs_tri_solve": [i32, i32, vp, i64, vp, i64, vp, i64, i64, vp,
@@ -799,13 +806,17 @@ def dense_update(data, d) -> None:
     bucket factor left it. One launch per wide origin (its x x^T by
     tiles, csrc/dense_level.cu dense_wide_kernel), then one over d's
     destination-sorted records for the short destinations (a warp each)
-    and one for the long ones (a CTA each)."""
+    and the long ones: in f32 a staged grid of a CTA each, in f64 the
+    tensor cores' grid of a CTA per work item (d.tc_item) and, where a
+    tile's records are cut into chunks, a grid that adds the chunks'
+    sums (d.tc_post) from a cached scratch (counted in tc_destinations
+    and tc_records)."""
     if data.device.type == "cpu":
         return dense_update_twin(data, d)
     _check_cuda("dense_update", [data],
                 [d.rec, d.dst_off, d.dst_ld, d.dst_rows, d.dst_cols,
-                 d.dst_ptr, d.dst_nk, d.dst_short, d.dst_long, d.w_tile,
-                 d.w_rch, d.w_rin, d.w_pt, d.w_cld])
+                 d.dst_ptr, d.dst_nk, d.dst_short, d.dst_long, d.tc_item,
+                 d.tc_post, d.w_tile, d.w_rch, d.w_rin, d.w_pt, d.w_cld])
     lib, code, st = _lib(), _DTYPE_CODE[data.dtype], _stream(data)
     COUNTS["dense_update"].launches += 1
     batch = data.shape[0]
@@ -820,8 +831,9 @@ def dense_update(data, d) -> None:
             at(d.w_pt, p0), at(d.w_cld, c0), batch, st)
         COUNTS["dense_update"].grid_launches += 1
         _raise_on("dense_update (wide)", err)
+    f64 = data.dtype == torch.float64
     for ids, long_mode in ((d.dst_short, 0), (d.dst_long, 1)):
-        if ids.shape[0] == 0:
+        if ids.shape[0] == 0 or (f64 and long_mode):
             continue
         err = lib.bs_dense_update(
             code, data.data_ptr(), data.shape[1], ids.data_ptr(),
@@ -831,6 +843,20 @@ def dense_update(data, d) -> None:
             d.dst_nk.data_ptr(), batch, st)
         COUNTS["dense_update"].grid_launches += 1
         _raise_on("dense_update", err)
+    n_item, n_post = d.tc_item.shape[0], d.tc_post.shape[0]
+    if f64 and n_item:
+        part = _scratch(data, batch * d.tc_slots * 256) if n_post else None
+        err = lib.bs_dense_mma(
+            data.data_ptr(), data.shape[1], d.tc_item.data_ptr(), n_item,
+            d.tc_post.data_ptr(), n_post,
+            part.data_ptr() if n_post else None, d.tc_slots,
+            d.rec.data_ptr(), d.dst_off.data_ptr(), d.dst_ld.data_ptr(),
+            d.dst_rows.data_ptr(), d.dst_cols.data_ptr(), batch, st)
+        c = COUNTS["dense_update"]
+        c.grid_launches += 2 if n_post else 1
+        c.tc_destinations += d.dst_long.shape[0]
+        c.tc_records += d.long_records
+        _raise_on("dense_update (tensor cores)", err)
 
 
 TWIN_CHUNK_ELEMS = 1 << 22  # product elements per chunk of the K4 twin

@@ -153,7 +153,10 @@ class PairBucket:
     tgt_stride: np.ndarray  # (P,) per-pair target panel stride
 
 
-DENSE_LONG = 32      # K4 destinations with more records get a CTA each
+DENSE_LONG = 32      # K4 destinations with more records are long
+DENSE_CHUNK = 256    # records of one work item of K4's f64 long grid,
+DENSE_TC_TILE = 16   # and its tile edge (csrc/dense_level.cu kMmaChunk,
+#                      dense_mma_kernel's 16 x 16 tiles)
 DENSE_NK = 32        # widest k-slice of one K4 record
 DENSE_PIECE = 32     # K4 destinations are at most DENSE_PIECE square
 DENSE_TILE = 64      # tile edge of K4's wide-origin product
@@ -186,7 +189,18 @@ class DenseUpdate:
     Destination d subtracts the sum of its records rec[dst_ptr[d]:
     dst_ptr[d + 1]] from dst_rows x dst_cols elements at dst_off + i *
     dst_ld + j; dst_nk is its widest record; dst_short / dst_long split
-    them at DENSE_LONG records.
+    them at DENSE_LONG records; long_records counts dst_long's records.
+
+    In f64 the long destinations are summed on the tensor cores by work
+    items, destination by destination: each DENSE_TC_TILE-square tile of
+    a destination, its records cut into the fewest chunks of at most
+    DENSE_CHUNK, as even as can be. tc_item[k] = (first record, end
+    record, s << 2 | tile, slot): tile's bit 1 the row half, bit 0 the
+    column half of destination s; slot -1 where the tile is one chunk
+    (the item subtracts its sum), else the scratch slot of its partial
+    sum, consecutive for a tile's chunks; tc_post[j] = (s << 2 | tile,
+    first slot, chunks) for each tile of more than one chunk, summed in
+    chunk order; tc_slots slots in all.
 
     A wide origin (panel wider than NARROW_MAX: hundreds to thousands of
     columns, few origins, whose span-blocks would re-read x from memory
@@ -224,6 +238,10 @@ class DenseUpdate:
     dst_ptr: np.ndarray    # (T + 1,)
     dst_short: np.ndarray  # destinations with <= DENSE_LONG records
     dst_long: np.ndarray   # the others
+    long_records: int
+    tc_item: np.ndarray    # (K, 4)
+    tc_post: np.ndarray    # (P, 3)
+    tc_slots: int
     wide: list             # per wide origin, see above
     w_tile: np.ndarray
     w_rch: np.ndarray
@@ -298,6 +316,8 @@ def _dense_records(sp, org_of, grow, rptr, nch, xoff, ld, width, span_size,
     dl = used - pbase[dq]
     dpr, dpc = dl // npc[dq], dl % npc[dq]
     long_ = count > DENSE_LONG
+    dst_rows = np.minimum(DENSE_PIECE, rows_q[dq] - dpr * DENSE_PIECE)
+    dst_cols = np.minimum(DENSE_PIECE, cols_q[dq] - dpc * DENSE_PIECE)
 
     # wide origins: tiles of x x^T, targets per chain pair
     parts = {k: [] for k in ("tile", "rch", "rin", "pt", "cld")}
@@ -328,12 +348,41 @@ def _dense_records(sp, org_of, grow, rptr, nch, xoff, ld, width, span_size,
         dst_off=sl_off[dq] + dpr * DENSE_PIECE * sp_ld[s_of[dq]] +
         dpc * DENSE_PIECE,
         dst_ld=sp_ld[s_of[dq]],
-        dst_rows=np.minimum(DENSE_PIECE, rows_q[dq] - dpr * DENSE_PIECE),
-        dst_cols=np.minimum(DENSE_PIECE, cols_q[dq] - dpc * DENSE_PIECE),
+        dst_rows=dst_rows, dst_cols=dst_cols,
         dst_nk=np.maximum.reduceat(nk, start) if len(start) else start,
         dst_ptr=np.append(start, len(rec)),
         dst_short=np.flatnonzero(~long_), dst_long=np.flatnonzero(long_),
+        long_records=int(count[long_].sum()),
+        **_tc_items(np.flatnonzero(long_), start, count, dst_rows, dst_cols),
         wide=wide, **cat)
+
+
+def _tc_items(long_, start, count, rows, cols) -> dict:
+    """The f64 long grid's work items and post list (DenseUpdate) of the
+    long destinations `long_`, from every destination's first record,
+    record count, rows and columns."""
+    t = DENSE_TC_TILE
+    n, p0 = count[long_], start[long_]
+    tc = (cols[long_] + t - 1) // t
+    nt = (rows[long_] + t - 1) // t * tc
+    nchk = (n + DENSE_CHUNK - 1) // DENSE_CHUNK
+    dt = np.repeat(np.arange(len(long_)), nt)  # per tile: its destination
+    tl = np.arange(len(dt)) - np.repeat(np.cumsum(nt) - nt, nt)
+    key = long_[dt] << 2 | (tl // tc[dt]) << 1 | tl % tc[dt]
+    nk = nchk[dt]
+    it = np.repeat(np.arange(len(dt)), nk)  # per item: its tile
+    ck = np.arange(len(it)) - np.repeat(np.cumsum(nk) - nk, nk)
+    d = dt[it]
+    multi = nk > 1
+    slots = np.where(multi, nk, 0)
+    slot0 = np.cumsum(slots) - slots
+    item = np.stack([p0[d] + ck * n[d] // nk[it],
+                     p0[d] + (ck + 1) * n[d] // nk[it], key[it],
+                     np.where(multi[it], slot0[it] + ck, -1)], axis=1)
+    post = np.stack([key[multi], slot0[multi], nk[multi]], axis=1)
+    return dict(tc_item=item.astype(np.int64).reshape(-1, 4),
+                tc_post=post.astype(np.int64).reshape(-1, 3),
+                tc_slots=int(slots.sum()))
 
 
 class PlannedSchedule:

@@ -115,6 +115,46 @@ def wide_below(pkg, **kw):
                      **kw)
 
 
+def separator(pkg, blocks, sep, links, **kw):
+    """Dense parameter blocks (sizes `blocks`, each one param per row of
+    3) over separator params of sizes `sep`, ordered last: block i links
+    to the separator params in links[i]."""
+    sizes = [s for s in blocks for _ in range(s // 3)]
+    ranges, first = [], 0
+    for s in blocks:
+        ranges.append((first, first + s // 3))
+        first += s // 3
+    n = first + len(sep)
+    gen = SparseMatGenerator(n, seed=5)
+    for (a, b), ln in zip(ranges, links):
+        gen.connect_ranges(a, b, a, b, 1.0)
+        for j in ln:
+            gen.connect_ranges(a, b, first + j, first + j + 1, 1.0)
+    gen.connect_ranges(first, n, first, n, 1.0)
+    return _planned(pkg, np.array([3] * len(sizes) + list(sep)),
+                    gen.to_structure(), elim_last_ids=list(range(first, n)),
+                    **kw)
+
+
+def k4_ragged(pkg, **kw):
+    """A dense level whose long destinations are ragged: 40 origins 39
+    columns wide (K4 records of two k-slices, 32 and 7 columns, row
+    stride 64) over separator spans of 40 and 20 rows (destinations of
+    32, 8 and 20 rows, so K4's f64 tiles of 16, 8 and 4, and a diagonal
+    block's pieces above their column piece), 80 records each."""
+    return separator(pkg, [39] * 40, [40, 20], [(0, 1)] * 40, **kw)
+
+
+def k4_chunks(pkg, **kw):
+    """A dense level whose long destinations K4's f64 grid cuts into
+    chunks: 300 origins of 3 columns over a separator span of 20 rows,
+    267 of them over one of 12 rows and the other 33 over one of 6
+    (destinations of 300 and 267 records, two chunks each, and of 33,
+    just over the short destinations' limit)."""
+    return separator(pkg, [3] * 300, [20, 12, 6],
+                     [(0, 2)] * 33 + [(0, 1)] * 267, **kw)
+
+
 # the five small problems the tests hold the port against the JAX
 # package on
 SMALL = {

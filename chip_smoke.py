@@ -26,9 +26,12 @@ and drives the planned factor + solve (create_solver -> Solver.factor
   K3-rest wide against its twin and itself on the 50k corner (cp 3072)
                and WIDE_BELOW (cp 1024, below rows), f64 and f32, nrhs 1
                and 3, batch 2; at most 3 grids per call, in the traces
-  K4 per level on every dense level of FLAT+Schur 50k and BAL 871 (its
-               point level and the two wide camera levels): against its
-               twin (f64, f32), against itself, timed, its bound
+  K4 per level on every dense level of FLAT+Schur 50k, k4_ragged and
+               k4_chunks (ragged and chunked long destinations) and BAL
+               871 (its point level and the two wide camera levels):
+               against its twin (f64, f32), against itself and a batch's item
+               bitwise, the tensor cores' counts, timed whole and grid
+               by grid, traced, its bound
   partial      factor_up_to / factor_from / the four partial solves on
                MERI, GRID (against the CPU twins) and FLAT+Schur 50k
   PCG          the mixed direct/iterative solve on FLAT+Schur 50k, f64,
@@ -163,7 +166,9 @@ BAL 871's direct and PCG LM costs); with `--only k3r`, K3-rest
 narrow's (k3r_levels, the same costs); with `--only stats`, the stats
 phase (~1.5 min with BAL 871's set-up); with `--only sharded`, the
 sharded phase (~3.5 min with BAL 871's set-up); with `--only chained`,
-the chained phase (~2 min with BAL 871's set-up). Every run first checks
+the chained phase (~2 min with BAL 871's set-up); with `--only k4`,
+K4's (k4_levels on FLAT+Schur 50k, k4_ragged, k4_chunks and BAL 871,
+BAL 871's direct LM costs). Every run first checks
 that the
 native symbolic library loads (baspacho_tpu_torch/native.py builds it
 under a lock), and fails if it does not.
@@ -207,6 +212,7 @@ from baspacho_tpu_torch.testing.flows import (ba_optimizer, ba_settings,
                                               k6_vs_twin, pcg_flow)
 from baspacho_tpu_torch.testing.problems import (flat1000, flat_schur5k,
                                                  flat_schur50k, grid100,
+                                                 k4_chunks, k4_ragged,
                                                  meri7, se3_ba, spd_data,
                                                  wide_below)
 
@@ -246,7 +252,8 @@ GRIDS = {"bucket_factor": ("chol_warp_kernel", "chol_block_kernel",
                         "wide_l_y_kernel", "wide_lt_rows_kernel",
                         "wide_lt_post_kernel", "wide_ltmv_kernel"),
          "dense_update": ("dense_wide_kernel", "dense_warp_kernel",
-                          "dense_block_kernel"),
+                          "dense_block_kernel", "dense_mma_kernel",
+                          "dense_post_kernel"),
          "tri_solve": ("tri_l_warp_kernel", "tri_lt_warp_kernel",
                        "tri_l_diag_kernel", "tri_lt_diag_kernel",
                        "tri_l_rows_kernel", "tri_lt_rows_kernel"),
@@ -516,13 +523,36 @@ class DenseCapture:
         kernels.dense_update(data, d)
 
 
-def k4_levels(s, data, label: str, name_limit: str) -> list:
+def k4_only_grid(d, which: str):
+    """A copy of the level's plan that launches only K4's `which` grid:
+    "long" (dst_long), "short" (dst_short) or "wide" (the wide origins'
+    tiles)."""
+    part = copy.copy(d)
+    if which != "wide":
+        part.wide = []
+    if which != "short":
+        part.dst_short = d.dst_short[:0]
+    if which != "long":
+        part.dst_long, part.long_records = d.dst_long[:0], 0
+        part.tc_item, part.tc_post = d.tc_item[:0], d.tc_post[:0]
+    return part
+
+
+def k4_levels(s, data, label: str, name_limit: str,
+              traced: bool = False) -> list:
     """K4 on every dense level of one factor of `data` (single, f64): the
     update against its twin in f64 and f32 (CheckedOps), two runs from
-    the same data bitwise equal, its time (CUDA events, mean of 5 after 2
-    warm-up runs), the twin's (one run), and its bound from this level's
-    plan; on a level with wide origins, their tile launches alone
-    timed too. Returns one row per dense level."""
+    the same data bitwise equal, a batch of two against single runs
+    bitwise, its time (CUDA events, mean of 5 after 2 warm-up runs), the
+    twin's (one run), and its bound from this level's plan; each grid
+    (wide origins' tiles, short and long destinations) alone timed too,
+    the tensor cores' counts, the long destinations' records and the
+    32-byte sectors of x they read (rows taken whole, 4 doubles a
+    sector); with `traced` (`--only k4`) the level's device ms per kernel
+    from a complete trace (every grid's record in every run; None where
+    no try gives one). The whole run leaves the traces out: its strict
+    traces lose records after many profiler sessions (PERF.md §7).
+    Returns one row per dense level."""
     cap = DenseCapture()
     s.factor_program()(data[None], ops=cap)
     sched = s.backend._factor_schedule(0, s.skel.num_lumps)
@@ -531,10 +561,22 @@ def k4_levels(s, data, label: str, name_limit: str) -> list:
           f"K4 calls {len(cap.levels)}")
     rows = []
     for lvl, (snap, d) in zip(ids, cap.levels):
+        cnt = d.dst_ptr.diff()[d.dst_long]
+        dl = torch.repeat_interleave(d.dst_long, cnt)  # per long record
+        p = d.dst_ptr[dl] + torch.arange(dl.shape[0], device=dl.device) - \
+            torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+        sectors = (d.dst_rows[dl] + d.dst_cols[dl]) * \
+            (((d.rec[p, 1] & 0xffff) + 3) // 4)
         row = {"level": lvl, "origins": int(d.org_xoff.shape[0]), "R": d.R,
                "records": int(d.rec.shape[0]),
                "destinations": int(d.dst_off.shape[0]),
-               "long_destinations": int(d.dst_long.shape[0])}
+               "long_destinations": int(d.dst_long.shape[0]),
+               "long_records": int(dl.shape[0]),
+               "long_shapes": sorted({(int(r), int(c)) for r, c in zip(
+                   d.dst_rows[d.dst_long].tolist(),
+                   d.dst_cols[d.dst_long].tolist())}),
+               "long_sector_gb": int(sectors.sum()) * 32 / 1e9}
+        del dl, p, sectors
         for dt in (torch.float64, torch.float32):
             chk = CheckedOps()  # on a copy: snap stays the input
             chk.dense_update(snap.to(dt, copy=True), d)
@@ -545,21 +587,49 @@ def k4_levels(s, data, label: str, name_limit: str) -> list:
             row["max_abs"] = max(row.get("max_abs", 0.0),
                                  chk.abs["dense_update"])
             del chk
-        a, b = snap.clone(), snap.clone()
-        kernels.dense_update(a, d)
-        kernels.dense_update(b, d)
-        check(torch.equal(a, b), f"dense_update on {label} level {lvl}: "
-              "two runs differ")
-        del a, b
+            a, b = snap.to(dt, copy=True), snap.to(dt, copy=True)
+            kernels.reset_counts()
+            kernels.dense_update(a, d)
+            c = kernels.COUNTS["dense_update"]
+            f64 = dt == torch.float64
+            check((c.tc_destinations, c.tc_records) == (
+                row["long_destinations"] * f64, row["long_records"] * f64),
+                f"dense_update on {label} level {lvl} {dt}: the tensor "
+                f"cores took {c.tc_destinations} destinations and "
+                f"{c.tc_records} records")
+            if f64:
+                row["tc_counts"] = [c.tc_destinations, c.tc_records]
+            kernels.dense_update(b, d)
+            check(torch.equal(a, b), f"dense_update on {label} level {lvl} "
+                  f"{dt}: two runs differ")
+            two = torch.cat([snap.to(dt), snap.to(dt) * 1.5])
+            kernels.dense_update(two, d)
+            check(torch.equal(two[:1], a), f"dense_update on {label} level "
+                  f"{lvl} {dt}: a batch's item differs from a single run")
+            del a, b, two
         buf = snap.clone()
         row["ms"] = time_ms(lambda: kernels.dense_update(buf, d), 5)
-        if d.wide:  # the wide origins' tile launches alone
-            wide = copy.copy(d)
-            wide.dst_short, wide.dst_long = d.dst_short[:0], d.dst_long[:0]
-            row["wide_ms"] = time_ms(lambda: kernels.dense_update(buf, wide),
-                                     5)
+        if d.wide:
             row["wide_origins"] = [{"rows": w[1], "width": w[2],
                                     "tiles": w[8]} for w in d.wide]
+        for which, there in (("wide", len(d.wide)),
+                             ("short", d.dst_short.shape[0]),
+                             ("long", d.dst_long.shape[0])):
+            if there:
+                part = k4_only_grid(d, which)
+                row[f"{which}_ms"] = time_ms(
+                    lambda: kernels.dense_update(buf, part), 5)
+        if traced:
+            kernels.reset_counts()
+            kernels.dense_update(buf, d)
+            grids = kernels.COUNTS["dense_update"].grid_launches
+            try:  # a record, not a check
+                row["device_ms_by_kernel"], _, row["trace"] = \
+                    complete_trace(lambda: kernels.dense_update(buf, d),
+                                   GRIDS["dense_update"], grids, 5,
+                                   f"dense_update on {label} level {lvl}")
+            except AssertionError as e:
+                row["device_ms_by_kernel"], row["trace"] = None, str(e)
         row["twin_ms"] = time_ms(lambda: kernels.dense_update_twin(buf, d),
                                  1, warmup=1)
         row["bound_ms"], row["bound_by"] = bound(*cost("dense_update",
@@ -568,7 +638,8 @@ def k4_levels(s, data, label: str, name_limit: str) -> list:
         del buf, snap
     log("k4_levels", case=label, card=name_limit, dtype="float64",
         limits={"float64": 1e-10, "float32": 1e-4}, bitwise_rerun=True,
-        ms_per_factor=sum(r["ms"] for r in rows), levels=rows)
+        batch_bitwise=True, ms_per_factor=sum(r["ms"] for r in rows),
+        levels=rows)
     return rows
 
 
@@ -2644,6 +2715,32 @@ def k1w_only(dev, name_limit: str) -> int:
     return 0
 
 
+def k4_only(dev, name_limit: str) -> int:
+    """`--only k4`: the build, then K4's phase alone (k4_levels on every
+    dense level of FLAT+Schur 50k, k4_ragged, k4_chunks and BAL 871's
+    first damped system) and BAL 871's direct LM held to BAL_COSTS, for
+    iterating on csrc/dense_level.cu without the whole run."""
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    for pname, make in (("flat_schur50k", flat_schur50k),
+                        ("k4_ragged", k4_ragged), ("k4_chunks", k4_chunks)):
+        s = make(T, device=dev)
+        k4_levels(s, torch.from_numpy(spd_data(s, 1)).to(dev), pname,
+                  name_limit, traced=True)
+        del s
+    opt, values0, _ = bal_setup(dev)
+    damped, _, _ = bal_damped(
+        opt, values0, ba_settings(T.BackendType.PLANNED, 1, **BAL_DAMP))
+    k4_levels(opt.solver, damped, "bal871", name_limit, traced=True)
+    del damped
+    reset_values(opt, values0)
+    bal_direct_costs(opt, name_limit)
+    log("k4_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
 def bal_direct_costs(opt, name_limit: str) -> list:
     """BAL 871's direct LM (3 iterations) from the set-up's values, its
     costs held to BAL_COSTS."""
@@ -3717,7 +3814,7 @@ def main(argv=()) -> int:
             "k2": functools.partial(level_only, "k2"),
             "k3r": functools.partial(level_only, "k3r"),
             "stats": stats_only, "sharded": sharded_only,
-            "chained": chained_only}
+            "chained": chained_only, "k4": k4_only}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         return only[argv[1]](dev, name_limit)
     if argv:
@@ -3942,8 +4039,14 @@ def main(argv=()) -> int:
         launches={k: v[0] for k, v in c_schur.items()},
         grid_launches={k: v[2] for k, v in c_schur.items()})
 
-    # 10a. K4 on the 50k level: against its twin, against itself, timed
+    # 10a. K4 on the 50k level: against its twin, against itself, timed;
+    # and on the ragged and chunked long destinations of two small levels
     k4_50k = k4_levels(schur50, d, "flat_schur50k", name_limit)
+    for pname, make in (("k4_ragged", k4_ragged), ("k4_chunks", k4_chunks)):
+        s = make(T, device=dev)
+        k4_levels(s, torch.from_numpy(spd_data(s, 1)).to(dev), pname,
+                  name_limit)
+        del s
 
     # 10b. partial identities, f64: factor_from(factor_up_to(d, t), t)
     # against factor(d), and the four partial solves and the corner

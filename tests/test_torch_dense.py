@@ -17,6 +17,8 @@ between the port's dense and pair mechanisms (the same products, summed
 in another order); 1e-13 for the K4 twin against the loop oracle (one
 update, no inverse)."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -25,12 +27,14 @@ import baspacho_tpu as J
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch.ops import kernels
 from baspacho_tpu_torch.ops.planned_backend import DevDense, PlannedBackend
-from baspacho_tpu_torch.ops.schedule import (DENSE_PIECE, DENSE_TILE,
-                                             NARROW_MAX, PlannedSchedule)
-from baspacho_tpu_torch.testing.mat_gen import SparseMatGenerator
+from baspacho_tpu_torch.ops.schedule import (DENSE_CHUNK, DENSE_LONG,
+                                             DENSE_PIECE, DENSE_TC_TILE,
+                                             DENSE_TILE, NARROW_MAX,
+                                             PlannedSchedule, _tc_items)
 from baspacho_tpu_torch.testing.problems import (SMALL, flat_schur5k,
-                                                 spd_data, wide_below,
-                                                 wide_dense)
+                                                 k4_chunks, k4_ragged,
+                                                 separator, spd_data,
+                                                 wide_below, wide_dense)
 from same_native import one_native_library  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -196,28 +200,6 @@ def bal_case():
     return _cache["bal"]
 
 
-def _separator_problem(blocks, sep, links, n_sep_links=None):
-    """Dense parameter blocks (sizes `blocks`, each one param per row of
-    3) over separator params of sizes `sep`, ordered last: block i links
-    to the separator params in links[i]. Returns the port's solver."""
-    sizes = [s for s in blocks for _ in range(s // 3)]
-    ranges, first = [], 0
-    for s in blocks:
-        ranges.append((first, first + s // 3))
-        first += s // 3
-    n = first + len(sep)
-    gen = SparseMatGenerator(n, seed=5)
-    for (a, b), ln in zip(ranges, links):
-        gen.connect_ranges(a, b, a, b, 1.0)
-        for j in ln:
-            gen.connect_ranges(a, b, first + j, first + j + 1, 1.0)
-    gen.connect_ranges(first, n, first, n, 1.0)
-    return T.create_solver(
-        T.Settings(backend=T.BackendType.PLANNED),
-        np.array([3] * len(sizes) + list(sep)), gen.to_structure(),
-        elim_last_ids=list(range(first, n)), device="cpu")
-
-
 def limits_case(name):
     """Dense levels past the limits of the plan's packed fields:
     `big_span`, 20 narrow origins below one 2,050-row separator span and
@@ -227,10 +209,10 @@ def limits_case(name):
     them) beside a narrow one sharing two of its targets."""
     if name not in _cache:
         if name == "big_span":
-            ts = _separator_problem([3] * 20, [2050, 40], [(0, 1)] * 20)
+            ts = separator(T, [3] * 20, [2050, 40], [(0, 1)] * 20)
         else:
-            ts = _separator_problem([540, 30], [50, 40, 70],
-                                    [(0, 1, 2), (1, 2)])
+            ts = separator(T, [540, 30], [50, 40, 70],
+                           [(0, 1, 2), (1, 2)])
         _cache[name] = (ts, levels(ts)[0])
     return _cache[name]
 
@@ -280,11 +262,11 @@ def wide_targets(du, w):
     return out
 
 
-def k4_records_numpy(buf, du):
+def k4_records_numpy(buf, du, dests=None):
     """buf less K4's update from its plan alone: each wide origin's x x^T
     by tiles, then each record's product x_o[a] x_o[b]^T over its
     columns, subtracted at its destination (numpy, grouped by
-    destination shape)."""
+    destination shape); only the records of `dests` where given."""
     out = buf.copy()
     for w in du.wide:
         xoff, rows, width, ld = w[:4]
@@ -293,8 +275,9 @@ def k4_records_numpy(buf, du):
             np.subtract.at(out, tgt[keep], (x[i] @ x[j].T)[keep])
     xa, xb, ld, n, dst, _, _, _, _ = decode(du)
     R, C = du.dst_rows[dst], du.dst_cols[dst]
-    for r_, c_ in sorted(set(zip(R.tolist(), C.tolist()))):
-        sel = np.flatnonzero((R == r_) & (C == c_))
+    mine = np.ones(len(dst), bool) if dests is None else np.isin(dst, dests)
+    for r_, c_ in sorted(set(zip(R[mine].tolist(), C[mine].tolist()))):
+        sel = np.flatnonzero((R == r_) & (C == c_) & mine)
         k = np.arange(int(n[sel].max()))
         live = (k < n[sel, None])[:, None, :]
 
@@ -468,3 +451,251 @@ def test_dense_wrapper_never_falls_back_off_cpu():
         kernels.dense_update(d, DevDense(du, "meta"))
     assert all(c.twin_calls == 0 and c.launches == 0
                for c in kernels.COUNTS.values())
+
+
+# ----------------------------------------------------------------------
+# K4's f64 long destinations: the tensor cores' work items (a
+# destination's DENSE_TC_TILE-square tile and a chunk of at most
+# DENSE_CHUNK of its records, a CTA each on the card) and the post list
+# that adds a tile's chunks
+# ----------------------------------------------------------------------
+TC_WARPS = 8  # warps of a work item's CTA (csrc/dense_level.cu kMmaWarps)
+
+
+def tc_case(name):
+    """(port solver, JAX solver or None, level tuple) of the dense levels
+    that exercise the tensor cores' grid. `bal_long`: a BAL scene whose
+    diagonal camera blocks hold ~375 records (two chunks each), the
+    others ~100; `ragged` and `chunks`: problems.k4_ragged and
+    k4_chunks."""
+    if name not in _cache:
+        js = None
+        if name == "bal_long":
+            from baspacho_tpu_torch.bal import make_random_bal
+            from baspacho_tpu_torch.testing.flows import (ba_optimizer,
+                                                          ba_settings)
+            prob = make_random_bal(n_cams=8, n_pts=1000, track_len=3)
+            ts = ba_optimizer(prob, ba_settings(T.BackendType.PLANNED, 1),
+                              "cpu").solver
+        else:
+            make = {"ragged": k4_ragged, "chunks": k4_chunks}[name]
+            ts, js = make(T), make(J)
+        lv = [lv for lv in levels(ts) if lv[3] is not None][0]
+        _cache[name] = (ts, js, lv)
+    return _cache[name]
+
+
+TC_CASES = ("bal_long", "ragged", "chunks", "wide_dense")
+
+
+def tc_level(name):
+    """(port solver, JAX solver or None, the dense level's DenseUpdate)."""
+    if name in PROBLEMS:
+        js, ts = case(name)[:2]
+        return ts, js, levels(ts)[0][3]
+    ts, js, lv = tc_case(name)
+    return ts, js, lv[3]
+
+
+def tc_tile(du, key):
+    """(destination, first row, first column, rows, columns) of a work
+    item's or post entry's tile."""
+    s, r0, c0 = key >> 2, (key >> 1 & 1) * 16, (key & 1) * 16
+    return (s, r0, c0, min(16, du.dst_rows[s] - r0),
+            min(16, du.dst_cols[s] - c0))
+
+
+def k4_tc_numpy(buf, du):
+    """buf less the f64 long destinations' update as the tensor cores'
+    grid sums it, from the plan alone: per work item, warp w of TC_WARPS
+    takes its records first + w, first + w + TC_WARPS, ... in order, each
+    record's product over its columns; the warps' sums in warp order; a
+    tile of one chunk subtracts its sum, a chunked one writes it to its
+    slot, and each post entry subtracts its tile's slots summed in chunk
+    order."""
+    out = buf.copy()
+    xa, xb, ld, n, _, _, _, _, _ = decode(du)
+    part = np.zeros((du.tc_slots, 16, 16))
+
+    def targets(s, r0, c0, R, C):
+        return du.dst_off[s] + (r0 + np.arange(R))[:, None] * \
+            du.dst_ld[s] + c0 + np.arange(C)
+    for first, end, key, slot in du.tc_item:
+        s, r0, c0, R, C = tc_tile(du, key)
+        tot = np.zeros((R, C))
+        for w in range(TC_WARPS):
+            acc = np.zeros((R, C))
+            for p in range(first + w, end, TC_WARPS):
+                k = np.arange(n[p])
+                A = buf[xa[p] + (r0 + np.arange(R))[:, None] * ld[p] + k]
+                B = buf[xb[p] + (c0 + np.arange(C))[:, None] * ld[p] + k]
+                acc += A @ B.T
+            tot += acc
+        if slot < 0:
+            out[targets(s, r0, c0, R, C)] -= tot
+        else:
+            part[slot, :R, :C] = tot
+    for key, first, cnt in du.tc_post:
+        s, r0, c0, R, C = tc_tile(du, key)
+        tot = part[first, :R, :C].copy()
+        for k in range(1, cnt):
+            tot += part[first + k, :R, :C]
+        out[targets(s, r0, c0, R, C)] -= tot
+    return out
+
+
+def k4_f64_numpy(buf, du):
+    """buf less K4's whole f64 update as the card computes it: the wide
+    origins' tiles and the short destinations' records, then the long
+    destinations by the tensor cores' grid."""
+    return k4_tc_numpy(k4_records_numpy(buf, du, dests=du.dst_short), du)
+
+
+def check_tc_items(du, count, start, rows, cols):
+    """The work items and post list cover each long destination's tiles
+    and records: per tile, in destination order, its records cut into the
+    fewest chunks of at most DENSE_CHUNK, in order, as even as can be; a
+    tile of one chunk subtracts its sum (slot -1), a chunked one has
+    consecutive slots of its own and one post entry."""
+    item = du.tc_item.reshape(-1, 4)
+    post = du.tc_post.reshape(-1, 3)
+    want, slots, want_post = [], 0, []
+    for s in du.dst_long:
+        nch = -(-count[s] // DENSE_CHUNK)
+        cut = start[s] + np.arange(nch + 1) * count[s] // nch
+        tiles = [(i, j) for i in range(-(-rows[s] // DENSE_TC_TILE))
+                 for j in range(-(-cols[s] // DENSE_TC_TILE))]
+        for i, j in tiles:
+            key = s << 2 | i << 1 | j
+            for k in range(nch):
+                want.append((cut[k], cut[k + 1], key,
+                             slots + k if nch > 1 else -1))
+            if nch > 1:
+                want_post.append((key, slots, nch))
+                slots += nch
+    assert [tuple(r) for r in item.tolist()] == want
+    assert [tuple(r) for r in post.tolist()] == want_post
+    assert du.tc_slots == slots
+    assert np.all(np.diff(item[:, :2], axis=1) <= DENSE_CHUNK)
+    assert np.all(np.diff(item[:, :2], axis=1) > 0)
+    assert du.long_records == int(count[du.dst_long].sum())
+
+
+@pytest.mark.parametrize("name", [*TC_CASES, "bal", "big_span"])
+def test_tc_items_cover_long_destinations(name):
+    _, _, du = tc_level(name) if name in TC_CASES else \
+        (None, None, dense_level(name)[1][3])
+    count = np.diff(du.dst_ptr)
+    check_tc_items(du, count, du.dst_ptr[:-1], du.dst_rows, du.dst_cols)
+    if name in TC_CASES:
+        assert len(du.tc_item)
+
+
+def test_tc_items_at_their_edges():
+    """_tc_items on destinations of 33, 256, 257, 1,000 and 40 records,
+    32 x 32 (four tiles), 17 x 9, 3 x 3, 16 x 16 and 32 x 1: chunks of
+    exactly DENSE_CHUNK, one more record (two even chunks), four chunks
+    of 250; a short one among them gets no item."""
+    count = np.array([33, 256, 257, 1000, 40, 32])
+    rows, cols = np.array([32, 17, 3, 16, 32, 9]), \
+        np.array([32, 9, 3, 16, 1, 9])
+    start = np.cumsum(count) - count
+    long_ = np.flatnonzero(count > DENSE_LONG)
+    du = SimpleNamespace(dst_long=long_, long_records=int(
+        count[long_].sum()), **_tc_items(long_, start, count, rows, cols))
+    check_tc_items(du, count, start, rows, cols)
+    sizes = np.diff(du.tc_item[:, :2], axis=1).ravel().tolist()
+    assert sizes == [33] * 4 + [256] * 2 + [128, 129] + [250] * 4 + [40] * 2
+    assert du.tc_post.tolist() == [[2 << 2, 0, 2], [3 << 2, 2, 4]]
+
+
+@pytest.mark.parametrize("name", TC_CASES)
+def test_k4_tc_grid_matches_twin(name):
+    """The f64 update as the card sums it (the tensor cores' work items,
+    their warps and the post list, evaluated in numpy) gives the twin's
+    buffer."""
+    ts, _, du = tc_level(name)
+    buf = np.random.RandomState(5).rand(ts.data_size) * \
+        ts.skel.padding_mask()
+    got = torch.from_numpy(buf.copy())[None]
+    kernels.dense_update_twin(got, DevDense(du, "cpu"))
+    assert rel(k4_f64_numpy(buf, du), got[0].numpy()) < 1e-12
+
+
+class TcOps:
+    """The twins, with K4 evaluated as the card's f64 grids sum it
+    (k4_f64_numpy)."""
+
+    def __getattr__(self, name):
+        return getattr(kernels.TWINS, name)
+
+    def dense_update(self, data, d):
+        du = SimpleNamespace(**{k: v.numpy() if torch.is_tensor(v) else v
+                                for k, v in vars(d).items()})
+        for b in range(data.shape[0]):
+            data[b] = torch.from_numpy(k4_f64_numpy(data[b].numpy(), du))
+
+
+@pytest.mark.parametrize("name", ["ragged", "chunks", "wide_dense"])
+def test_k4_tc_grid_factor_matches_jax(name):
+    """A whole factor with K4 summed as the card's f64 grids sum it
+    against the JAX package's factor (1e-10)."""
+    ts, js, _ = tc_level(name)
+    data = spd_data(js, 21)
+    want = np.asarray(js.factor(data))
+    got = ts.factor_program()(torch.from_numpy(data)[None], ops=TcOps())
+    assert rel(got[0].numpy(), want) < 1e-10
+
+
+class FakeK4Lib:
+    """Stands in for the kernels' library: records K4's launches."""
+
+    def __init__(self):
+        self.calls = []
+
+    def bs_dense_update(self, *args):
+        self.calls.append(("update", args[0], args[4], args[5]))
+        return 0
+
+    def bs_dense_mma(self, *args):
+        self.calls.append(("mma", args[3], args[5], args[7]))
+        return 0
+
+    def bs_dense_wide(self, *args):
+        self.calls.append(("wide",))
+        return 0
+
+
+@pytest.mark.parametrize("name", ["bal_long", "chunks"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tensor_core_counter(monkeypatch, name, dtype):
+    """The wrapper on the card's path (device checks and the library
+    stood in for, tensors on `meta`): in f64 the long destinations go to
+    the tensor cores' grids, one call with the work items and the post
+    list, and COUNTS["dense_update"] counts every long destination and
+    record; in f32 they take the staged grid and the counter stays 0."""
+    _, _, du = tc_level(name)
+    lib = FakeK4Lib()
+    monkeypatch.setattr(kernels, "_lib", lambda: lib)
+    monkeypatch.setattr(kernels, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(kernels, "_stream", lambda t: 0)
+    d = torch.empty((2, 16), dtype=dtype, device="meta")
+    kernels.reset_counts()
+    kernels.dense_update(d, DevDense(du, "meta"))
+    kernels.dense_update(d, DevDense(du, "meta"))
+    c = kernels.COUNTS["dense_update"]
+    short, n_long = len(du.dst_short), len(du.dst_long)
+    assert n_long and du.long_records > n_long * DENSE_LONG
+    code = int(dtype == torch.float64)
+    first = [("update", code, short, 0)] if short else []
+    if dtype == torch.float64:
+        assert (c.tc_destinations, c.tc_records) == (2 * n_long,
+                                                     2 * du.long_records)
+        assert lib.calls == (first + [("mma", len(du.tc_item),
+                                       len(du.tc_post), du.tc_slots)]) * 2
+        assert c.grid_launches == 2 * (len(first) + 1 +
+                                       (len(du.tc_post) > 0))
+    else:
+        assert (c.tc_destinations, c.tc_records) == (0, 0)
+        assert lib.calls == (first + [("update", 0, n_long, 1)]) * 2
+        assert c.grid_launches == 2 * (len(first) + 1)
