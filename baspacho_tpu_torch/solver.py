@@ -422,9 +422,11 @@ class Solver:
             x, out = x[..., None], out[..., None]
         if not batched:
             data, x, out = data[None], x[None], out[None]
-        res = self.program("add_mv", start_l)(data.contiguous(),
-                                              x.contiguous(), out,
-                                              float(alpha))
+        fn = self.program("add_mv", start_l)
+        args = (data.contiguous(), x.contiguous(), out, float(alpha))
+        # while tracing, the PLANNED program's wrappers are timed (trace.py)
+        res = fn(*args, ops=kernels.timed(kernels)) if trace.ON and \
+            self.backend_type == BackendType.PLANNED else fn(*args)
         if not batched:
             res = res[0]
         return res[..., 0] if vec1d else res
@@ -450,14 +452,39 @@ class Solver:
         (typically float32) factors the matrix held at higher precision
         in `mat_data`; each round takes the residual r = b - M x at the
         matrix precision (block mat-vec) and corrects with a solve at
-        the factor's precision."""
+        the factor's precision.
+
+        While tracing is on (trace.py), a PLANNED call runs inside the
+        span `refine`, which holds each solve's own `solve` span (a call
+        id of its own), `refine.residual` (each round's add_mv_from and
+        its subtraction from b) and `refine.cast` (each conversion
+        between the factor's precision and the matrix's)."""
+        if trace.ON and self.backend_type == BackendType.PLANNED:
+            with trace.span("refine", call=True):
+                return self._refined(mat_data, factor_data, rhs, iterations,
+                                     trace.span)
+        return self._refined(mat_data, factor_data, rhs, iterations,
+                             trace.no_span)
+
+    def _refined(self, mat_data, factor_data, rhs, iterations: int, span):
         rhs = self._as_tensor(rhs)
         mat = self._as_tensor(mat_data)
         lp = self._as_tensor(factor_data)
-        x = self.solve(lp, rhs.to(lp.dtype)).to(rhs.dtype)
+        with span("refine.cast"):
+            b = rhs.to(lp.dtype)
+        x = self.solve(lp, b)
+        with span("refine.cast"):
+            x = x.to(rhs.dtype)
         for _ in range(iterations):
-            r = rhs - self.add_mv_from(mat, 0, x, torch.zeros_like(x), 1.0)
-            x = x + self.solve(lp, r.to(lp.dtype)).to(rhs.dtype)
+            with span("refine.residual"):
+                r = rhs - self.add_mv_from(mat, 0, x, torch.zeros_like(x),
+                                           1.0)
+            with span("refine.cast"):
+                r = r.to(lp.dtype)
+            d = self.solve(lp, r)
+            with span("refine.cast"):
+                d = d.to(rhs.dtype)
+            x = x + d
         return x
 
     def make_differentiable_solve(self):

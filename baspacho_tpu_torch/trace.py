@@ -21,6 +21,13 @@ The spans:
   solve                Solver.solve on the PLANNED backend, the whole call
   solve.input          inside it: the program's copy of its right-hand
                        side (PlannedBackend.make_solve)
+  refine               Solver.solve_refined on the PLANNED backend, the
+                       whole call; its solves keep their own `solve`
+                       spans inside it
+  refine.residual      inside it: each round's add_mv_from(mat, 0, ...)
+                       and the subtraction from the right-hand side
+  refine.cast          inside it: each conversion between the factor's
+                       precision and the matrix's
   programs.schedule    building a program: level schedules, the pair and
                        solve CSRs, the dense levels' records
                        (ops/schedule.py) and the factor's padding index
@@ -30,16 +37,20 @@ The spans:
                        (planned_backend._i64, DevDense, SegLayout.arrays)
                        and the buckets' host tuples (off_h, cols_h)
 
-The two call spans and the spans inside one of them share a call id; a
-set-up span has none. A set-up phase is read by self time (its span less
-the spans inside it), so an upload inside a layout counts once.
+The three call spans (factor, solve, refine) and the spans inside one of
+them share a call id, but a solve inside `refine` opens a call of its
+own; a set-up span has none. A set-up phase is read by self time (its
+span less the spans inside it), so an upload inside a layout counts
+once.
 
 While tracing is on, the facade hands the PLANNED factor and solve
 programs a timing shim over the kernel wrappers (`kernels.timed`), which
 adds each wrapper call's host ns (on the card: checks, pointers, the
 stream, the ctypes call; on the CPU the plain twin) to its counter's
-`host_ns`. Off, a facade call costs one test of `ON` and the programs get
-the plain `kernels` module; a set-up span costs one test. The chained
+`host_ns`; Solver.add_mv_from hands its PLANNED program the same shim, so
+K5's host ns land in `COUNTS["add_mv"]` / `COUNTS["wide_add_mv"]`. Off, a
+facade call costs one test of `ON` and the programs get the plain
+`kernels` module; a set-up span costs one test. The chained
 and sharded programs have no spans.
 """
 
@@ -94,6 +105,11 @@ def span(name: str, call: bool = False):
     if not ON:
         return _OFF
     return _record(name, call)
+
+
+def no_span(name: str):
+    """span's stand-in for a call that is not traced: does nothing."""
+    return _OFF
 
 
 @contextmanager
