@@ -14,10 +14,12 @@
 //   wide_tile    one CTA per (panel, batch item): applies step k - 1's
 //                update to the tile's own lower triangle, then factors and
 //                inverts the tile in shared memory by 32-column
-//                sub-blocks, products on the tensor cores, and writes it
-//                back in the stored layout (L, the tile's Linv^T above its
-//                diagonal) and densely (Linv^T with 1 / diag L on the
-//                diagonal) into a scratch slot of its own;
+//                sub-blocks (each diagonal block by one warp in panels of
+//                8 columns), products on the tensor cores, and writes it
+//                back, each column block once it is finished, in the
+//                stored layout (L, the tile's Linv^T above its diagonal)
+//                and densely (Linv^T with 1 / diag L on the diagonal) into
+//                a scratch slot of its own;
 //   wide_rows    one CTA per (panel, 32-row block, batch item), 32 x 128
 //                outputs of a product with X_k = the tile's Linv, in
 //                place (a CTA owns whole 128-column rows):
@@ -43,15 +45,17 @@
 // it fills the card beside the tile's CTAs, and its last CTA waits for
 // the tile grid, so that rows k + 1, an ordinary launch, finds both done.
 // 3 cp / kNb - 1 grids a call. Every product sums on the f64 tensor cores
-// (mma.m8n8k4 through mma32, warp_tiles.cuh), FMAs in f32, each output in
-// one fixed column order: a batch item and a single run agree bitwise,
-// and so do reruns. No atomics.
+// (mma.m8n8k4 through mma32, warp_tiles.cuh; the tile's 32 x 32 products
+// on mma.m16n8k4, mma32w below), FMAs in f32, each output in one
+// fixed column order: a batch item and a single run agree bitwise, and so
+// do reruns. No atomics.
 //
 // Bounds (H100, f64): the chain of diagonal tiles (one SM each, cp / 128
-// in turn, four 32 x 32 warp factorizations each, whose unrolled code
-// runs cold on an SM that ran other grids since) and the rows grid
-// between them; the products (2 n^3 / 3 + r n^2 flops in all) are spread
-// over the card beside the tile.
+// in turn: step k - 1's update of the tile, four 32 x 32 diagonal blocks
+// factored by one warp in panels of 8 columns, their products; code kept
+// small, since it runs on an SM that ran other grids since) and the rows
+// grid between them; the products (2 n^3 / 3 + r n^2 flops in all) are
+// spread over the card beside the tile.
 //
 // Real width n = cols[i], real below rows rows[i]: rows and columns past
 // them are padding (zero on entry), left as they are in L and x and
@@ -72,10 +76,11 @@ namespace {
 constexpr int kNb = 128;           // the diagonal tile
 constexpr int kTileWarps = 8;      // wide_tile: warps a CTA
 constexpr int kTileCta = 32 * kTileWarps;
+constexpr int kWorkers = kTileCta - 32;  // wide_tile: warps 1-7 (the load)
 constexpr int kLd = kNb + 4;       // a 128-column row in shared memory:
 //                                    16-byte aligned, mma32 fragments
 //                                    free of bank conflicts
-constexpr int kDbld = kSub + 1;    // wide_tile: a row of the diagonal block
+constexpr int kPw = 8;             // wide_tile: a panel of diag_chol_inv
 constexpr int kRows = 32;          // wide_rows: rows a CTA
 constexpr int kRowThreads = 256;   // wide_rows: 8 warps stage, 4 multiply
 
@@ -121,43 +126,274 @@ __device__ __forceinline__ T* xk_tile(T* xk, int k0, int64_t z, int64_t B,
   return xk + (slot * B + i) * kNb * kNb;
 }
 
+// wide_tile: a barrier of warps 1-7 alone
+__device__ __forceinline__ void sync_workers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWorkers) : "memory");
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// warp_chol_inv (warp_tiles.cuh) on the pw x pw block D, one copy of its
-// fully unrolled code for all the tile's calls.
+// acc += A B^T over kPw = 8 columns for one 8 x 8 block in mma32's layout
+// (acc[0][0][h]: element (lane / 4, 2 (lane % 4) + h)); fa(r, k), fb(c,
+// k) give A's and B's elements. f64: two mma.m8n8k4 in column order; f32:
+// FMAs in column order.
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma8(double (&acc)[1][1][2], const FA& fa,
+                                     const FB& fb, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < kPw; k += 4) {
+    const double a[1] = {fa(g, k + t)}, b[1] = {fb(g, k + t)};
+    mma_step(acc, a, b);
+  }
+}
+
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma8(float (&acc)[1][1][2], const FA& fa,
+                                     const FB& fb, int lane) {
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int k = 0; k < kPw; ++k) {
+    const float a[1] = {fa(g, k)}, b[1][2] = {{fb(t2, k), fb(t2 + 1, k)}};
+    mma_step(acc, a, b);
+  }
+}
+
+// The wide tile's 32 x 32 products (acc += A B^T over 32 columns, fa(r,
+// k), fb(c, k) as for mma32) in a layout of their own: acc[mi][nj][h] is
+// the element (mi * 16 + lane / 4 + 8 (h / 2), nj * 8 + 2 (lane % 4) +
+// h % 2). f64: mma.m16n8k4 in column order, 4 columns a step (on the
+// H100 twice the rate of mma32's m8n8k4 at one or two warps a scheduler,
+// which is the tile's case); f32: FMAs in column order.
+__device__ __forceinline__ void mma16_step(double (&c)[4], double a0,
+                                           double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma32w(double (&acc)[2][4][4], const FA& fa,
+                                       const FB& fb, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < kSub; k += 4) {
+    double a[2][2], b[4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      a[mi][0] = fa(mi * 16 + g, k + t);
+      a[mi][1] = fa(mi * 16 + g + 8, k + t);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) b[nj] = fb(nj * 8 + g, k + t);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        mma16_step(acc[mi][nj], a[mi][0], a[mi][1], b[nj]);
+  }
+}
+
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma32w(float (&acc)[2][4][4], const FA& fa,
+                                       const FB& fb, int lane) {
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll 4
+  for (int k = 0; k < kSub; ++k) {
+    float a[2][2], b[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      a[mi][0] = fa(mi * 16 + g, k);
+      a[mi][1] = fa(mi * 16 + g + 8, k);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      b[nj][0] = fb(nj * 8 + t2, k);
+      b[nj][1] = fb(nj * 8 + t2 + 1, k);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          acc[mi][nj][h] += a[mi][h >> 1] * b[nj][h & 1];
+  }
+}
+
+// f(element, row, column) for each element of mma32w's layout
+template <typename T, typename F>
+__device__ __forceinline__ void acc_each_w(T (&acc)[2][4][4], int lane,
+                                           const F& f) {
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        f(acc[mi][nj][h], mi * 16 + g + 8 * (h >> 1), nj * 8 + t2 + (h & 1));
+}
+
+// Warp 0's diagonal block of the tile: the pw x pw (pw <= kSub) block D
+// (row stride kLd) factored and inverted in place, L below the diagonal,
+// X^T = Linv^T above it, the diagonal of X into dx. Only the lower
+// triangle is read; rows and columns past pw must be zero and are left
+// as they are (columns past pw take a unit pivot); xt (row stride kTld)
+// gets X^T densely, 1 / diag L on its diagonal and zero below. A rolled
+// loop over panels of kPw columns: the tile runs it once a grid on an SM
+// whose instruction cache holds other grids' code, where a fully unrolled
+// 32-column factor's tens of KB of code run cold. Per panel j (columns
+// j0..):
+// - every lane factors the panel's kPw x kPw diagonal block in registers,
+//   right-looking, with its own row of the block below as one more row
+//   (so each pivot's reciprocal square root is on the lane that uses it,
+//   without shuffles), and solves its own column c of the inverse's rows
+//   j0..: X[rows][c] = -L_jj^-1 S[rows][c], S the partial sums that
+//   earlier panels left in X^T's place (c < j0), or -e_c (c in the
+//   panel);
+// - the 8 x 8 blocks after the panel: the trailing lower triangle -= L
+//   L^T, and the inverse's partial sums S^T[c][rows] (+)= X^T[c][panel]
+//   L[rows][panel]^T for c < j0 + kPw (the panel of c writes them first),
+//   on the f64 tensor cores (mma8).
+// A block that is not positive definite gives NaN from its failing column
+// on.
 template <typename T>
-__device__ __noinline__ void diag_chol_inv(T* D, T* dx, int ld, int pw) {
-  warp_chol_inv<kSub>(D, dx, ld, 0, pw);
+__device__ __noinline__ void diag_chol_inv(T* D, T* dx, T* xt, int pw) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  T* const own = D + lane * kLd;
+#pragma unroll
+  for (int c = 0; c < kSub; ++c) xt[lane * kTld + c] = T(0);
+#pragma unroll 1
+  for (int j0 = 0; j0 < pw; j0 += kPw) {
+    T a[kPw][kPw], v[kPw], s[kPw], inv[kPw];
+#pragma unroll
+    for (int i = 0; i < kPw; ++i)
+#pragma unroll
+      for (int k = 0; k <= i; ++k) a[i][k] = D[(j0 + i) * kLd + j0 + k];
+#pragma unroll
+    for (int k = 0; k < kPw; ++k) {
+      const T o = own[j0 + k];
+      v[k] = j0 + k <= lane ? o : T(0);
+      s[k] = lane < j0 ? o : (lane == j0 + k ? T(-1) : T(0));
+    }
+#pragma unroll
+    for (int k = 0; k < kPw; ++k) {
+      inv[k] = rsqrt(j0 + k < pw ? a[k][k] : T(1));
+      v[k] *= inv[k];
+      const T x = -s[k] * inv[k];
+      s[k] = x;
+#pragma unroll
+      for (int i = k + 1; i < kPw; ++i) {
+        a[i][k] *= inv[k];
+#pragma unroll
+        for (int m = k + 1; m <= i; ++m) a[i][m] -= a[i][k] * a[m][k];
+        v[i] -= v[k] * a[i][k];
+        s[i] += a[i][k] * x;
+      }
+    }
+    __syncwarp();  // the panel is read; overwrite it
+#pragma unroll
+    for (int k = 0; k < kPw; ++k) {
+      const int q = j0 + k;
+      if (q < pw && lane < pw) own[q] = q <= lane ? v[k] : s[k];
+      if (q == lane && q < pw) dx[q] = s[k];
+      xt[lane * kTld + q] = lane < pw && q < pw ? s[k] : T(0);
+    }
+    __syncwarp();
+    // the 8 x 8 blocks of rows r0 = j0 + kPw (1 + I), I < m: the trailing
+    // lower triangle, tiles (I, J <= I); the partial sums of the columns
+    // c0 = kPw e (e <= j). Every slot loads and multiplies (rows clamped
+    // into the block) before any stores, so that their loads and products
+    // overlap; a slot past the block's tiles stores nothing
+    const int j = j0 / kPw, m = (kSub - j0) / kPw - 1;
+    // partial-sum slot u: columns kPw e, rows j0 + kPw (1 + I); used if
+    // e <= j and I < m
+    const auto slot = [&](int u, int& e, int& I) {
+      e = j == 0 ? 0 : (j == 1 ? u & 1 : u);
+      I = j == 0 ? u : (j == 1 ? u >> 1 : 0);
+    };
+    if (m > 0) {
+      T tr[6][1][1][2], iv[4][1][1][2];
+#pragma unroll
+      for (int u = 0; u < 6; ++u) {
+        const int I = (u >= 1) + (u >= 3), J = u - I * (I + 1) / 2;
+        const int r0 = j0 + kPw * (1 + min(I, m - 1));
+        const int c0 = j0 + kPw * (1 + min(J, m - 1));
+        tr[u][0][0][0] = D[(r0 + g) * kLd + c0 + t2];
+        tr[u][0][0][1] = D[(r0 + g) * kLd + c0 + t2 + 1];
+        mma8(tr[u], [&](int r, int k) { return -D[(r0 + r) * kLd + j0 + k]; },
+             [&](int c, int k) { return D[(c0 + c) * kLd + j0 + k]; }, lane);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        int e, I;
+        slot(u, e, I);
+        const int c0 = kPw * e, r0 = j0 + kPw * (1 + min(I, m - 1));
+        iv[u][0][0][0] = e < j ? D[(c0 + g) * kLd + r0 + t2] : T(0);
+        iv[u][0][0][1] = e < j ? D[(c0 + g) * kLd + r0 + t2 + 1] : T(0);
+        mma8(iv[u], [&](int c, int k) { return xt[(c0 + c) * kTld + j0 + k]; },
+             [&](int r, int k) { return D[(r0 + r) * kLd + j0 + k]; }, lane);
+      }
+      __syncwarp();  // every slot has read; write
+#pragma unroll
+      for (int u = 0; u < 6; ++u) {
+        const int I = (u >= 1) + (u >= 3), J = u - I * (I + 1) / 2;
+        const int r = j0 + kPw * (1 + I) + g, c = j0 + kPw * (1 + J) + t2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (I < m && r < pw && c + h < pw && c + h <= r)
+            D[r * kLd + c + h] = tr[u][0][0][h];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        int e, I;
+        slot(u, e, I);
+        const int c = kPw * e + g, r = j0 + kPw * (1 + I) + t2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (e <= j && I < m && c < pw && r + h < pw)
+            D[c * kLd + r + h] = iv[u][0][0][h];
+      }
+    }
+    __syncwarp();
+  }
 }
 
 // One CTA per (panel, batch item) factors and inverts the diagonal tile
 // in shared memory (A, row stride kLd: L on and below the diagonal, X^T
 // = Linv^T strictly above it, the stored layout; dxs the diagonal of X),
 // by sub-blocks of kSub columns, right-looking, as chol_block_kernel
-// (bucket_factor.cu) does a panel: warp 0 factors and inverts each
-// sub-block's diagonal block in registers (warp_chol_inv, on a copy in
-// dbuf); the rows below it are multiplied by that inverse, one warp per
-// 32-row block;
-// then, at once, warp 0 updates the next diagonal block and factors it
-// (one step of look-ahead), warps of the three other schedulers update
-// the rest of the trailing lower triangle, and warps 7, 6, 5 carry the
-// inverse forward, right-looking: block row p of X^T is finished from
-// the partial sums T^T that earlier steps left in its place, X^T[j][p] =
-// -T^T[j][p] X_p^T, then folded into the partial sums of the later
-// blocks, T^T[j][i] += X^T[j][p] L[i][p]^T. Every product is a warp's
-// 32 x 32 block on the f64 tensor cores (mma32). Two barriers a
-// sub-block.
+// (bucket_factor.cu) does a panel. First, warps 1-7 load the tile's lower
+// triangle and the first 32 columns of step k - 1's x by cp.async at
+// once, the rest of x double-buffered beside the products of that step's
+// update, while warp 0 warms the instruction cache with diag_chol_inv;
+// then warp 0 factors and inverts diagonal block 0 (diag_chol_inv, X_0^T
+// also dense into a buffer of its own). Per sub-block p: the rows below
+// it are multiplied by that inverse, one warp per 32-row block; then, at
+// once, warp 0 updates the next diagonal block and factors it (one step
+// of look-ahead), warps of the three other schedulers update the rest of
+// the trailing lower triangle, warps 7, 6, 5 carry the inverse forward,
+// right-looking: block row p of X^T is finished from the partial sums
+// T^T that earlier steps left in its place, X^T[j][p] = -T^T[j][p]
+// X_p^T, then folded into the partial sums of the later blocks, T^T[j][i]
+// += X^T[j][p] L[i][p]^T; and warp 4 (at the last sub-block warps 0-4)
+// writes the finished column block p - 1 back. Every product is a warp's
+// 32 x 32 block on the f64 tensor cores (mma32w: mma.m16n8k4). Two
+// barriers a sub-block.
 template <typename T>
 __global__ void __launch_bounds__(kTileCta)
     wide_tile_kernel(T* data, int64_t bstride, T* xk, const int64_t* off,
                      const int64_t* cols, int cp, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const A = reinterpret_cast<T*>(smem_raw);  // kNb x kLd
-  T* const dxs = A + kNb * kLd;                  // kNb
-  T* const dbuf = dxs + kNb;                     // kSub x kDbld
-  T* const xs = dbuf + kSub * kDbld;             // kNb x kTld
+  T* const warm = reinterpret_cast<T*>(smem_raw);  // kSub x kTld
+  T* const A = warm + kSub * kTld;                 // kNb x kLd
+  T* const dxs = A + kNb * kLd;                    // kNb
+  T* const xs = dxs + kNb;                         // 2 x kNb x kTld
   // step k - 1's update grid may start beside this tile (its launch is
   // programmatic on this one's)
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -167,77 +403,125 @@ __global__ void __launch_bounds__(kTileCta)
   T* const Xk = xk_tile(xk, k0, blockIdx.y, B, i);
   const int w = tile_width(cols[i], k0), nbs = (w + kSub - 1) / kSub;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int t0 = 0; t0 < kNb * kNb; t0 += 8 * kTileCta) {  // 8 in flight
-    T v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int t = t0 + u * kTileCta + tid, r = t / kNb, c = t % kNb;
-      v[u] = (r < w && c <= r) ? P[r * ld + c] : T(0);
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int t = t0 + u * kTileCta + tid;
-      A[(t / kNb) * kLd + t % kNb] = v[u];
-    }
-  }
+  constexpr int kv = 16 / sizeof(T);
+  const bool vec = aligned16(P);
   for (int t = tid; t < kNb; t += kTileCta) dxs[t] = T(0);
-  __syncthreads();
-  // the update of step k - 1 on this tile, which that step's update grid
-  // leaves to it: A[I][J] -= x_I x_J^T over the previous block's columns,
-  // the 10 lower 32 x 32 blocks (warps 0, 1 take two), 32 columns at a
-  // time in order, as the update grid sums
-  if (k0 > 0 && w > 0) {
-    T acc[2][4][4][2] = {};
-    for (int ci = 0; ci < kNb / kTk; ++ci) {
-      stage_rows(xs, kTld,
+  if (warp == 0) {
+    // while warps 1-7 load the tile and apply step k - 1's update, warp 0
+    // runs diag_chol_inv once on a block of one column (its reads from
+    // anywhere in A, its writes into `warm` alone), so that the routine's
+    // code is in the SM's instruction cache when the tile needs it
+    if (nbs > 0) diag_chol_inv(warm, warm + kSub * kTld - 1, warm, 1);
+  } else {
+    const int wt = tid - 32;  // warps 1-7
+    // the lower triangle of the real rows, zeros elsewhere
+    if (vec) {
+      for (int e = wt; e < kNb * kNb / kv; e += kWorkers) {
+        const int r = e / (kNb / kv), c = e % (kNb / kv) * kv;
+        const int n = r < w ? min(max(r - c + 1, 0), kv) : 0;
+        cp_async16(A + r * kLd + c, n ? P + r * ld + c : P,
+                   n * (int)sizeof(T));
+      }
+    } else {
+      for (int e = wt; e < kNb * kNb; e += kWorkers) {
+        const int r = e / kNb, c = e % kNb;
+        const bool ok = r < w && c <= r;
+        cp_async_el(A + r * kLd + c, ok ? P + r * ld + c : P,
+                    ok ? (int)sizeof(T) : 0);
+      }
+    }
+    // the update of step k - 1 on this tile, which that step's update grid
+    // leaves to it: A[I][J] -= x_I x_J^T over the previous block's
+    // columns, the 10 lower 32 x 32 blocks (tile t = warp - 1, and warps
+    // 4, 1, 2 the last three: three a scheduler at most), 32 columns at a
+    // time in order, as the update grid sums; x double-buffered, its
+    // first 32 columns loaded with the tile
+    const bool pre = k0 > 0 && w > 0;
+    const auto stage = [&](int ci) {
+      stage_rows(xs + (ci & 1) * kNb * kTld, kTld,
                  [&](int r) -> const T* {
                    return r < w ? P + r * ld - kNb : nullptr;
                  },
-                 kNb, kTk, ci * kTk, aligned16(P), P, tid, kTileCta);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
+                 kNb, kTk, ci * kTk, vec, P, wt, kWorkers);
+    };
+    if (pre) stage(0);
+    cp_async_commit();
+    const int t1 = warp == 4 ? 7 : (warp == 1 ? 8 : (warp == 2 ? 9 : -1));
+    if (pre) {
+      T acc[2][2][4][4] = {};
+      constexpr int nchunk = kNb / kTk;
+      for (int ci = 0; ci < nchunk; ++ci) {
+        if (ci + 1 < nchunk) {
+          stage(ci + 1);  // its buffer was last read in chunk ci - 1
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        sync_workers();
+        const T* const b = xs + (ci & 1) * kNb * kTld;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 1 && t1 < 0) break;
+          int I, J;
+          tri_tile(h ? t1 : warp - 1, I, J);
+          const T* xi = b + I * kSub * kTld;
+          const T* xj = b + J * kSub * kTld;
+          mma32w(acc[h], [&](int r, int k) { return xi[r * kTld + k]; },
+                 [&](int c, int k) { return xj[c * kTld + k]; }, lane);
+        }
+        if (ci + 1 < nchunk) sync_workers();  // chunk ci's buffer is reused
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        if (h == 1 && warp >= 2) break;
+        if (h == 1 && t1 < 0) break;
         int I, J;
-        tri_tile(warp + kTileWarps * h, I, J);
-        const T* xi = xs + I * kSub * kTld;
-        const T* xj = xs + J * kSub * kTld;
-        mma32(acc[h], [&](int r, int k) { return xi[r * kTld + k]; },
-              [&](int c, int k) { return xj[c * kTld + k]; }, lane);
+        tri_tile(h ? t1 : warp - 1, I, J);
+        T* blk = A + I * kSub * kLd + J * kSub;
+        acc_each_w(acc[h], lane, [&](T& v, int r, int c) {
+          v = blk[r * kLd + c] - v;
+        });
+        acc_each_w(acc[h], lane, [&](T& v, int r, int c) {
+          blk[r * kLd + c] = v;
+        });
       }
-      __syncthreads();
+    } else {
+      cp_async_wait<0>();
     }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (h == 1 && warp >= 2) break;
-      int I, J;
-      tri_tile(warp + kTileWarps * h, I, J);
-      T* blk = A + I * kSub * kLd + J * kSub;
-      acc_each(acc[h], lane, [&](T& v, int r, int c) {
-        v = blk[r * kLd + c] - v;
-      });
-      acc_each(acc[h], lane, [&](T& v, int r, int c) {
-        blk[r * kLd + c] = v;
-      });
-    }
-    __syncthreads();
   }
+  __syncthreads();
 
-  // warp 0: diagonal block p factored and inverted in dbuf, written back
+  // X_p^T of diagonal block p, dense (1 / diag L on its diagonal, zero
+  // below), row stride kTld: two buffers by p's parity in the first x
+  // stage, free once the update above is done
+  const auto xd = [&](int p) { return xs + (p & 1) * kSub * kTld; };
+  // warp 0: diagonal block p factored and inverted in place
   const auto factor_diag = [&](int p) {
     const int p0 = p * kSub;
-    for (int t = lane; t < kSub * kSub; t += 32) {
-      const int r = t / kSub, c = t % kSub;
-      dbuf[r * kDbld + c] = c <= r ? A[(p0 + r) * kLd + p0 + c] : T(0);
-    }
     __syncwarp();
-    diag_chol_inv(dbuf, dxs + p0, kDbld, min(kSub, w - p0));
-    __syncwarp();
-    for (int t = lane; t < kSub * kSub; t += 32) {
-      const int r = t / kSub, c = t % kSub;
-      A[(p0 + r) * kLd + p0 + c] = dbuf[r * kDbld + c];
+    diag_chol_inv(A + p0 * kLd + p0, dxs + p0, xd(p), min(kSub, w - p0));
+  };
+  // column blocks [c0, c1) written back, by the threads [t0, t0 + nt): the
+  // panel's in the stored layout, 16 bytes at a time where it allows, and
+  // the dense Linv^T (1 / diag L on the diagonal, zero below) into Xk
+  using V = typename std::conditional<sizeof(T) == 8, double2, float4>::type;
+  const auto store = [&](int c0, int c1, int t0, int nt) {
+    const int per = (c1 - c0) / kv;
+    for (int e = tid - t0; e < kNb * per; e += nt) {
+      const int r = e / per, c = c0 + e % per * kv;
+      V a = *reinterpret_cast<const V*>(A + r * kLd + c);
+      if (vec) {
+        *reinterpret_cast<V*>(P + r * ld + c) = a;
+      } else {
+        const T* av = reinterpret_cast<const T*>(&a);
+#pragma unroll
+        for (int u = 0; u < kv; ++u) P[r * ld + c + u] = av[u];
+      }
+      T* xv = reinterpret_cast<T*>(&a);
+#pragma unroll
+      for (int u = 0; u < kv; ++u)
+        xv[u] = r < c + u ? xv[u] : (r == c + u ? dxs[r] : T(0));
+      *reinterpret_cast<V*>(Xk + r * kNb + c) = a;
     }
   };
   if (warp == 0 && nbs > 0) factor_diag(0);
@@ -247,16 +531,12 @@ __global__ void __launch_bounds__(kTileCta)
     // the rows below, in place: x[r][c] = sum_{k <= c} a[r][k] X[c][k]
     if (warp < m) {
       T* a = A + (p0 + kSub * (warp + 1)) * kLd + p0;
-      T acc[4][4][2] = {};
-      const T* dp = A + p0 * kLd + p0;
-      mma32(acc, [&](int r, int k) { return a[r * kLd + k]; },
-            [&](int c, int k) {
-              return k < c ? dp[k * kLd + c]
-                           : (k == c ? dxs[p0 + c] : T(0));
-            },
-            lane);
+      const T* const xp = xd(p);
+      T acc[2][4][4] = {};
+      mma32w(acc, [&](int r, int k) { return a[r * kLd + k]; },
+             [&](int c, int k) { return xp[k * kTld + c]; }, lane);
       __syncwarp();  // the warp's rows are read; overwrite them
-      acc_each(acc, lane, [&](T& v, int r, int c) { a[r * kLd + c] = v; });
+      acc_each_w(acc, lane, [&](T& v, int r, int c) { a[r * kLd + c] = v; });
     }
     __syncthreads();
     // the trailing lower triangle: A[I][J] -= x_I x_J^T by 32 x 32 tiles;
@@ -268,85 +548,65 @@ __global__ void __launch_bounds__(kTileCta)
       T* tile = A + (q0 + I * kSub) * kLd + q0 + J * kSub;
       const T* xi = A + (q0 + I * kSub) * kLd + p0;
       const T* xj = A + (q0 + J * kSub) * kLd + p0;
-      T acc[4][4][2] = {};
-      mma32(acc, [&](int r, int k) { return xi[r * kLd + k]; },
-            [&](int c, int k) { return xj[c * kLd + k]; }, lane);
-      acc_each(acc, lane, [&](T& v, int r, int c) { v = tile[r * kLd + c] - v; });
-      acc_each(acc, lane, [&](T& v, int r, int c) { tile[r * kLd + c] = v; });
+      T acc[2][4][4] = {};
+      mma32w(acc, [&](int r, int k) { return xi[r * kLd + k]; },
+             [&](int c, int k) { return xj[c * kLd + k]; }, lane);
+      acc_each_w(acc, lane,
+                 [&](T& v, int r, int c) { v = tile[r * kLd + c] - v; });
+      acc_each_w(acc, lane,
+                 [&](T& v, int r, int c) { tile[r * kLd + c] = v; });
     };
     // the inverse, right-looking, on warps 7, 6, 5 (none of them a
     // trailing update's at the same step): task j <= p finalises
     // X^T[j][p] = -T^T[j][p] X_p^T (j < p), then adds X^T[j][p] L[i][p]^T
     // into T^T[j][i] for the later blocks i (the first, at p = j, writes)
-    const T* const dp = A + p0 * kLd + p0;  // block p: L, X_p^T above
+    const T* const xp = xd(p);  // X_p^T, dense
     const auto inverse = [&](int j) {
       T* xt = A + j * kSub * kLd + p0;  // block (j, p) of X^T
       if (j < p) {
-        T acc[4][4][2] = {};
-        mma32(acc, [&](int c, int q) { return xt[c * kLd + q]; },
-              [&](int r, int q) {
-                return q < r ? dp[q * kLd + r]
-                             : (q == r ? dxs[p0 + r] : T(0));
-              },
-              lane);
+        T acc[2][4][4] = {};
+        mma32w(acc, [&](int c, int q) { return xt[c * kLd + q]; },
+               [&](int r, int q) { return xp[q * kTld + r]; }, lane);
         __syncwarp();  // the block is read; overwrite it
-        acc_each(acc, lane, [&](T& v, int c, int r) { xt[c * kLd + r] = -v; });
+        acc_each_w(acc, lane,
+                   [&](T& v, int c, int r) { xt[c * kLd + r] = -v; });
         __syncwarp();
       }
       for (int bi = p + 1; bi < nbs; ++bi) {
         T* dst = A + j * kSub * kLd + bi * kSub;
         const T* li = A + bi * kSub * kLd + p0;
-        T acc[4][4][2] = {};
+        T acc[2][4][4] = {};
         if (j < p)
-          mma32(acc, [&](int c, int q) { return xt[c * kLd + q]; },
-                [&](int r, int q) { return li[r * kLd + q]; }, lane);
+          mma32w(acc, [&](int c, int q) { return xt[c * kLd + q]; },
+                 [&](int r, int q) { return li[r * kLd + q]; }, lane);
         else
-          mma32(acc, [&](int c, int q) {
-                  return c < q ? dp[c * kLd + q]
-                               : (c == q ? dxs[p0 + c] : T(0));
-                },
-                [&](int r, int q) { return li[r * kLd + q]; }, lane);
+          mma32w(acc, [&](int c, int q) { return xp[c * kTld + q]; },
+                 [&](int r, int q) { return li[r * kLd + q]; }, lane);
         if (j < p)
-          acc_each(acc, lane, [&](T& v, int c, int r) { v += dst[c * kLd + r]; });
-        acc_each(acc, lane, [&](T& v, int c, int r) { dst[c * kLd + r] = v; });
+          acc_each_w(acc, lane,
+                     [&](T& v, int c, int r) { v += dst[c * kLd + r]; });
+        acc_each_w(acc, lane,
+                   [&](T& v, int c, int r) { dst[c * kLd + r] = v; });
       }
     };
-    if (warp == 0) {
-      if (m > 0) {
-        update(0);
-        __syncwarp();
-        factor_diag(p + 1);
-      }
+    if (m == 0 && warp < 5) {  // the last sub-block: warps 0-4 are free
+      if (p > 0) store(p0 - kSub, p0, 0, 5 * 32);
+    } else if (warp == 0) {
+      update(0);
+      factor_diag(p + 1);
     } else if (warp >= 5 && 7 - warp <= p) {
       inverse(7 - warp);
     } else if (warp & 3) {  // the warps of the other three schedulers
       const int u = warp - 1 - (warp >> 2);  // 0..5
       for (int t = 1 + u; t < m * (m + 1) / 2; t += kTileWarps - 2)
         update(t);
+    } else if (p > 0) {  // warp 4: column block p - 1 is finished
+      store(p0 - kSub, p0, 4 * 32, 32);
     }
     __syncthreads();
   }
-
-  // written back 16 bytes at a time where the panel allows
-  using V = typename std::conditional<sizeof(T) == 8, double2, float4>::type;
-  constexpr int kv = 16 / sizeof(T);
-  const bool vec = aligned16(P);
-  for (int t = tid * kv; t < kNb * kNb; t += kTileCta * kv) {
-    const int r = t / kNb, c = t % kNb;
-    V a = *reinterpret_cast<const V*>(A + r * kLd + c);
-    if (vec) {
-      *reinterpret_cast<V*>(P + r * ld + c) = a;
-    } else {
-      const T* av = reinterpret_cast<const T*>(&a);
-#pragma unroll
-      for (int u = 0; u < kv; ++u) P[r * ld + c + u] = av[u];
-    }
-    T* xv = reinterpret_cast<T*>(&a);
-#pragma unroll
-    for (int u = 0; u < kv; ++u)
-      xv[u] = r < c + u ? xv[u] : (r == c + u ? dxs[r] : T(0));
-    *reinterpret_cast<V*>(Xk + t) = a;
-  }
+  // the rest: the last sub-block's columns and the padding's
+  store(max(nbs - 1, 0) * kSub, kNb, 0, kTileCta);
 }
 
 // The rows of step k (see the header), one CTA per (panel, job, batch
@@ -563,8 +823,9 @@ int launch(void* data, int64_t bstride, void* xk, const int64_t* off,
   if (cp % kNb || cp <= 4 * kNb) return (int)cudaErrorInvalidValue;
   T* d = static_cast<T*>(data);
   T* x = static_cast<T*>(xk);
-  const int tile_smem = (int)(((size_t)kNb * kLd + kNb + kSub * kDbld +
-                               (size_t)kNb * kTld) * sizeof(T));
+  const int tile_smem = (int)(((size_t)kSub * kTld + (size_t)kNb * kLd + kNb +
+                                2 * (size_t)kNb * kTld) *
+                               sizeof(T));
   const int rows_smem =
       (int)(((size_t)kRows * kLd + (size_t)kNb * kLd) * sizeof(T));
   const int upd_smem =

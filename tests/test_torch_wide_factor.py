@@ -7,7 +7,8 @@ Per diagonal tile k of 128 columns, three grids over every panel:
   wide_tile    step k - 1's update of the tile's own lower triangle,
                then the tile's blocked factor and inverse by 32-column
                sub-blocks, both right-looking (the next diagonal block
-               one step ahead);
+               one step ahead), each diagonal block's own by panels of
+               8 columns (diag_chol_inv);
   wide_rows    32-row jobs: x = a . X_k^T for the rows below the tile,
                and block row k of the inverse, stored transposed:
                X^T[rows, k0:k1] = -T^T X_k^T, T^T the partial sums that
@@ -40,14 +41,19 @@ torch.set_num_threads(1)
 
 RTOL = 1e-10  # f64: XLA, torch and the model sum in different orders, and
 #               the stored inverse amplifies rounding
-NB, SUB, ROWS, TILE = 128, 32, 32, 64  # wide_factor.cu kNb, kSub, kRows,
-#                                        warp_tiles.cuh kTile
+NB, SUB, ROWS, TILE, PW = 128, 32, 32, 64, 8  # wide_factor.cu kNb,
+#                               kSub, kRows, warp_tiles.cuh kTile, kPw
 
 # cp, rp, real widths, real below rows, NaN in the input's strict upper
 CASES = {
     "below_rows": (1024, 64, (1000, 700), (60, 33), False),
     "empty_last_tile_nan_upper": (1024, 96, (896, 530), (96, 1), True),
     "full_width_no_below": (1024, 0, (1024,), (0,), False),
+    # GRID 200x200's wide panel: its last tile one real column wide
+    "one_column_last_tile": (640, 0, (513,), (0,), False),
+    # BAL 871's first wide panel at CPU size: 522 real columns of 1024
+    # (tiles 5-7 empty) with below rows
+    "narrow_in_wide_below": (1024, 96, (522,), (70,), False),
 }
 
 def tri_tile(t):
@@ -70,24 +76,56 @@ def chunked(a, b, k):
     return acc
 
 
-def _warp_chol_inv(A, dx, p0, pw):
-    """warp_chol_inv on the pw x pw block at (p0, p0): L on and below the
-    diagonal, X^T above, diag X in dx, both right-looking."""
-    D = A[p0:p0 + pw, p0:p0 + pw]
-    L = np.tril(D)
+def _diag_chol_inv(A, dx, p0, pw):
+    """diag_chol_inv on the pw x pw block at (p0, p0), by panels of PW
+    columns: the panel's PW x PW diagonal block factored right-looking,
+    the rows below it as more rows of the same steps (unit pivots past
+    pw); the inverse's rows of the panel for every column c < j1 from the
+    partial sums left in X^T's place (or -e_c in the panel), x_k = -s_k /
+    L_kk, right-looking; then the trailing lower triangle -= L L^T and the
+    partial sums S^T[c][rows] (+)= X^T[c][panel] L[rows][panel]^T, each
+    over the panel's columns in two steps of 4 (mma.m8n8k4), the panel of
+    c writing them first. Only the lower triangle is read."""
+    D = A[p0:p0 + SUB, p0:p0 + SUB]
     with np.errstate(invalid="ignore", divide="ignore"):
-        for k in range(pw):
-            L[k, k] = np.sqrt(L[k, k])
-            L[k + 1:, k] /= L[k, k]
-            L[k + 1:, k + 1:] -= np.tril(np.outer(L[k + 1:, k],
-                                                  L[k + 1:, k]))
-        X, s = np.zeros((pw, pw)), np.zeros((pw, pw))
-        for k in range(pw):
-            dk = 1.0 / L[k, k]
-            X[k, :k], X[k, k] = -s[k, :k] * dk, dk
-            s[k + 1:] += np.outer(L[k + 1:, k], X[k])
-    D[...] = L + np.triu(X.T, 1)
-    dx[p0:p0 + pw] = np.diag(X)
+        for j0 in range(0, pw, PW):
+            j1 = j0 + PW
+            Lp = D[j0:, j0:j1].copy()  # the panel: its block, the rows below
+            Lp[:PW][np.triu_indices(PW, 1)] = 0.0
+            S = np.zeros((j1, PW))  # the inverse's rows j0..j1, transposed
+            S[:j0] = D[:j0, j0:j1]
+            S[j0:j1] = -np.eye(PW)
+            for k in range(PW):
+                inv = 1.0 / np.sqrt(Lp[k, k] if j0 + k < pw else 1.0)
+                Lp[k:, k] *= inv
+                Lp[k + 1:, k + 1:] -= np.outer(Lp[k + 1:, k],
+                                               Lp[k + 1:PW, k])
+                S[:, k] *= -inv
+                S[:, k + 1:] += np.outer(S[:, k], Lp[k + 1:PW, k])
+            low = np.tril(np.ones((SUB - j0, PW), dtype=bool), 0)
+            low[pw - j0:] = False
+            low[:, pw - j0:] = False
+            D[j0:, j0:j1][low] = Lp[low]
+            up = np.triu(np.ones((j1, PW), dtype=bool), 1 - j0)
+            up[pw:] = False
+            up[:, pw - j0:] = False
+            D[:j1, j0:j1][up] = S[up]
+            dx[p0 + j0:p0 + min(j1, pw)] = np.diag(S[j0:j1])[:pw - j0]
+            # X^T[c][panel] (dx on its diagonal, zero below) and L below
+            XT = np.where(up, S, 0.0)
+            XT[j0:j1] += np.diag(dx[p0 + j0:p0 + j1])
+            Lb = Lp[PW:]  # rows j1..SUB
+            C = D[j1:, j1:].copy()
+            T = D[:j1, j1:].copy()
+            T[j0:] = 0.0  # the panel's own columns c write first
+            for h in (0, 4):
+                C -= Lb[:, h:h + 4] @ Lb[:, h:h + 4].T
+                T += XT[:, h:h + 4] @ Lb[:, h:h + 4].T
+            m = pw - j1
+            if m > 0:
+                low = np.tril(np.ones((m, m), dtype=bool))
+                D[j1:pw, j1:pw][low] = C[:m, :m][low]
+                D[:min(j1, pw), j1:pw] = T[:min(j1, pw), :m]
 
 
 def x_of(A, dx):
@@ -98,19 +136,20 @@ def x_of(A, dx):
 def tile_model(T, w):
     """wide_tile on one diagonal tile (its lower triangle read, real
     width w): the stored tile (zero outside w) and dx (zero past w). At
-    sub-block p: the diagonal block's factor and inverse, the rows below
-    it, the trailing update, and the inverse carried forward: X^T[j][p] =
-    -T^T[j][p] X_p^T from the partial sums T^T stored in its place, then
-    T^T[j][i] (+)= X^T[j][p] L[i][p]^T for the later blocks i. Sub-block
-    p + 1's diagonal block is factored once its own update is done; the
-    rest runs beside it, which changes no sum."""
+    sub-block p: the diagonal block's factor and inverse (diag_chol_inv,
+    in place), the rows below it, the trailing update, and the inverse
+    carried forward: X^T[j][p] = -T^T[j][p] X_p^T from the partial sums
+    T^T stored in its place, then T^T[j][i] (+)= X^T[j][p] L[i][p]^T for
+    the later blocks i. Sub-block p + 1's diagonal block is factored once
+    its own update is done; the rest runs beside it, which changes no
+    sum."""
     A, dx = np.zeros((NB, NB)), np.zeros(NB)
     A[:w, :w] = np.tril(T[:w, :w])
     nb = -(-w // SUB)
     blk = lambda i: slice(i * SUB, (i + 1) * SUB)
     for p in range(nb):
         p0, q0 = p * SUB, (p + 1) * SUB
-        _warp_chol_inv(A, dx, p0, min(SUB, w - p0))
+        _diag_chol_inv(A, dx, p0, min(SUB, w - p0))
         with np.errstate(invalid="ignore"):
             Xp = x_of(A[blk(p), blk(p)], dx[blk(p)])
             A[q0:, p0:q0] = chunked(A[q0:, p0:q0], Xp, SUB)
@@ -268,14 +307,21 @@ def run_twin(data, cols, nrow, cp, rp):
 
 def run_jax(panels, cols, nrow, cp, rp):
     """The JAX package's _factor_bucket on the same bucket (its stored
-    panels); the strict upper triangle of its input is not read."""
+    panels); the strict upper triangle of its input is not read. The JAX
+    package pads wide panels to a multiple of 512: a narrower cp runs
+    there with zero padding and comes back cut to cp."""
     js = SMALL["meri2"](J)
-    B, h = len(cols), cp + rp
-    lb = LumpBucket(rp=rp, cp=cp, off=np.arange(B) * h * cp, rows=nrow,
-                    cols=cols, vec_off=np.zeros(B, np.int64))
-    ext = jnp.asarray(np.concatenate([panels.reshape(-1), np.zeros(2)]))
+    B = len(cols)
+    cj = -(-cp // 512) * 512
+    big = np.zeros((B, cj + rp, cj))
+    big[:, :cp, :cp] = panels[:, :cp]
+    big[:, cj:, :cp] = panels[:, cp:]
+    lb = LumpBucket(rp=rp, cp=cj, off=np.arange(B) * (cj + rp) * cj,
+                    rows=nrow, cols=cols, vec_off=np.zeros(B, np.int64))
+    ext = jnp.asarray(np.concatenate([big.reshape(-1), np.zeros(2)]))
     out, _ = jax.jit(lambda e: js.backend._factor_bucket(e, lb))(ext)
-    return np.asarray(out[:-2]).reshape(B, h, cp)
+    out = np.asarray(out[:-2]).reshape(B, cj + rp, cj)
+    return np.concatenate([out[:, :cp, :cp], out[:, cj:, :cp]], axis=1)
 
 
 def rel(a, b):
@@ -354,11 +400,12 @@ def test_wide_factor_batch_items_equal_single_runs():
                                            rp)[0])
 
 
-@pytest.mark.parametrize("col", [300, 384, 999])
+@pytest.mark.parametrize("col", [300, 384, 429, 621, 999])
 def test_wide_model_nan_from_failing_column(col):
     """A panel that is not positive definite (its diagonal negative at
-    `col`): in the model L is finite before the column and NaN in it from
-    the diagonal down; the twin and J's routine give NaN there too (and
+    `col`: a tile's first column, or inside its 2nd or 4th 32-column
+    sub-block): in the model L is finite before the column and NaN in it
+    from the diagonal down; the twin and J's routine give NaN there too (and
     from the start of the failing diagonal block, 128 or 256 wide, on);
     the other panel stays finite."""
     panels, cols, nrow, cp, rp = bucket("below_rows")
