@@ -12,6 +12,10 @@ solve runs K3 (bucket_solve; K3-wide wide_solve) per bucket, level by
 level, with the L pass's below updates applied by K2 through a per-level
 CSR of RHS rows, on either kind of level.
 
+A level on the device is one record per pass, a FactorLevel or a
+SolveLevel; every factor program runs one walk over them (_factor_walk),
+every solve program the L walk (_l_pass) and the Lt walk (_lt_pass).
+
 Partial ranges (make_factor over [start, end), make_solve_l /
 make_solve_lt) run the same level schedule over the range's lumps; a
 range's updates and below rows may land on lumps past it. Solves over
@@ -27,7 +31,8 @@ instead of reading a zero row. Buffers are updated in place (the factor
 works on a copy of its input), which the JAX package, being functional,
 cannot do; make_factor_body / make_solve_body are the in-place programs
 themselves, which a chain (ops/chain.py) runs again and again on one
-buffer.
+buffer. make_factor / make_solve copy inside the span factor.input /
+solve.input (trace.py).
 
 One factor or solve can be split over the ranks of a torch.distributed
 process group (make_factor_sharded / make_solve_sharded, the JAX
@@ -35,9 +40,10 @@ package's shard_map programs): every rank runs K1-K4 on its share of
 each level's large buckets (ops/schedule.py factor_share /
 solve_share), and per level one all-gather shares the factored panels,
 or one all-reduce sums a dense level's update or a solve level's RHS
-changes. The collectives
-run on the tensors' own device through the group given; nothing is
-copied to the host by this module, and a failed collective raises.
+changes: the walks add them where a level's record has its `share`
+set (a level with nothing to split has none). The collectives run on
+the tensors' own device through the group given; nothing is copied to
+the host by this module, and a failed collective raises.
 
 Every host array a program needs moves to the device once, when the
 program is built; a factor or solve call then does no host-to-device
@@ -47,7 +53,7 @@ traffic beyond the launches.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +121,20 @@ class DevDense:
                     else v)
 
 
+class DevShare:
+    """A FactorShare's or SolveShare's index arrays as int64 tensors on
+    the device (same names), its scalars as they are, and `n`, the ranks
+    it is shared over. Its buckets and dense update go to the level's
+    record instead."""
+
+    def __init__(self, share, n: int, device):
+        self.n = n
+        for k, v in vars(share).items():
+            if k not in ("buckets", "dense"):
+                setattr(self, k, _i64(v, device)
+                        if isinstance(v, np.ndarray) else v)
+
+
 def _dev_csr(csr: SegmentCSR, device) -> DevCSR:
     cuda = torch.device(device).type == "cuda"
     return DevCSR(n_tgt=len(csr.tgt), tgt=_i64(csr.tgt, device),
@@ -124,12 +144,46 @@ def _dev_csr(csr: SegmentCSR, device) -> DevCSR:
                                            device) if cuda else None)
 
 
+@dataclass(slots=True)
+class FactorLevel:
+    """One level of a factor on the device: K1 / K1-wide on `buckets`,
+    then K2 over `csr` (its `pairs` block pairs, `elements` elements,
+    from a product buffer of `ptot`) or, on a dense level, K4's `dense`.
+    With `share` (a sharded level with a split bucket) the buckets are
+    the rank's, and where `share.targets` is set `dense` holds the
+    rank's origins (None without any)."""
+    buckets: List[DevBucket]
+    csr: Optional[DevCSR]
+    ptot: int
+    dense: Optional[DevDense]
+    share: Optional[DevShare]
+    pairs: int
+    elements: int
+
+
+@dataclass(slots=True)
+class SolveLevel:
+    """One level of a solve on the device: its `buckets`, their offsets
+    in the below-product buffer y (`row_base`), y's rows (`ytot`), the K2
+    CSR that applies y to the RHS rows, and per bucket whether its lumps
+    all lie in the sparse-elimination range (`elim`, for stats.py). With
+    `share` (a sharded level with a split bucket) the buckets are the
+    rank's."""
+    buckets: List[DevBucket]
+    row_base: List[int]
+    ytot: int
+    csr: DevCSR
+    share: Optional[DevShare]
+    elim: Tuple[bool, ...]
+
+
 class PlannedBackend(PlannedSchedule):
     """Builds factor and solve programs for one device. A program is a
     Python callable over batched tensors: factor(data (batch, data_size))
     and solve(data, v (batch, order, nrhs)). `ops` selects the kernels
-    (the default) or their plain twins (`kernels.TWINS`, for comparison
-    and timing on the card)."""
+    (the default), their plain twins (`kernels.TWINS`, for comparison
+    and timing on the card) or the timed wrappers (`kernels.timed`,
+    which the facade hands while tracing is on)."""
 
     def __init__(self, plan, assembly: Optional[str] = None):
         super().__init__(plan, assembly)
@@ -137,22 +191,36 @@ class PlannedBackend(PlannedSchedule):
         # the programs of a range and its profile (stats.py) share them
         self._device_cache = {}
 
-    def _factor_levels(self, start_lump: int, end_lump: int, device):
-        """Per level of [start_lump, end_lump): its device buckets, the K2
-        CSR of its block pairs (pair levels), the size of its product
-        buffer and its DevDense (dense levels)."""
-        key = ("factor", start_lump, end_lump, torch.device(device))
+    def _factor_levels(self, start_lump: int, end_lump: int, device,
+                       share: Optional[Tuple[int, int]] = None
+                       ) -> List[FactorLevel]:
+        """The FactorLevels of [start_lump, end_lump): the whole levels,
+        or with `share` = (n, r) as rank r of n runs them (ops/schedule.py
+        factor_share)."""
+        key = ("factor", start_lump, end_lump, share, torch.device(device))
         levels = self._device_cache.get(key)
         if levels is None:
-            levels = []
-            for lump_buckets, pairs, ptot, dense in self._factor_schedule(
-                    start_lump, end_lump):
-                csr = _dev_csr(pair_csr(pairs), device) if ptot else None
-                dd = DevDense(dense, device) if dense is not None else None
-                levels.append(([_dev_bucket(lb, device)
-                                for lb in lump_buckets], csr, ptot, dd))
+            levels = [self._factor_level(level, share, device) for level in
+                      self._factor_schedule(start_lump, end_lump)]
             self._device_cache[key] = levels
         return levels
+
+    def _factor_level(self, level, share, device) -> FactorLevel:
+        """The FactorLevel of one level of the host schedule."""
+        lump_buckets, pairs, ptot, dense = level
+        sh = None
+        if share is not None:
+            sh = factor_share(self, level, *share)
+            lump_buckets, dense = sh.buckets, sh.dense
+        csr = pair_csr(pairs) if ptot else None
+        return FactorLevel(
+            csr=_dev_csr(csr, device) if ptot else None, ptot=ptot,
+            dense=DevDense(dense, device) if dense is not None else None,
+            buckets=[_dev_bucket(lb, device) for lb in lump_buckets],
+            share=DevShare(sh, share[0], device)
+            if sh is not None and sh.pack_len else None,
+            pairs=len(pairs.rs) if ptot else 0,
+            elements=len(csr.src_idx) if ptot else 0)
 
     def _pad_idx(self, device) -> torch.Tensor:
         """The data buffer's padded slots (block_matrix.py), on the
@@ -167,15 +235,16 @@ class PlannedBackend(PlannedSchedule):
         return pad_idx
 
     @staticmethod
-    def _level_prod(ext: torch.Tensor, level) -> Optional[torch.Tensor]:
+    def _level_prod(ext: torch.Tensor,
+                    level: FactorLevel) -> Optional[torch.Tensor]:
         """The product buffer of a pair level (None on a dense level)."""
-        ptot = level[2]
+        ptot = level.ptot
         return ext.new_empty((ext.shape[0], ptot)) if ptot else None
 
     @staticmethod
-    def _factor_buckets(ext, prod, level, ops) -> None:
+    def _factor_buckets(ext, prod, level: FactorLevel, ops) -> None:
         """K1 / K1-wide on every bucket of the level."""
-        for b in level[0]:
+        for b in level.buckets:
             if b.wide:
                 ops.wide_factor(ext, b.off, b.rows, b.cols, b.cp, b.rp,
                                 b.off_h, b.cols_h)
@@ -184,81 +253,101 @@ class PlannedBackend(PlannedSchedule):
                                   b.rp, b.prod_base)
 
     @staticmethod
-    def _level_update(ext, prod, level, ops) -> None:
+    def _level_update(ext, prod, level: FactorLevel, ops) -> None:
         """The level's update: K2 over its block pairs, or K4."""
-        csr, dense = level[1], level[3]
+        csr, dense = level.csr, level.dense
         if csr is not None and csr.n_tgt:
             ops.segmented_subtract(ext, prod, csr.tgt, csr.seg_ptr,
                                    csr.src_idx, 1, layout=csr.layout)
         if dense is not None:
             ops.dense_update(ext, dense)
 
-    def _factor_run(self, start_lump: int, end_lump: int, device):
-        """The levels of the factor of [start_lump, end_lump), in place
-        on a buffer whose padded slots hold zeros, and the padding's
-        index."""
-        levels = self._factor_levels(start_lump, end_lump, device)
-
-        def run(ext: torch.Tensor, ops) -> None:
-            for level in levels:
-                prod = self._level_prod(ext, level)
-                self._factor_buckets(ext, prod, level, ops)
+    def _factor_walk(self, levels: List[FactorLevel], ext: torch.Tensor,
+                     ops, group=None) -> None:
+        """The factor's levels in place on a buffer whose padded slots
+        hold zeros: per level K1 on its buckets, then its update. A level
+        with a share gathers the ranks' factored panels after its buckets
+        and, where its share has targets, sums its dense update over the
+        ranks of `group` in place of it."""
+        for level in levels:
+            prod = self._level_prod(ext, level)
+            self._factor_buckets(ext, prod, level, ops)
+            sh = level.share
+            if sh is not None:
+                _share_panels(ext, prod, sh, group)
+            if sh is None or sh.targets is None:
                 self._level_update(ext, prod, level, ops)
+            else:
+                _sum_dense(ext, level.dense, sh.targets, group, ops)
 
-        return run, self._pad_idx(device)
-
-    def make_factor_body(self, start_lump: int, end_lump: int,
-                         device) -> Callable:
+    def make_factor_body(self, start_lump: int, end_lump: int, device,
+                         group=None) -> Callable:
         """The factor of [start_lump, end_lump) in place on a contiguous
         (batch, data_size) buffer: its padded slots zeroed by index, as
-        factor_input zeroes its copy's, then the levels. make_factor runs
-        the same levels on factor_input's copy of its input; a chain
-        (ops/chain.py) runs this body again and again on one buffer."""
-        run, pad_idx = self._factor_run(start_lump, end_lump, device)
+        factor_input zeroes its copy's, then the levels (with `group`,
+        as this rank of it runs them). make_factor runs the same levels
+        on factor_input's copy of its input; a chain (ops/chain.py) runs
+        this body again and again on one buffer."""
+        levels = self._factor_levels(start_lump, end_lump, device,
+                                     _share_of(group))
+        pad_idx = self._pad_idx(device)
 
         def factor_body(ext: torch.Tensor, ops=kernels) -> None:
             zero_padding(ext, pad_idx)
-            run(ext, ops)
+            self._factor_walk(levels, ext, ops, group)
 
         return factor_body
 
     def make_factor(self, start_lump: int, end_lump: int,
                     device) -> Callable:
-        """The factor on a copy of its input. `factor.traced(data, ops)`
-        is the same program with the copy inside the span factor.input,
-        which the facade calls while tracing is on (trace.py)."""
-        run, pad_idx = self._factor_run(start_lump, end_lump, device)
+        """The factor on a copy of its input, made inside the span
+        factor.input (trace.py)."""
+        levels = self._factor_levels(start_lump, end_lump, device)
+        pad_idx = self._pad_idx(device)
 
         def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
-            ext = factor_input(data, pad_idx)
-            run(ext, ops)
-            return ext
-
-        def traced(data: torch.Tensor, ops) -> torch.Tensor:
             with trace.span("factor.input"):
                 ext = factor_input(data, pad_idx)
-            run(ext, ops)
+            self._factor_walk(levels, ext, ops)
             return ext
 
-        factor.traced = traced
         return factor
 
-    def _solve_levels(self, start_lump: int, end_lump: int, device):
-        """Per level of [start_lump, end_lump): its device buckets, their
-        offsets into the level's below-product buffer y, y's rows, and
-        the K2 CSR that applies y to the RHS rows."""
-        key = ("solve", start_lump, end_lump, torch.device(device))
+    def _solve_levels(self, start_lump: int, end_lump: int, device,
+                      share: Optional[Tuple[int, int]] = None
+                      ) -> List[SolveLevel]:
+        """The SolveLevels of [start_lump, end_lump): the whole levels,
+        or with `share` = (n, r) as rank r of n runs them (ops/schedule.py
+        solve_share)."""
+        key = ("solve", start_lump, end_lump, share, torch.device(device))
         levels = self._device_cache.get(key)
         if levels is None:
-            order = self.plan.skel.order
-            levels = []
-            for buckets in self._solve_schedule(start_lump, end_lump):
-                row_base, ytot = _row_bases(buckets)
-                csr = _dev_csr(solve_csr(buckets, row_base, order), device)
-                levels.append(([_dev_bucket(lb, device) for lb in buckets],
-                               row_base, ytot, csr))
+            ranges = self.plan.sparse_elim_ranges
+            elim_end = int(self.plan.skel.span_to_lump[ranges[-1]]) \
+                if ranges else 0
+            levels = [self._solve_level(buckets, share, elim_end, device)
+                      for buckets in self._solve_schedule(start_lump,
+                                                          end_lump)]
             self._device_cache[key] = levels
         return levels
+
+    def _solve_level(self, buckets, share, elim_end: int,
+                     device) -> SolveLevel:
+        """The SolveLevel of one level of the host schedule's buckets."""
+        sh = None
+        if share is not None:
+            sh = solve_share(self, buckets, *share)
+            buckets = sh.buckets
+        row_base, ytot = _row_bases(buckets)
+        csr = _dev_csr(solve_csr(buckets, row_base, self.plan.skel.order),
+                       device)
+        return SolveLevel(
+            buckets=[_dev_bucket(lb, device) for lb in buckets],
+            row_base=row_base, ytot=ytot, csr=csr,
+            share=DevShare(sh, share[0], device)
+            if sh is not None and sh.rows_l is not None else None,
+            elim=tuple(bool(elim_end and len(lb.members) and
+                            lb.members.max() < elim_end) for lb in buckets))
 
     def _full_range(self, start_lump: int, end_lump: int) -> bool:
         """Stored-inverse solves only apply to the full factor range:
@@ -281,76 +370,88 @@ class PlannedBackend(PlannedSchedule):
             ops.tri_solve(*args)
 
     @staticmethod
-    def _level_y(vv: torch.Tensor, level) -> Optional[torch.Tensor]:
+    def _level_y(vv: torch.Tensor,
+                 level: SolveLevel) -> Optional[torch.Tensor]:
         """The below-product buffer of a solve level (None without below
         rows)."""
-        ytot = level[2]
+        ytot = level.ytot
         return vv.new_empty((vv.shape[0], ytot, vv.shape[2])) if ytot \
             else None
 
-    def _l_buckets(self, level, use_inv, data, vv, y, ops) -> None:
+    def _l_buckets(self, level: SolveLevel, use_inv, data, vv, y,
+                   ops) -> None:
         """The L pass's diagonal solves of the level's buckets."""
-        for b, base in zip(level[0], level[1]):
+        for b, base in zip(level.buckets, level.row_base):
             self._diag_solve(ops, b, use_inv, data, vv, y, base, False)
 
     @staticmethod
-    def _l_scatter(level, vv, y, ops) -> None:
+    def _l_scatter(level: SolveLevel, vv, y, ops) -> None:
         """The L pass's below updates of the level: K2 over its CSR."""
-        csr = level[3]
+        csr = level.csr
         if csr.n_tgt:
             ops.segmented_subtract(vv, y, csr.tgt, csr.seg_ptr, csr.src_idx,
                                    vv.shape[2], layout=csr.layout)
 
-    def _l_pass(self, levels, use_inv, data, vv, ops) -> None:
+    def _l_pass(self, levels: List[SolveLevel], use_inv, data, vv, ops,
+                group=None) -> None:
+        """The L walk, levels in order; a level with a share sums its
+        changes of the RHS rows over the ranks of `group`."""
         for level in levels:
+            sh = level.share
+            if sh is not None:
+                old = vv[:, sh.rows_l]
             y = self._level_y(vv, level)
             self._l_buckets(level, use_inv, data, vv, y, ops)
             self._l_scatter(level, vv, y, ops)
+            if sh is not None:
+                _sum_rows(vv, old, sh.rows_l, group)
 
-    def _lt_pass(self, levels, use_inv, data, vv, ops) -> None:
-        for buckets, _, _, _ in reversed(levels):
-            for b in buckets:
+    def _lt_pass(self, levels: List[SolveLevel], use_inv, data, vv, ops,
+                 group=None) -> None:
+        """The Lt walk, levels in reverse, as _l_pass sums the rows."""
+        for level in reversed(levels):
+            sh = level.share
+            if sh is not None:
+                old = vv[:, sh.rows_lt]
+            for b in level.buckets:
                 self._diag_solve(ops, b, use_inv, data, vv, None, 0, True)
+            if sh is not None:
+                _sum_rows(vv, old, sh.rows_lt, group)
 
-    def make_solve_body(self, start_lump: int, end_lump: int,
-                        device) -> Callable:
+    def make_solve_body(self, start_lump: int, end_lump: int, device,
+                        group=None) -> Callable:
         """Full-range solve on a factor from make_factor (it reads the
         stored inverse), in place on a contiguous (batch, order, nrhs)
-        RHS: L pass over levels in order, Lt pass in reverse. make_solve
-        runs it on a copy of its RHS."""
+        RHS: L pass over levels in order, Lt pass in reverse (with
+        `group`, as this rank of it runs them). make_solve runs it on a
+        copy of its RHS."""
         if not self._full_range(start_lump, end_lump):
             raise NotImplementedError(
                 "the fused solve reads the stored inverse of a full-range "
                 "factor; partial ranges run make_solve_l / make_solve_lt")
-        levels = self._solve_levels(start_lump, end_lump, device)
+        levels = self._solve_levels(start_lump, end_lump, device,
+                                    _share_of(group))
 
         def solve_body(data: torch.Tensor, vv: torch.Tensor,
                        ops=kernels) -> None:
-            self._l_pass(levels, True, data, vv, ops)
-            self._lt_pass(levels, True, data, vv, ops)
+            self._l_pass(levels, True, data, vv, ops, group)
+            self._lt_pass(levels, True, data, vv, ops, group)
 
         return solve_body
 
     def make_solve(self, start_lump: int, end_lump: int,
                    device) -> Callable:
-        """The solve on a copy of its right-hand side; `solve.traced(data,
-        v, ops)` with the copy inside the span solve.input (trace.py)."""
+        """The solve on a copy of its right-hand side, made inside the
+        span solve.input (trace.py)."""
         body = self.make_solve_body(start_lump, end_lump, device)
 
         def solve(data: torch.Tensor, v: torch.Tensor,
                   ops=kernels) -> torch.Tensor:
-            vv = v.clone(memory_format=torch.contiguous_format)
-            body(data, vv, ops)
-            return vv
-
-        def traced(data: torch.Tensor, v: torch.Tensor,
-                   ops) -> torch.Tensor:
             with trace.span("solve.input"):
                 vv = v.clone(memory_format=torch.contiguous_format)
             body(data, vv, ops)
             return vv
 
-        solve.traced = traced
         return solve
 
     def make_solve_l(self, start_lump: int, end_lump: int,
@@ -424,43 +525,6 @@ class PlannedBackend(PlannedSchedule):
         return make_pseudo_factor(self.plan, start_span, end_span, device)
 
     # -- one factor or solve sharded over the ranks of a process group --
-    def _sharded_levels(self, kind: str, start_lump: int, end_lump: int,
-                        n: int, r: int, device):
-        """The factor ("factor") or solve ("solve") levels of
-        [start_lump, end_lump) as rank r of n runs them: each level's
-        tuple as _factor_levels / _solve_levels build it, over the rank's
-        buckets (on a factor level, its dense update: the rank's part
-        where the level's update is summed over the ranks), then the
-        rest of its share (ops/schedule.py factor_share / solve_share) on
-        the device (DevShare)."""
-        key = (kind + "_sharded", start_lump, end_lump, n, r,
-               torch.device(device))
-        levels = self._device_cache.get(key)
-        if levels is not None:
-            return levels
-        levels = []
-        if kind == "factor":
-            for level in self._factor_schedule(start_lump, end_lump):
-                sh = factor_share(self, level, n, r)
-                _, pairs, ptot, _ = level
-                csr = _dev_csr(pair_csr(pairs), device) if ptot else None
-                levels.append((
-                    [_dev_bucket(lb, device) for lb in sh.buckets], csr,
-                    ptot, DevDense(sh.dense, device)
-                    if sh.dense is not None else None, DevShare(sh, device)))
-        else:
-            order = self.plan.skel.order
-            for buckets in self._solve_schedule(start_lump, end_lump):
-                sh = solve_share(self, buckets, n, r)
-                row_base, ytot = _row_bases(sh.buckets)
-                levels.append((
-                    [_dev_bucket(lb, device) for lb in sh.buckets],
-                    row_base, ytot,
-                    _dev_csr(solve_csr(sh.buckets, row_base, order),
-                             device), DevShare(sh, device)))
-        self._device_cache[key] = levels
-        return levels
-
     def make_factor_sharded(self, start_lump: int, end_lump: int, group,
                             device) -> Callable:
         """One factor (batch 1) sharded over the ranks of `group`
@@ -472,23 +536,11 @@ class PlannedBackend(PlannedSchedule):
         pair level, their products), and K2 runs replicated. A dense
         level with a split bucket runs K4 on each rank's origins into
         zeroed targets and sums them with one all-reduce."""
-        n, r = dist.get_world_size(group), dist.get_rank(group)
-        levels = self._sharded_levels("factor", start_lump, end_lump, n, r,
-                                      device)
-        pad_idx = self._pad_idx(device)
+        body = self.make_factor_body(start_lump, end_lump, device, group)
 
         def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
-            ext = factor_input(data, pad_idx)
-            for level in levels:
-                sh = level[4]
-                prod = self._level_prod(ext, level)
-                self._factor_buckets(ext, prod, level, ops)
-                if sh.pack_len:
-                    _share_panels(ext, prod, sh, group, n)
-                if sh.targets is None:
-                    self._level_update(ext, prod, level, ops)
-                else:
-                    _sum_dense(ext, level[3], sh.targets, group, ops)
+            ext = data.clone(memory_format=torch.contiguous_format)
+            body(ext, ops)
             return ext
 
         return factor
@@ -503,43 +555,21 @@ class PlannedBackend(PlannedSchedule):
         the L pass, K2 over its own CSR; the changes of the RHS rows the
         level touches are summed by one all-reduce. A level with no
         split bucket runs replicated, with no collective."""
-        if not self._full_range(start_lump, end_lump):
-            raise NotImplementedError(
-                "the sharded solve reads the stored inverse of a "
-                "full-range factor")
-        levels = self._sharded_levels("solve", start_lump, end_lump,
-                                      dist.get_world_size(group),
-                                      dist.get_rank(group), device)
+        body = self.make_solve_body(start_lump, end_lump, device, group)
 
         def solve(data: torch.Tensor, v: torch.Tensor,
                   ops=kernels) -> torch.Tensor:
             vv = v.clone(memory_format=torch.contiguous_format)
-            for level in levels:
-                old = _rows_before(vv, level[4].rows_l)
-                y = self._level_y(vv, level)
-                self._l_buckets(level, True, data, vv, y, ops)
-                self._l_scatter(level, vv, y, ops)
-                _sum_rows(vv, old, level[4].rows_l, group)
-            for level in reversed(levels):
-                old = _rows_before(vv, level[4].rows_lt)
-                for b in level[0]:
-                    self._diag_solve(ops, b, True, data, vv, None, 0, True)
-                _sum_rows(vv, old, level[4].rows_lt, group)
+            body(data, vv, ops)
             return vv
 
         return solve
 
 
-class DevShare:
-    """A FactorShare's or SolveShare's index arrays as int64 tensors on
-    the device (same names; None stays None), its scalars as they are.
-    Its buckets and dense update go to the level's tuple instead."""
-
-    def __init__(self, share, device):
-        for k, v in vars(share).items():
-            if k not in ("buckets", "dense"):
-                setattr(self, k, _i64(v, device)
-                        if isinstance(v, np.ndarray) else v)
+def _share_of(group) -> Optional[Tuple[int, int]]:
+    """(ranks, this rank) of a process group; None without one."""
+    return None if group is None else (dist.get_world_size(group),
+                                       dist.get_rank(group))
 
 
 @dataclass
@@ -576,7 +606,7 @@ def _all_reduce(x: torch.Tensor, group) -> None:
     COMM.received_bytes += x.nbytes
 
 
-def _share_panels(ext, prod, sh: DevShare, group, n: int) -> None:
+def _share_panels(ext, prod, sh: DevShare, group) -> None:
     """Every rank's factored shares (panels, and products on a pair
     level) into ext and prod: one all-gather of the packs."""
     batch, nd = ext.shape[0], sh.pack_data.shape[0]
@@ -584,7 +614,7 @@ def _share_panels(ext, prod, sh: DevShare, group, n: int) -> None:
     pack[:, :nd] = ext[:, sh.pack_data]
     if sh.pack_prod.shape[0]:
         pack[:, nd:nd + sh.pack_prod.shape[0]] = prod[:, sh.pack_prod]
-    got = _all_gather(pack, group, n).transpose(0, 1).reshape(batch, -1)
+    got = _all_gather(pack, group, sh.n).transpose(0, 1).reshape(batch, -1)
     ext.index_copy_(1, sh.unpack_data_dst, got[:, sh.unpack_data_src])
     if sh.unpack_prod_dst.shape[0]:
         prod.index_copy_(1, sh.unpack_prod_dst, got[:, sh.unpack_prod_src])
@@ -606,16 +636,9 @@ def _sum_dense(ext, dense: Optional[DevDense], targets, group,
     ext.index_copy_(1, targets, t0 + u)
 
 
-def _rows_before(vv, rows) -> Optional[torch.Tensor]:
-    return vv[:, rows] if rows is not None else None
-
-
 def _sum_rows(vv, old, rows, group) -> None:
     """The ranks' changes of the RHS rows `rows` since `old` summed by
-    one all-reduce, then added to `old` (rows None: the level ran
-    replicated)."""
-    if rows is None:
-        return
+    one all-reduce, then added to `old`."""
     delta = vv[:, rows] - old
     _all_reduce(delta, group)
     vv[:, rows] = old + delta

@@ -22,8 +22,9 @@ group (PLANNED, one system); factor_chained / solve_chained run k
 factors or solves back to back, on the card as one CUDA graph replayed k
 times (ops/chain.py), for device time free of the host's launches.
 While the port's tracing is on (trace.py), a PLANNED factor or solve
-call runs inside its span with the kernel wrappers timed; off, it costs
-one test of the flag.
+call runs inside its span with the kernel wrappers timed (one test,
+Solver._tracing, decides it); off, it costs that test and an empty
+context.
 
 createSolver pipeline (same analysis structure as reference :611-752):
   1. apply given sparse-elim-range fill,
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import enum
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
@@ -75,11 +77,6 @@ class Settings:
     backend: BackendType = BackendType.REF
     add_fill_policy: AddFillPolicy = AddFillPolicy.COMPLETE
     computation_model: Optional[ComputationModel] = None
-    # reorder lumps to (segment, level, shape) so batched buckets become
-    # contiguous slices. Off by default: it renumbers spans level-major,
-    # which fragments the consecutive-span runs that make the assembly's
-    # window scatters coarse — a net loss except on very deep trees.
-    level_reorder: bool = False
 
 
 def shard_group(mesh):
@@ -297,52 +294,51 @@ class Solver:
                              f"{data.shape[0]}")
         return batched, v.ndim == (2 if batched else 1)
 
-    def _traced(self, op: str) -> bool:
-        """Whether a call of `op` runs inside its span (trace.py): the
-        PLANNED factor and solve programs, on a copy of the input they
-        trace, with the kernel wrappers timed."""
-        return op in ("factor", "solve") and \
-            self.backend_type == BackendType.PLANNED
+    def _tracing(self) -> bool:
+        """Whether a call is traced (trace.py), decided here alone:
+        tracing is on and the backend is PLANNED. A traced factor, solve
+        or solve_refined runs inside its call span, and a traced factor,
+        solve or add_mv_from hands its program the timed kernel wrappers
+        (kernels.timed: each call's host ns added to its counter's
+        host_ns); untraced, the program runs its default, the kernels
+        module."""
+        return trace.ON and self.backend_type == BackendType.PLANNED
 
     def _run_factor_like(self, op, data, start: int, end: int, stat=None,
-                         ops=None):
+                         traced: bool = False):
         """The program `op` on `data`; with `stat`, the program's call
-        timed into it (_timed). While tracing is on, a traced op runs
-        inside its span with the wrappers timed (`ops`)."""
-        if trace.ON and ops is None and self._traced(op):
-            with trace.span(op, call=True):
-                return self._run_factor_like(op, data, start, end, stat,
-                                             kernels.timed(kernels))
-        data = self._as_tensor(data)
-        self._check_data(data)
-        batched = data.ndim == 2
-        fn = self.program(op, start, end)
-        x = (data if batched else data[None]).contiguous()
-        out = self._timed(stat, lambda: fn(x) if ops is None
-                          else fn.traced(x, ops))
-        return out if batched else out[0]
+        timed into it (_timed); `traced` (_tracing), inside its span
+        `op` on the timed wrappers."""
+        with _span(op, traced, call=True):
+            ops = kernels.timed(kernels) if traced else None
+            data = self._as_tensor(data)
+            self._check_data(data)
+            batched = data.ndim == 2
+            fn = self.program(op, start, end)
+            x = (data if batched else data[None]).contiguous()
+            out = self._timed(stat, lambda: fn(x) if ops is None
+                              else fn(x, ops=ops))
+            return out if batched else out[0]
 
     def _run_solve_like(self, op, mat_data, rhs, start: int, end: int,
-                        stat=None, ops=None):
-        if trace.ON and ops is None and self._traced(op):
-            with trace.span(op, call=True):
-                return self._run_solve_like(op, mat_data, rhs, start, end,
-                                            stat, kernels.timed(kernels))
-        data = self._as_tensor(mat_data)
-        v = self._as_tensor(rhs)
-        self._check_data(data)
-        batched, vec1d = self._check_vec(data, v)
-        if vec1d:
-            v = v[..., None]
-        if not batched:
-            data, v = data[None], v[None]
-        fn = self.program(op, start, end)
-        data = data.contiguous()
-        out = self._timed(stat, lambda: fn(data, v) if ops is None
-                          else fn.traced(data, v, ops))
-        if not batched:
-            out = out[0]
-        return out[..., 0] if vec1d else out
+                        stat=None, traced: bool = False):
+        with _span(op, traced, call=True):
+            ops = kernels.timed(kernels) if traced else None
+            data = self._as_tensor(mat_data)
+            v = self._as_tensor(rhs)
+            self._check_data(data)
+            batched, vec1d = self._check_vec(data, v)
+            if vec1d:
+                v = v[..., None]
+            if not batched:
+                data, v = data[None], v[None]
+            fn = self.program(op, start, end)
+            data = data.contiguous()
+            out = self._timed(stat, lambda: fn(data, v) if ops is None
+                              else fn(data, v, ops=ops))
+            if not batched:
+                out = out[0]
+            return out[..., 0] if vec1d else out
 
     def factor_program(self):
         """The full-range factor program: (batch, data_size) -> factor."""
@@ -361,12 +357,13 @@ class Solver:
         assert span_index <= self.can_factor_up_to
         return self._run_factor_like("factor", data, 0,
                                      self._lump_of_span(span_index),
-                                     self.stats.factor)
+                                     self.stats.factor, self._tracing())
 
     def factor_from(self, data, span_index: int):
         return self._run_factor_like("factor", data,
                                      self._lump_of_span(span_index),
-                                     self.skel.num_lumps)
+                                     self.skel.num_lumps,
+                                     traced=self._tracing())
 
     # -- solve ----------------------------------------------------------
     def solve(self, mat_data, rhs):
@@ -374,7 +371,7 @@ class Solver:
         if self.backend_type == BackendType.PLANNED:
             # fused L + Lt solve on the stored inverse
             return self._run_solve_like("solve", mat_data, rhs, 0, n,
-                                        self.stats.solve_l)
+                                        self.stats.solve_l, self._tracing())
         rhs = self._run_solve_like("solve_l", mat_data, rhs, 0, n,
                                    self.stats.solve_l)
         return self._run_solve_like("solve_lt", mat_data, rhs, 0, n,
@@ -424,9 +421,8 @@ class Solver:
             data, x, out = data[None], x[None], out[None]
         fn = self.program("add_mv", start_l)
         args = (data.contiguous(), x.contiguous(), out, float(alpha))
-        # while tracing, the PLANNED program's wrappers are timed (trace.py)
-        res = fn(*args, ops=kernels.timed(kernels)) if trace.ON and \
-            self.backend_type == BackendType.PLANNED else fn(*args)
+        res = fn(*args, ops=kernels.timed(kernels)) if self._tracing() \
+            else fn(*args)
         if not batched:
             res = res[0]
         return res[..., 0] if vec1d else res
@@ -459,33 +455,27 @@ class Solver:
         id of its own), `refine.residual` (each round's add_mv_from and
         its subtraction from b) and `refine.cast` (each conversion
         between the factor's precision and the matrix's)."""
-        if trace.ON and self.backend_type == BackendType.PLANNED:
-            with trace.span("refine", call=True):
-                return self._refined(mat_data, factor_data, rhs, iterations,
-                                     trace.span)
-        return self._refined(mat_data, factor_data, rhs, iterations,
-                             trace.no_span)
-
-    def _refined(self, mat_data, factor_data, rhs, iterations: int, span):
-        rhs = self._as_tensor(rhs)
-        mat = self._as_tensor(mat_data)
-        lp = self._as_tensor(factor_data)
-        with span("refine.cast"):
-            b = rhs.to(lp.dtype)
-        x = self.solve(lp, b)
-        with span("refine.cast"):
-            x = x.to(rhs.dtype)
-        for _ in range(iterations):
-            with span("refine.residual"):
-                r = rhs - self.add_mv_from(mat, 0, x, torch.zeros_like(x),
-                                           1.0)
-            with span("refine.cast"):
-                r = r.to(lp.dtype)
-            d = self.solve(lp, r)
-            with span("refine.cast"):
-                d = d.to(rhs.dtype)
-            x = x + d
-        return x
+        traced = self._tracing()
+        with _span("refine", traced, call=True):
+            rhs = self._as_tensor(rhs)
+            mat = self._as_tensor(mat_data)
+            lp = self._as_tensor(factor_data)
+            with _span("refine.cast", traced):
+                b = rhs.to(lp.dtype)
+            x = self.solve(lp, b)
+            with _span("refine.cast", traced):
+                x = x.to(rhs.dtype)
+            for _ in range(iterations):
+                with _span("refine.residual", traced):
+                    r = rhs - self.add_mv_from(mat, 0, x,
+                                               torch.zeros_like(x), 1.0)
+                with _span("refine.cast", traced):
+                    r = r.to(lp.dtype)
+                d = self.solve(lp, r)
+                with _span("refine.cast", traced):
+                    d = d.to(rhs.dtype)
+                x = x + d
+            return x
 
     def make_differentiable_solve(self):
         """Returns f(hdata, rhs) -> x solving H x = rhs for the SPD block
@@ -607,6 +597,15 @@ class Solver:
         return out[..., 0] if vec1d else out
 
 
+_UNTRACED = nullcontext()
+
+
+def _span(name: str, traced: bool, call: bool = False):
+    """trace.span(name, call) in a traced call (Solver._tracing), else
+    a context that does nothing."""
+    return trace.span(name, call) if traced else _UNTRACED
+
+
 def _chain_length(k) -> int:
     k = int(k)
     if k < 0:
@@ -683,58 +682,6 @@ def solver_from_skeleton(arrays: Dict[str, np.ndarray], permutation,
                              "padded layout this port builds")
     return Solver(skel, sparse_elim_ranges, permutation, backend, -1,
                   device)
-
-
-def _level_shape_reorder(span_sizes, lump_to_span, col_start, row_param,
-                         segment_bounds, pad_fn):
-    """Reorder lumps to (segment, level, padded-shape) order.
-
-    Any lump order consistent with the update DAG (origins before targets)
-    is a valid elimination order with the same fill; sorting each segment
-    by level then padded panel shape makes every (level, shape) bucket a
-    CONTIGUOUS run of lumps — with the padded storage layout this turns
-    all batched panel addressing in the planned backend into plain
-    reshapes of contiguous slices (no gathers). Segments (sparse-elim
-    ranges, the middle, an elim-last tail) are preserved in place.
-
-    Returns (new_lump_order old-ids, span_old_to_new).
-    """
-    num_lumps = len(lump_to_span) - 1
-    num_spans = int(lump_to_span[-1])
-    counts = lump_to_span[1:] - lump_to_span[:-1]
-    span_to_lump = np.repeat(np.arange(num_lumps, dtype=np.int64), counts)
-
-    widths = np.add.reduceat(span_sizes, lump_to_span[:-1]) \
-        if num_spans else np.zeros(num_lumps, dtype=np.int64)
-    widths[counts == 0] = 0
-    rp_sizes = span_sizes[row_param]
-    col_rows = np.zeros(num_lumps, dtype=np.int64)
-    ne = col_start[1:] > col_start[:-1]
-    sums = np.concatenate([[0], np.cumsum(rp_sizes)])
-    col_rows = sums[col_start[1:]] - sums[col_start[:-1]]
-    below = col_rows - widths
-
-    levels = np.zeros(num_lumps, dtype=np.int64)
-    for l in range(num_lumps):
-        tls = span_to_lump[row_param[col_start[l]:col_start[l + 1]]]
-        tls = np.unique(tls[tls > l])
-        if len(tls):
-            np.maximum.at(levels, tls, levels[l] + 1)
-
-    seg = np.searchsorted(np.asarray(segment_bounds, dtype=np.int64),
-                          np.arange(num_lumps), side="right")
-    if pad_fn is not None:
-        prp, cp = pad_fn(below, widths)
-    else:
-        prp, cp = below, widths
-    order = np.lexsort((np.arange(num_lumps), cp, prp, levels, seg))
-
-    # span renumbering: spans follow their lumps, preserving in-lump order
-    new_span_order = np.concatenate(
-        [np.arange(lump_to_span[o], lump_to_span[o + 1]) for o in order]) \
-        if num_lumps else np.empty(0, np.int64)
-    span_old_to_new = inverse_permutation(new_span_order)
-    return order, span_old_to_new
 
 
 def _bottom_permutation(settings: "Settings", ss: SparseStructure,
@@ -1046,35 +993,6 @@ def create_solver(settings: Settings, param_sizes, ss: SparseStructure,
     if len(full_ranges) == 1:
         full_ranges = []
     full_elim_end = full_ranges[-1] if full_ranges else 0
-
-    if settings.level_reorder:
-        # optional: reorder lumps to (segment, level, shape) so
-        # planned-backend buckets become contiguous storage slices
-        span_sizes = full_span_start[1:] - full_span_start[:-1]
-        segment_bounds = sorted(set(
-            list(full_ranges[1:]) +
-            ([len(param_sizes) - len(elim_last)] if elim_last else [])))
-        lump_order, span_old_to_new = _level_shape_reorder(
-            span_sizes, full_lump_to_span, full_col_start, full_row_param,
-            segment_bounds, _pad_fn_for(settings))
-        counts = (full_lump_to_span[1:] - full_lump_to_span[:-1])[lump_order]
-        full_lump_to_span = cum_sum_vec(counts)
-        new_span_sizes = np.empty_like(span_sizes)
-        new_span_sizes[span_old_to_new] = span_sizes
-        full_span_start = cum_sum_vec(new_span_sizes)
-        col_lens_old = full_col_start[1:] - full_col_start[:-1]
-        col_lens = col_lens_old[lump_order]
-        new_col_start = cum_sum_vec(col_lens)
-        new_row_param = np.empty_like(full_row_param)
-        old_col_start = full_col_start
-        for k, o in enumerate(lump_order):
-            rows = span_old_to_new[
-                full_row_param[old_col_start[o]:old_col_start[o + 1]]]
-            rows.sort()
-            new_row_param[new_col_start[k]:new_col_start[k + 1]] = rows
-        full_col_start = new_col_start
-        full_row_param = new_row_param
-        full_inv_perm = span_old_to_new[full_inv_perm]
 
     skel = CoalescedBlockMatrixSkel(full_span_start, full_lump_to_span,
                                     full_col_start, full_row_param,

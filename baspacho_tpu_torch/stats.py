@@ -269,11 +269,10 @@ def profile_factor(solver, data, reps: int = 5) -> ProfileRecords:
     out = ProfileRecords()
     with _device_scope(dev):
         timer = _Timer(dev, reps)
-        sched = be._factor_schedule(0, nl)
         levels = be._factor_levels(0, nl, dev)
         ext = factor_input(data if batched else data[None], be._pad_idx(dev))
-        for level, (_, pairs, _, _) in zip(levels, sched):
-            buckets, csr, _, dense = level
+        for level in levels:
+            buckets, csr, dense = level.buckets, level.csr, level.dense
             prod = be._level_prod(ext, level)
             if buckets:
                 lo, hi = _panel_span(buckets)
@@ -300,8 +299,8 @@ def profile_factor(solver, data, reps: int = 5) -> ProfileRecords:
                     n = int(dense.rec.shape[0] + dense.w_tile.shape[0])
                     out.append(("dense_upd", dense.R, n, 0, t))
                 else:
-                    out.append(("asmbl", len(pairs.rs),
-                                int((pairs.rs * pairs.cs).sum()), 0, t))
+                    out.append(("asmbl", level.pairs, level.elements, 0,
+                                t))
                 restore_mid()
                 del mid
             be._level_update(ext, prod, level, kernels)
@@ -383,8 +382,7 @@ def profile_solve(solver, factor_data, rhs, reps: int = 5) -> ProfileRecords:
     below rows itself — and no record. `output` is the replayed solution,
     equal to solver.solve(factor_data, rhs) bit for bit."""
     be = _planned(solver)
-    sk = solver.skel
-    nl = sk.num_lumps
+    nl = solver.skel.num_lumps
     data = solver._as_tensor(factor_data)
     v = solver._as_tensor(rhs)
     solver._check_data(data)
@@ -394,22 +392,15 @@ def profile_solve(solver, factor_data, rhs, reps: int = 5) -> ProfileRecords:
     if not batched:
         data, v = data[None], v[None]
     data = data.contiguous()
-    elim_end_lump = 0
-    if solver.sparse_elim_ranges:
-        elim_end_lump = int(sk.span_to_lump[solver.sparse_elim_ranges[-1]])
     dev = solver.device
     out = ProfileRecords()
     with _device_scope(dev):
         timer = _Timer(dev, reps)
         levels = be._solve_levels(0, nl, dev)
-        hosts = be._solve_schedule(0, nl)
         vv = v.clone(memory_format=torch.contiguous_format)
 
-        def stage(b, lb, y, base, transpose, restore):
-            is_elim = elim_end_lump > 0 and lb.members is not None and \
-                len(lb.members) > 0 and \
-                bool(np.all(np.asarray(lb.members) < elim_end_lump))
-            diag = ("sparseElimSolve" if is_elim else "solve") + \
+        def stage(b, elim, y, base, transpose, restore):
+            diag = ("sparseElimSolve" if elim else "solve") + \
                 ("Lt" if transpose else "L")
             B = int(b.off.shape[0])
 
@@ -424,17 +415,18 @@ def profile_solve(solver, factor_data, rhs, reps: int = 5) -> ProfileRecords:
                     ("gemvT" if transpose else "gemv", b.cp, b.rp * B, 0,
                      timer.diff(t, t0))]
 
-        for level, lbs in zip(levels, hosts):
+        for level in levels:
             pre = vv.clone()
             y = be._level_y(vv, level)
 
             def restore(src=pre):
                 vv.copy_(src)
-            for b, lb, base in zip(level[0], lbs, level[1]):
-                out.extend(stage(b, lb, y, base, False, restore))
+            for b, elim, base in zip(level.buckets, level.elim,
+                                     level.row_base):
+                out.extend(stage(b, elim, y, base, False, restore))
             restore()
             be._l_buckets(level, True, data, vv, y, kernels)
-            csr = level[3]
+            csr = level.csr
             if csr.n_tgt:
                 mid = vv.clone()
 
@@ -443,16 +435,16 @@ def profile_solve(solver, factor_data, rhs, reps: int = 5) -> ProfileRecords:
                 t = timer(restore_mid, lambda: be._l_scatter(level, vv, y,
                                                              kernels))
                 out.append(("assembleVec", csr.n_tgt,
-                            sum(b.rp > 0 for b in level[0]), 0, t))
+                            sum(b.rp > 0 for b in level.buckets), 0, t))
                 restore_mid()
             be._l_scatter(level, vv, y, kernels)
-        for level, lbs in zip(reversed(levels), reversed(hosts)):
+        for level in reversed(levels):
             pre = vv.clone()
 
             def restore(src=pre):
                 vv.copy_(src)
-            for b, lb in zip(level[0], lbs):
-                out.extend(stage(b, lb, None, 0, True, restore))
+            for b, elim in zip(level.buckets, level.elim):
+                out.extend(stage(b, elim, None, 0, True, restore))
             restore()
             be._lt_pass([level], True, data, vv, kernels)
     out.clamped = timer.clamped

@@ -15,12 +15,16 @@ The spans:
 
   factor               Solver.factor / factor_up_to / factor_from on the
                        PLANNED backend, the whole call (checks, program
-                       lookup, the program)
+                       lookup, the program), opened in
+                       Solver._run_factor_like
   factor.input         inside it: the program's copy of its input and the
-                       padding's index_fill_ (PlannedBackend.make_factor)
-  solve                Solver.solve on the PLANNED backend, the whole call
+                       padding's index_fill_, opened in the program
+                       (PlannedBackend.make_factor)
+  solve                Solver.solve on the PLANNED backend, the whole
+                       call, opened in Solver._run_solve_like
   solve.input          inside it: the program's copy of its right-hand
-                       side (PlannedBackend.make_solve)
+                       side, opened in the program
+                       (PlannedBackend.make_solve)
   refine               Solver.solve_refined on the PLANNED backend, the
                        whole call; its solves keep their own `solve`
                        spans inside it
@@ -43,15 +47,20 @@ own; a set-up span has none. A set-up phase is read by self time (its
 span less the spans inside it), so an upload inside a layout counts
 once.
 
-While tracing is on, the facade hands the PLANNED factor and solve
-programs a timing shim over the kernel wrappers (`kernels.timed`), which
-adds each wrapper call's host ns (on the card: checks, pointers, the
-stream, the ctypes call; on the CPU the plain twin) to its counter's
-`host_ns`; Solver.add_mv_from hands its PLANNED program the same shim, so
-K5's host ns land in `COUNTS["add_mv"]` / `COUNTS["wide_add_mv"]`. Off, a
-facade call costs one test of `ON` and the programs get the plain
-`kernels` module; a set-up span costs one test. The chained
-and sharded programs have no spans.
+One test in the facade (Solver._tracing: tracing is on and the backend
+is PLANNED) decides whether a call is traced. A traced call opens the
+facade's spans (factor, solve, refine and refine's own), and the facade
+hands the PLANNED factor and solve programs a timing shim over the
+kernel wrappers (`kernels.timed`), which adds each wrapper call's host
+ns (on the card: checks, pointers, the stream, the ctypes call; on the
+CPU the plain twin) to its counter's `host_ns`; Solver.add_mv_from hands
+its PLANNED program the same shim, so K5's host ns land in
+`COUNTS["add_mv"]` / `COUNTS["wide_add_mv"]`. Off, a facade call costs
+that test and an empty context, the programs get the plain `kernels`
+module, and an input span or a set-up span costs one test of `ON`. The
+chained and sharded programs have no spans; a factor or solve program
+called outside the facade while tracing is on records its input span
+alone, with no call id.
 """
 
 from __future__ import annotations
@@ -105,11 +114,6 @@ def span(name: str, call: bool = False):
     if not ON:
         return _OFF
     return _record(name, call)
-
-
-def no_span(name: str):
-    """span's stand-in for a call that is not traced: does nothing."""
-    return _OFF
 
 
 @contextmanager

@@ -2916,7 +2916,7 @@ def expected_records(s) -> tuple:
 
     def stages(level, lbs, lt):
         out = []
-        for b, lb in zip(level[0], lbs):
+        for b, lb in zip(level.buckets, lbs):
             B = len(lb.off)
             elim = elim_end > 0 and len(lb.members) > 0 and \
                 bool(np.all(np.asarray(lb.members) < elim_end))
@@ -2928,9 +2928,9 @@ def expected_records(s) -> tuple:
     sol = []
     for level, lbs in zip(levels, hosts):
         sol += stages(level, lbs, False)
-        if level[3].n_tgt:
-            sol.append(("assembleVec", level[3].n_tgt,
-                        sum(b.rp > 0 for b in level[0]), 0))
+        if level.csr.n_tgt:
+            sol.append(("assembleVec", level.csr.n_tgt,
+                        sum(b.rp > 0 for b in level.buckets), 0))
     for level, lbs in zip(reversed(levels), reversed(hosts)):
         sol += stages(level, lbs, True)
     return fac, sol
@@ -3150,7 +3150,7 @@ def stats_phase(cases, name_limit: str) -> None:
         unsplit = [[b.cp, b.rp, int(b.off.shape[0])]
                    for lv in s.backend._solve_levels(0, s.skel.num_lumps,
                                                      s.device)
-                   for b in lv[0] if b.rp and not solve_split(b)]
+                   for b in lv.buckets if b.rp and not solve_split(b)]
         ev_ms = time_ms(lambda: s.factor(d), 1, warmup=1)
         if name in STATS_TRACED:
             log("stats_trace", case=name, card=name_limit, dtype="float64",

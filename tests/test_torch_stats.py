@@ -205,8 +205,8 @@ def test_solve_records_match_jax(name):
     assert shapes(tr, stage) == shapes(jr, stage)
     levels = ts.backend._solve_levels(0, ts.skel.num_lumps, ts.device)
     assert shapes(tr, ("assembleVec",)) == [
-        ("assembleVec", lv[3].n_tgt, sum(x.rp > 0 for x in lv[0]), 0)
-        for lv in levels if lv[3].n_tgt]
+        ("assembleVec", lv.csr.n_tgt, sum(x.rp > 0 for x in lv.buckets), 0)
+        for lv in levels if lv.csr.n_tgt]
     assert not shapes(tr, ("assembleVecT",))
     js.stats.record_profile(jr)
     for st in ("sparse_elim_solve_l", "sparse_elim_solve_lt",

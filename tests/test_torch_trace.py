@@ -111,11 +111,6 @@ def test_off_keeps_nothing_and_passes_the_kernels_module():
             seen.append(ops)
             return _fn(*args, ops=ops)
 
-        def traced(*args, _fn=fn):
-            seen.append(args[-1])
-            return _fn.traced(*args)
-
-        spy.traced = traced
         s._fns[key] = spy
     kernels.reset_counts()
     step(s, d, b)
@@ -192,7 +187,7 @@ def test_layout_spans():
     """K2's layouts (built on the card with the programs) record their
     plan as programs.layout and their arrays as programs.upload."""
     s = SMALL["grid10"](T)
-    csr = s.backend._solve_levels(0, s.skel.num_lumps, "cpu")[0][3]
+    csr = s.backend._solve_levels(0, s.skel.num_lumps, "cpu")[0].csr
     trace.enable(True)
     kernels.SegLayout(csr.tgt, csr.seg_ptr, csr.src_idx, "cpu")
     spans = trace.take()

@@ -155,7 +155,7 @@ def point_level(n_cams: int, dev):
     s = ba_optimizer(prob, ba_settings(T.BackendType.PLANNED, 1),
                      dev).solver
     levels = s.backend._factor_levels(0, s.skel.num_lumps, dev)
-    d = next(lv[3] for lv in levels if lv[3] is not None)
+    d = next(lv.dense for lv in levels if lv.dense is not None)
     g = torch.Generator(device=dev).manual_seed(0)
     data = torch.rand((1, s.data_size), device=dev, dtype=torch.float64,
                       generator=g)

@@ -71,7 +71,7 @@ def timed_runs(s, d) -> tuple:
                                                  dev)):
         pre = ext.clone()
         prod = be._level_prod(ext, level)
-        for b in level[0]:
+        for b in level.buckets:
             lo, hi = stats._panel_span([b])
 
             def chol(b=b):
