@@ -17,6 +17,11 @@ launch counters.
                                                      gradient / Hessian
                                                      assembly
 
+graph_replay replays a CUDA graph captured over these wrappers
+(ops/chain.py) and adds to their counters what the captured calls
+counted, so that the counters read as the eager call would; its own
+counter holds only the host ns of traced replays.
+
 Each wrapper takes the same arguments on either device. For a tensor on
 the CPU it runs the plain PyTorch twin beside it; for a CUDA tensor it
 launches the kernel or raises — there is no fallback. The kernels are
@@ -78,10 +83,15 @@ class LaunchCount:
     #                           tensor-core grids summed
 
 
-COUNTS = {name: LaunchCount() for name in (
-    "bucket_factor", "wide_factor", "segmented_subtract", "bucket_solve",
-    "wide_solve", "dense_update", "tri_solve", "wide_tri_solve", "add_mv",
-    "wide_add_mv", "grad_hess")}
+KERNELS = ("bucket_factor", "wide_factor", "segmented_subtract",
+           "bucket_solve", "wide_solve", "dense_update", "tri_solve",
+           "wide_tri_solve", "add_mv", "wide_add_mv", "grad_hess")
+# the wrappers' counters, and graph_replay's, which holds only the host
+# ns of traced replays (the replays add to the kernels' counters)
+COUNTS = {name: LaunchCount() for name in KERNELS + ("graph_replay",)}
+# the counters a capture records and a replay adds again (not host_ns)
+CAPTURED = ("launches", "grid_launches", "twin_calls", "tc_destinations",
+            "tc_records")
 
 
 def reset_counts() -> None:
@@ -107,8 +117,9 @@ def timed(ops) -> SimpleNamespace:
             return out
         return call
 
-    return SimpleNamespace(**{name: wrap(c, getattr(ops, name))
-                              for name, c in COUNTS.items()})
+    return SimpleNamespace(
+        graph_replay=wrap(COUNTS["graph_replay"], graph_replay),
+        **{name: wrap(COUNTS[name], getattr(ops, name)) for name in KERNELS})
 
 
 # ----------------------------------------------------------------------
@@ -1311,6 +1322,17 @@ def grad_hess_twin(W, hdata, grad, plan) -> None:
         flipped = off[:, None] + cc * stride[:, None] + rr
         idx = torch.where(flip[:, None], flipped, plain)
         hdata.index_add_(0, idx.reshape(-1), h.reshape(-1))
+
+
+def graph_replay(graph) -> None:
+    """Replays `graph` (ops/chain.py Captured, or a stand-in with replay()
+    and deltas) on the current stream and adds its `deltas`, the
+    (counter, field, n) triples its capture's wrapper calls counted, so
+    that a replay counts as the eager call it repeats (the slots count
+    the replays themselves: ops/chain.py GraphSlot)."""
+    graph.replay()
+    for c, field, n in graph.deltas:
+        setattr(c, field, getattr(c, field) + n)
 
 
 # the plain twins under the wrappers' names, for running a whole path

@@ -32,7 +32,9 @@ works on a copy of its input), which the JAX package, being functional,
 cannot do; make_factor_body / make_solve_body are the in-place programs
 themselves, which a chain (ops/chain.py) runs again and again on one
 buffer. make_factor / make_solve copy inside the span factor.input /
-solve.input (trace.py).
+solve.input (trace.py), and run their levels through the facade's
+GraphSlot where it hands one (ops/chain.py: replayed as a CUDA graph,
+captured or eager).
 
 One factor or solve can be split over the ranks of a torch.distributed
 process group (make_factor_sharded / make_solve_sharded, the JAX
@@ -52,6 +54,7 @@ traffic beyond the launches.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
@@ -64,6 +67,10 @@ from . import kernels
 from .ref_backend import make_pseudo_factor
 from .schedule import NARROW_MAX, DenseUpdate, LumpBucket, PlannedSchedule, \
     SegmentCSR, factor_share, pair_csr, solve_csr, solve_share
+
+
+# the factor's copy of its input outside a GraphSlot
+_UNPOOLED = nullcontext()
 
 
 @dataclass
@@ -301,14 +308,24 @@ class PlannedBackend(PlannedSchedule):
     def make_factor(self, start_lump: int, end_lump: int,
                     device) -> Callable:
         """The factor on a copy of its input, made inside the span
-        factor.input (trace.py)."""
+        factor.input (trace.py). With a `slot` (ops/chain.py GraphSlot)
+        the copy comes from its solver's memory pool and the levels run
+        through the slot: replayed, captured or eager."""
         levels = self._factor_levels(start_lump, end_lump, device)
         pad_idx = self._pad_idx(device)
 
-        def factor(data: torch.Tensor, ops=kernels) -> torch.Tensor:
-            with trace.span("factor.input"):
-                ext = factor_input(data, pad_idx)
+        def walk(ext: torch.Tensor, ops) -> None:
             self._factor_walk(levels, ext, ops)
+
+        def factor(data: torch.Tensor, ops=kernels,
+                   slot=None) -> torch.Tensor:
+            with trace.span("factor.input"), \
+                    _UNPOOLED if slot is None else slot.allocating(device):
+                ext = factor_input(data, pad_idx)
+            if slot is None:
+                walk(ext, ops)
+            else:
+                slot.run("factor.graph", walk, (ext,), ops)
             return ext
 
         return factor
@@ -442,15 +459,25 @@ class PlannedBackend(PlannedSchedule):
     def make_solve(self, start_lump: int, end_lump: int,
                    device) -> Callable:
         """The solve on a copy of its right-hand side, made inside the
-        span solve.input (trace.py)."""
+        span solve.input (trace.py). With a `slot` (ops/chain.py
+        GraphSlot) the copy is the slot's own right-hand side, the passes
+        run through the slot (replayed, captured or eager), and the
+        solution is copied out of it."""
         body = self.make_solve_body(start_lump, end_lump, device)
 
-        def solve(data: torch.Tensor, v: torch.Tensor,
-                  ops=kernels) -> torch.Tensor:
+        def solve(data: torch.Tensor, v: torch.Tensor, ops=kernels,
+                  slot=None) -> torch.Tensor:
             with trace.span("solve.input"):
-                vv = v.clone(memory_format=torch.contiguous_format)
-            body(data, vv, ops)
-            return vv
+                if slot is None:
+                    vv = v.clone(memory_format=torch.contiguous_format)
+                else:
+                    vv = slot.static_rhs(v)
+                    vv.copy_(v)
+            if slot is None:
+                body(data, vv, ops)
+                return vv
+            slot.run("solve.graph", body, (data, vv), ops)
+            return vv.clone()
 
         return solve
 

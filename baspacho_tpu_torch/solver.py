@@ -20,7 +20,11 @@ the CUDA card unless a device is named. factor_sharded / solve_sharded
 split one factor or solve over the ranks of a torch.distributed process
 group (PLANNED, one system); factor_chained / solve_chained run k
 factors or solves back to back, on the card as one CUDA graph replayed k
-times (ops/chain.py), for device time free of the host's launches.
+times (ops/chain.py), for device time free of the host's launches. On
+the card a PLANNED factor or solve call replays a CUDA graph of its
+levels where its buffers are those of the graph of its op, lump range,
+batch, nrhs and dtype (`graphs`, ops/chain.py Graphs): bit for bit the
+eager call's launches, without the host's.
 While the port's tracing is on (trace.py), a PLANNED factor or solve
 call runs inside its span with the kernel wrappers timed (one test,
 Solver._tracing, decides it); off, it costs that test and an empty
@@ -52,7 +56,7 @@ from .block_matrix import CoalescedBlockMatrixSkel
 from .computation_model import ComputationModel
 from .elimination_tree import EliminationTree
 from .ops import kernels
-from .ops.chain import chained
+from .ops.chain import Graphs, chained
 from .ops.plan import build_plan
 from .sparse_structure import SparseStructure
 from .stats import SolverStats, profile_factor, profile_solve
@@ -135,6 +139,9 @@ class Solver:
         # the chained methods' CUDA graphs (ops/chain.py), per (op,
         # backend, batch, data size, nrhs, dtype)
         self._chains: Dict[tuple, object] = {}
+        # the PLANNED factor and solve calls' graphs (ops/chain.py), per
+        # (op, start lump, end lump, batch, data size, nrhs, dtype)
+        self.graphs = Graphs()
         self.stats = SolverStats()
 
     # -- stats (reference Solver::enableStats/printStats/resetStats) ----
@@ -304,26 +311,39 @@ class Solver:
         module."""
         return trace.ON and self.backend_type == BackendType.PLANNED
 
+    def _program_args(self, op, start: int, end: int, x, nrhs: int,
+                      traced: bool) -> dict:
+        """The keyword arguments of a call of the program `op`: the timed
+        wrappers when `traced`, and for a PLANNED factor or solve its
+        GraphSlot (ops/chain.py) where `graphs` graphs calls on x's
+        device."""
+        kw = {"ops": kernels.timed(kernels)} if traced else {}
+        if self.backend_type == BackendType.PLANNED and \
+                op in ("factor", "solve"):
+            slot = self.graphs.slot(x.device, op, start, end, x.shape[0],
+                                    x.shape[1], nrhs, x.dtype)
+            if slot is not None:
+                kw["slot"] = slot
+        return kw
+
     def _run_factor_like(self, op, data, start: int, end: int, stat=None,
                          traced: bool = False):
         """The program `op` on `data`; with `stat`, the program's call
         timed into it (_timed); `traced` (_tracing), inside its span
         `op` on the timed wrappers."""
         with _span(op, traced, call=True):
-            ops = kernels.timed(kernels) if traced else None
             data = self._as_tensor(data)
             self._check_data(data)
             batched = data.ndim == 2
             fn = self.program(op, start, end)
             x = (data if batched else data[None]).contiguous()
-            out = self._timed(stat, lambda: fn(x) if ops is None
-                              else fn(x, ops=ops))
+            kw = self._program_args(op, start, end, x, 0, traced)
+            out = self._timed(stat, lambda: fn(x, **kw))
             return out if batched else out[0]
 
     def _run_solve_like(self, op, mat_data, rhs, start: int, end: int,
                         stat=None, traced: bool = False):
         with _span(op, traced, call=True):
-            ops = kernels.timed(kernels) if traced else None
             data = self._as_tensor(mat_data)
             v = self._as_tensor(rhs)
             self._check_data(data)
@@ -334,8 +354,8 @@ class Solver:
                 data, v = data[None], v[None]
             fn = self.program(op, start, end)
             data = data.contiguous()
-            out = self._timed(stat, lambda: fn(data, v) if ops is None
-                              else fn(data, v, ops=ops))
+            kw = self._program_args(op, start, end, data, v.shape[2], traced)
+            out = self._timed(stat, lambda: fn(data, v, **kw))
             if not batched:
                 out = out[0]
             return out[..., 0] if vec1d else out

@@ -25,6 +25,9 @@ The spans:
   solve.input          inside it: the program's copy of its right-hand
                        side, opened in the program
                        (PlannedBackend.make_solve)
+  factor.graph         inside `factor` or `solve`: a replay of the call's
+  solve.graph          CUDA graph (ops/chain.py GraphSlot.run), in place
+                       of the eager levels
   refine               Solver.solve_refined on the PLANNED backend, the
                        whole call; its solves keep their own `solve`
                        spans inside it
@@ -53,9 +56,10 @@ facade's spans (factor, solve, refine and refine's own), and the facade
 hands the PLANNED factor and solve programs a timing shim over the
 kernel wrappers (`kernels.timed`), which adds each wrapper call's host
 ns (on the card: checks, pointers, the stream, the ctypes call; on the
-CPU the plain twin) to its counter's `host_ns`; Solver.add_mv_from hands
-its PLANNED program the same shim, so K5's host ns land in
-`COUNTS["add_mv"]` / `COUNTS["wide_add_mv"]`. Off, a facade call costs
+CPU the plain twin) to its counter's `host_ns`, a graph's replay to
+`COUNTS["graph_replay"]`; Solver.add_mv_from hands its PLANNED program
+the same shim, so K5's host ns land in `COUNTS["add_mv"]` /
+`COUNTS["wide_add_mv"]`. Off, a facade call costs
 that test and an empty context, the programs get the plain `kernels`
 module, and an input span or a set-up span costs one test of `ON`. The
 chained and sharded programs have no spans; a factor or solve program

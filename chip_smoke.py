@@ -168,7 +168,10 @@ phase (~1.5 min with BAL 871's set-up); with `--only sharded`, the
 sharded phase (~3.5 min with BAL 871's set-up); with `--only chained`,
 the chained phase (~2 min with BAL 871's set-up); with `--only k4`,
 K4's (k4_levels on FLAT+Schur 50k, k4_ragged, k4_chunks and BAL 871,
-BAL 871's direct LM costs). Every run first checks
+BAL 871's direct LM costs); with `--only graphed` (~3 min with the
+benchmark's set-ups; in no other run), the facade's replayed factor and
+solve (graphed_case) on the benchmark's GRID 200x200 x 8 and BAL 871
+(f64 and f32). Every run first checks
 that the
 native symbolic library loads (baspacho_tpu_torch/native.py builds it
 under a lock), and fails if it does not.
@@ -205,6 +208,7 @@ import torch
 import baspacho_tpu_torch as T
 from baspacho_tpu_torch import native
 from baspacho_tpu_torch.ops import kernels
+from baspacho_tpu_torch.ops.chain import Graphs
 from baspacho_tpu_torch.ops.planned_backend import PlannedBackend
 from baspacho_tpu_torch.ops.schedule import NARROW_MAX
 from baspacho_tpu_torch.testing.flows import (ba_optimizer, ba_settings,
@@ -3596,11 +3600,26 @@ def chained_case(label: str, s, d, b, name_limit: str) -> dict:
     calls (complete_trace: every grid of every run in it; None when no
     try gave one),
     the bound of one call (program_bound), the capture's seconds and
-    its graph pool's MB."""
+    its graph pool's MB. The eager calls are the programs' own, which no
+    graph of the facade's (Solver.graphs) replays."""
     t_case = time.perf_counter()
     batch = d.shape[0] if d.ndim == 2 else 1
     nrhs = 0 if b.ndim == d.ndim else b.shape[-1]
-    f0, c_eager = counted_run(lambda: s.factor(d))
+    dd = d if d.ndim == 2 else d[None]
+    bb = (b if d.ndim == 2 else b[None])
+    bb = (bb[..., None] if nrhs == 0 else bb).contiguous()
+    fprog, sprog = s.factor_program(), s.solve_program()
+
+    def factor(x):
+        out = fprog(x if d.ndim == 2 else x[None])
+        return out if d.ndim == 2 else out[0]
+
+    def solve(f, v):
+        out = sprog(f if d.ndim == 2 else f[None],
+                    (v if d.ndim == 2 else v[None]).reshape(bb.shape))
+        return (out if d.ndim == 2 else out[0]).reshape(v.shape)
+
+    f0, c_eager = counted_run(lambda: factor(d))
     f1, c_cap = counted_run(lambda: s.factor_chained(d, 1))
     check(c_cap == c_eager, f"{label}: the factor chain's capture counted "
           f"{c_cap}, one eager factor {c_eager}")
@@ -3611,10 +3630,10 @@ def chained_case(label: str, s, d, b, name_limit: str) -> dict:
     check(not c_rep, f"{label}: factor_chained replays counted {c_rep}")
     want = d
     for _ in range(kf):
-        want = s.factor(want)
+        want = factor(want)
     check(same_bits(fk, want), f"{label}: factor_chained(d, {kf}) differs "
           f"from {kf} factors")
-    x0, cs_eager = counted_run(lambda: s.solve(f0, b))
+    x0, cs_eager = counted_run(lambda: solve(f0, b))
     x1, cs_cap = counted_run(lambda: s.solve_chained(f0, b, 1))
     check(cs_cap == cs_eager, f"{label}: the solve chain's capture counted "
           f"{cs_cap}, one eager solve {cs_eager}")
@@ -3624,24 +3643,21 @@ def chained_case(label: str, s, d, b, name_limit: str) -> dict:
     check(not cs_rep, f"{label}: solve_chained replays counted {cs_rep}")
     want = b
     for _ in range(ks):
-        want = s.solve(f0, want)
+        want = solve(f0, want)
     check(same_bits(xk, want), f"{label}: solve_chained(F, b, {ks}) "
           f"differs from {ks} solves")
     check(bool(torch.isfinite(xk).all()), f"{label}: solve chain not finite")
-    check(same_bits(s.factor(d), f0), f"{label}: an eager factor after the "
+    check(same_bits(factor(d), f0), f"{label}: an eager factor after the "
           "graphs differs from the one before")
-    dd = d if d.ndim == 2 else d[None]
-    bb = (b if d.ndim == 2 else b[None])
-    bb = (bb[..., None] if nrhs == 0 else bb).contiguous()
     ff = f0 if d.ndim == 2 else f0[None]
     row = {"batch": batch, "nrhs": max(nrhs, 1), "dtype": str(d.dtype)[6:],
            "card": name_limit}
     for op, graph_op, chain, eager, prog in (
             ("factor", "factor", lambda k: s.factor_chained(d, k),
-             lambda: s.factor(d),
+             lambda: factor(d),
              lambda ops: s.factor_program()(dd, ops=ops)),
             ("solve", "solve_body", lambda k: s.solve_chained(f0, b, k),
-             lambda: s.solve(f0, b),
+             lambda: solve(f0, b),
              lambda ops: s.solve_program()(ff, bb, ops=ops))):
         g = chain_graph(s, graph_op, batch, 0 if op == "factor" else
                         max(nrhs, 1), d.dtype)
@@ -3786,6 +3802,149 @@ def chained_only(dev, name_limit: str) -> int:
     return 0
 
 
+GRAPHED_CELLS = (("grid-200-b8.refactor", "float64"),
+                 ("bal-871.refactor", "float64"),
+                 ("bal-871.refactor", "float32"))
+GRAPHED_SEED = 2718281828
+GRAPHED_REPS = 10
+
+
+def graphed_case(label: str, s, a: torch.Tensor, rhs: torch.Tensor,
+                 name_limit: str) -> dict:
+    """The facade's replayed factor and solve (ops/chain.py GraphSlot) on
+    the matrices `a` (batch, data_size) and right-hand side `rhs` (batch,
+    order, 1): three calls, each dropped before the next (eager, capture,
+    replay), bitwise the programs' eager call on the same input; the
+    counters of a replayed step equal to an eager step's; a held factor
+    unchanged by the next factor (a new buffer, run eagerly) and the
+    solves of both bitwise eager; a step inside the caller's own capture
+    eager (no slot) and bitwise, replayed; host and event ms per step,
+    eager and replayed; peak memory and the graphs' pools."""
+    fprog, sprog = s.factor_program(), s.solve_program()
+    s.graphs = Graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def eager_step(x):
+        f = fprog(x)
+        return f, sprog(f, rhs)
+
+    def graphed_step(x):
+        f = s.factor(x)
+        return f, s.solve(f, rhs)
+
+    def counts(run) -> dict:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        run()
+        torch.cuda.synchronize()
+        return {k: tuple(getattr(c, f) for f in kernels.CAPTURED)
+                for k, c in kernels.COUNTS.items()
+                if any(getattr(c, f) for f in kernels.CAPTURED)}
+
+    fe, xe = eager_step(a)
+    c_eager = counts(lambda: eager_step(a))
+    for i in range(3):
+        f, x = graphed_step(a)
+        check(same_bits(f, fe) and same_bits(x, xe),
+              f"{label}: graphed call {i} differs from the eager call")
+        del f, x
+    slots = {k[0]: sl for k, sl in s.graphs.slots.items()}
+
+    def kinds_of(sl):
+        return sl.eager, sl.captures, sl.replays
+
+    kinds = {op: kinds_of(sl) for op, sl in slots.items()}
+    check(kinds == {"factor": (1, 1, 1), "solve": (1, 1, 1)},
+          f"{label}: eager, captures, replays per slot {kinds}, want "
+          "(1, 1, 1) each")
+    c_replay = counts(lambda: graphed_step(a))
+    replays = {op: kinds_of(sl) for op, sl in slots.items()}
+    check(c_replay == c_eager and
+          replays == {"factor": (1, 1, 2), "solve": (1, 1, 2)},
+          f"{label}: a replayed step counts {c_replay} (eager, captures, "
+          f"replays per slot {replays}), an eager step {c_eager}")
+    # a held factor: the next factor takes a new buffer and runs eagerly
+    a2 = a.clone()
+    a2[:, torch.as_tensor(s.skel.damp_indices(), device=a.device)] += 1.0
+    f2e, x2e = eager_step(a2)
+    f1 = s.factor(a)
+    keep = f1.clone()
+    n_replays = slots["factor"].replays
+    f2 = s.factor(a2)
+    check(f2.data_ptr() != f1.data_ptr() and
+          slots["factor"].replays == n_replays and same_bits(f1, keep)
+          and same_bits(f1, fe) and same_bits(f2, f2e),
+          f"{label}: a held factor changed, or the next factor differs")
+    check(same_bits(s.solve(f1, rhs), xe) and same_bits(s.solve(f2, rhs),
+                                                        x2e),
+          f"{label}: the solves of a held factor and the next differ")
+    # inside the caller's own capture the facade runs eagerly into it
+    calls = {op: sum(kinds_of(sl)) for op, sl in slots.items()}
+    user = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(user):
+        fu, xu = graphed_step(a)
+    user.replay()
+    torch.cuda.synchronize()
+    check(same_bits(fu, fe) and same_bits(xu, xe) and
+          calls == {op: sum(kinds_of(sl)) for op, sl in slots.items()},
+          f"{label}: a factor and solve captured by the caller differ, "
+          "or went through the slots")
+    del f1, f2, keep, fe, xe, f2e, x2e, user, fu, xu
+    # a steady loop of replays, and its peak memory
+    for _ in range(3):
+        graphed_step(a)
+    torch.cuda.synchronize()
+    ms = {}
+    for kind, step in (("eager", eager_step), ("graphed", graphed_step)):
+        t0 = time.perf_counter()
+        ms[kind + "_event_ms"] = time_ms(lambda: step(a), GRAPHED_REPS)
+        ms[kind + "_host_ms"] = (time.perf_counter() - t0) * 1e3 / \
+            (GRAPHED_REPS + 2)
+    row = {"batch": a.shape[0], "dtype": str(a.dtype), **ms,
+           "slots": {op: {"eager": sl.eager, "captures": sl.captures,
+                          "replays": sl.replays,
+                          "capture_s": sl.graph.capture_s,
+                          "graph_pool_mb": sl.graph.pool_bytes / 2 ** 20}
+                     for op, sl in slots.items()},
+           "launches_per_step": sum(v[1] for v in c_eager.values()),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    log("graphed", case=label, card=name_limit, bitwise_equal_to_eager=True,
+        held_factor_unchanged=True, **row)
+    return row
+
+
+def graphed_only(dev, name_limit: str) -> int:
+    """`--only graphed`: the build, then graphed_case on the benchmark's
+    GRID 200x200 x 8 (f64) and BAL 871 (f64, and its matrix in f32),
+    each a seed's damped matrix and right-hand side from perfbench's
+    cells."""
+    from perfbench import harness
+    t0 = time.perf_counter()
+    log("build", library=kernels.build())
+    kernels._lib()
+    rows, cells = {}, {}
+    for workload, dtype in GRAPHED_CELLS:
+        if workload not in cells:
+            cells.clear()
+            torch.cuda.empty_cache()
+            _, cfg, traffic = harness.cell_spec(harness.benchmark(),
+                                                workload)
+            cell = cells[workload] = harness.Cell(cfg, traffic, dev, {})
+            cell.load(GRAPHED_SEED)
+        cell = cells[workload]
+        mix = cell.mix
+        a = mix.damped.to(getattr(torch, dtype))
+        rhs = mix.rhs.to(a.dtype)
+        rows[f"{workload} {dtype}"] = graphed_case(
+            f"{workload} {dtype}", cell.solver, a, rhs, name_limit)
+    log("graphed_only", seconds=time.perf_counter() - t0)
+    print(card(), flush=True)
+    return 0
+
+
 def main(argv=()) -> int:
     # 1. card
     if not torch.cuda.is_available():
@@ -3814,7 +3973,8 @@ def main(argv=()) -> int:
             "k2": functools.partial(level_only, "k2"),
             "k3r": functools.partial(level_only, "k3r"),
             "stats": stats_only, "sharded": sharded_only,
-            "chained": chained_only, "k4": k4_only}
+            "chained": chained_only, "k4": k4_only,
+            "graphed": graphed_only}
     if len(argv) == 2 and argv[0] == "--only" and argv[1] in only:
         return only[argv[1]](dev, name_limit)
     if argv:
